@@ -1,0 +1,265 @@
+"""Scene queries: trace, occlude, interact, light sampling (counterpart of
+echorenderer_tpu/evaluation/scene_ops.py), batched over a leading lane
+axis on the scene's device.
+
+Accelerator rule, as in the JAX package: scenes under LINEAR_THRESHOLD
+prims take the plain dense broadcast; every other prepared scene (up to
+the 65535 padded prims `prepare_scene` accepts) takes the dense chunk
+kernels of ops/pallas_intersect.py.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..ops.intersect import INF, Hit, intersect_linear, occlude_linear, sphere_uv
+from ..ops.pallas_intersect import intersect_pallas, occlude_pallas
+from ..scene.materials import EMISSIVE, INVISIBLE
+from ..scene.prepare import (
+    LIGHT_AMBIENT,
+    LIGHT_DIRECTIONAL,
+    LIGHT_EMISSIVE_TRI,
+    LIGHT_POINT,
+    PreparedScene,
+)
+from ..utils import rng as rng_mod
+from ..utils import vec
+from .bsdf import GatheredMaterial
+
+LINEAR_THRESHOLD = 32
+
+
+def dispatch_summary(scene: PreparedScene) -> dict:
+    """Which accelerator and integrator this scene's renders take, and why."""
+    if scene.geometry.num_primitives < LINEAR_THRESHOLD:
+        acc, why = "linear", f"< {LINEAR_THRESHOLD} prims"
+    else:
+        kind = "CUDA kernel" if scene.device.type == "cuda" else "plain PyTorch version"
+        acc = "dense-stream"
+        why = f"dense chunk trace/occlude ({kind}, {scene.prim_soa.padded} padded prims)"
+    return {
+        "accelerator": acc, "accelerator_reason": why,
+        "integrator": "wavefront", "integrator_reason": "path regeneration over path_step",
+    }
+
+
+def trace(scene: PreparedScene, o, d, t_max, ignore) -> Hit:
+    if scene.geometry.num_primitives < LINEAR_THRESHOLD:
+        return intersect_linear(scene.geometry, o, d, t_max, ignore)
+    return intersect_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
+
+
+def occlude(scene: PreparedScene, o, d, t_max, ignore) -> torch.Tensor:
+    if scene.geometry.num_primitives < LINEAR_THRESHOLD:
+        return occlude_linear(scene.geometry, o, d, t_max, ignore)
+    return occlude_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
+
+
+class Contact(NamedTuple):
+    """Shading contact (reference Contact.cs)."""
+
+    point: torch.Tensor  # (N, 3)
+    geo_normal: torch.Tensor  # (N, 3)
+    shade_normal: torch.Tensor  # (N, 3)
+    uv: torch.Tensor  # (N, 2)
+    material: GatheredMaterial
+    mat_id: torch.Tensor  # (N,) int32
+
+
+def interact(scene: PreparedScene, hit: Hit, o, d) -> Contact:
+    """Shading contact for each lane's hit (lanes without hits get clamped
+    garbage that callers mask): one packed-row gather per prim and one
+    per material."""
+    prim = torch.clamp(hit.prim, min=0).long()
+    row = scene.shade_pack[prim]  # (N, 24)
+    is_sph = row[..., 20] > 0.5
+
+    point = o + d * hit.t[..., None]
+
+    u, v = hit.uv[..., 0], hit.uv[..., 1]
+    w = 1.0 - u - v
+    tri_geo = row[..., 0:3]
+    tri_shade = vec.normalize(
+        w[..., None] * row[..., 3:6] + u[..., None] * row[..., 6:9] + v[..., None] * row[..., 9:12]
+    )
+    tri_uv = w[..., None] * row[..., 12:14] + u[..., None] * row[..., 14:16] + v[..., None] * row[..., 16:18]
+    sph_center = row[..., 0:3]
+    sph_radius = row[..., 3]
+    sph_geo = vec.normalize(point - sph_center)
+    geo_n = torch.where(is_sph[..., None], sph_geo, tri_geo)
+    shade_n = torch.where(is_sph[..., None], sph_geo, tri_shade)
+    sph_uv = sphere_uv(point - sph_center, sph_radius)
+    uv_out = torch.where(is_sph[..., None], sph_uv, tri_uv)
+    mat_id = row[..., 18].to(torch.int32)
+
+    m = scene.materials
+    mrow = scene.mat_pack[mat_id.long()]  # (N, 16)
+    mat_type = mrow[..., 10].to(torch.int32)
+    if INVISIBLE in (m.present or ()):  # OneSided wrappers: backfaces pass through
+        backface = vec.dot(geo_n, -d) < 0.0
+        one_sided = mrow[..., 12] > 0.5
+        mat_type = torch.where(backface & one_sided, INVISIBLE, mat_type)
+    material = GatheredMaterial(
+        type=mat_type,
+        albedo=mrow[..., 0:3],
+        params=mrow[..., 3:7],
+        extra=mrow[..., 7:10],
+        present=m.present if m.present else GatheredMaterial._field_defaults["present"],
+    )
+    return Contact(point=point, geo_normal=geo_n, shade_normal=shade_n, uv=uv_out,
+                   material=material, mat_id=mat_id)
+
+
+def emission_at(scene: PreparedScene, contact: Contact, wo) -> torch.Tensor:
+    """Emitted radiance toward wo (one-sided by the geometric normal)."""
+    facing = vec.dot(contact.geo_normal, wo) > 0.0
+    is_emissive = contact.material.type == EMISSIVE
+    return torch.where((facing & is_emissive)[..., None], contact.material.albedo, 0.0)
+
+
+def eval_infinite(scene: PreparedScene, d, directly_visible_only: bool) -> torch.Tensor:
+    """Infinite-light radiance along d: the constant ambient aggregate."""
+    lt = scene.lights
+    base = lt.ambient_camera if directly_visible_only else lt.ambient_all
+    return base.expand(d.shape)
+
+
+def env_pdf(scene: PreparedScene, d) -> torch.Tensor:
+    """Solid-angle pdf of ambient direction sampling (uniform sphere)."""
+    return torch.full(d.shape[:-1], 1.0 / (4.0 * math.pi), device=d.device)
+
+
+class LightSample(NamedTuple):
+    radiant: torch.Tensor  # (N, 3) emitted radiance toward the surface
+    incident: torch.Tensor  # (N, 3) direction surface -> light
+    travel: torch.Tensor  # (N,) distance to the light (INF for infinite)
+    pdf: torch.Tensor  # (N,) solid-angle pdf (1 for delta lights)
+    target_prim: torch.Tensor  # (N,) prim to ignore in the shadow ray (-1)
+    use_mis: torch.Tensor  # (N,) bool — non-delta light, MIS applies
+
+
+def pick_light(scene: PreparedScene, u) -> tuple[torch.Tensor, torch.Tensor]:
+    """Light selection by the flat power CDF: (record index, pmf)."""
+    lt = scene.lights
+    idx = torch.searchsorted(lt.cdf, u.contiguous(), right=True)
+    idx = torch.clamp(idx, 0, lt.num_lights - 1)
+    total = torch.sum(lt.power)
+    pmf = lt.power[idx] / torch.clamp(total, min=1e-20)
+    return idx.to(torch.int32), pmf
+
+
+def light_pmf(scene: PreparedScene, record) -> torch.Tensor:
+    """Probability `pick_light` returns `record` (for forward-hit MIS)."""
+    lt = scene.lights
+    ok = record >= 0
+    rec = torch.clamp(record, min=0).long()
+    total = torch.sum(lt.power)
+    p = lt.power[rec] / torch.clamp(total, min=1e-20)
+    return torch.where(ok, p, 0.0)
+
+
+def sample_light(scene: PreparedScene, record, x, u2) -> LightSample:
+    """Sample a direction/radiance from the selected light record toward
+    surface points x, branchless over kinds."""
+    lt = scene.lights
+    n = x.shape[0]
+    dev = x.device
+    record = torch.clamp(record, min=0).long()
+    kind = lt.kind[record]
+    index = lt.index[record].long()
+
+    if lt.point_pos.shape[0]:
+        pi = torch.clamp(index, 0, lt.point_pos.shape[0] - 1)
+        delta_p = lt.point_pos[pi] - x
+        dist2_p = torch.clamp(vec.length_squared(delta_p), min=1e-12)
+        dist_p = torch.sqrt(dist2_p)
+        wi_p = delta_p / dist_p[..., None]
+        rad_p = lt.point_intensity[pi] / dist2_p[..., None]
+    else:
+        wi_p = torch.zeros_like(x)
+        dist_p = torch.zeros(n, device=dev)
+        rad_p = torch.zeros_like(x)
+
+    if lt.dir_dir.shape[0]:
+        di = torch.clamp(index, 0, lt.dir_dir.shape[0] - 1)
+        wi_d = -lt.dir_dir[di]
+        rad_d = lt.dir_intensity[di].expand(x.shape)
+    else:
+        wi_d = torch.zeros_like(x)
+        rad_d = torch.zeros_like(x)
+
+    # constant ambient: uniform sphere directions
+    wi_a = rng_mod.uniform_sphere(u2)
+    amb_pdf = torch.full((n,), 1.0 / (4.0 * math.pi), device=dev)
+    rad_a = lt.ambient_all.expand(x.shape)
+
+    if lt.emissive_prim.shape[0]:
+        ei = torch.clamp(index, 0, lt.emissive_prim.shape[0] - 1)
+        prim = lt.emissive_prim[ei]
+        erow = scene.emissive_pack[ei]  # (N, 20)
+        is_sph_e = erow[..., 16] > 0.5
+
+        bary = rng_mod.uniform_triangle(u2)
+        p_tri = erow[..., 0:3] + bary[..., 0:1] * erow[..., 3:6] + bary[..., 1:2] * erow[..., 6:9]
+        n_tri = erow[..., 9:12]
+        sp_dir = rng_mod.uniform_sphere(u2)
+        p_sph = erow[..., 0:3] + sp_dir * erow[..., 3:4]
+        p_l = torch.where(is_sph_e[..., None], p_sph, p_tri)
+        n_l = torch.where(is_sph_e[..., None], sp_dir, n_tri)
+        area = erow[..., 15]
+
+        delta_e = p_l - x
+        dist2_e = torch.clamp(vec.length_squared(delta_e), min=1e-12)
+        dist_e = torch.sqrt(dist2_e)
+        wi_e = delta_e / dist_e[..., None]
+        cos_l = vec.dot(n_l, -wi_e)
+        emitted = erow[..., 12:15]
+        rad_e = torch.where((cos_l > 0.0)[..., None], emitted, 0.0)
+        pdf_e = dist2_e / torch.clamp(torch.abs(cos_l) * area, min=1e-12)
+        target_e = prim
+    else:
+        wi_e = torch.zeros_like(x)
+        dist_e = torch.zeros(n, device=dev)
+        rad_e = torch.zeros_like(x)
+        pdf_e = torch.ones(n, device=dev)
+        target_e = torch.full((n,), -1, dtype=torch.int32, device=dev)
+
+    def sel(point_v, dir_v, amb_v, emi_v):
+        out = torch.where(_exp(kind == LIGHT_POINT, point_v), point_v, 0.0)
+        out = torch.where(_exp(kind == LIGHT_DIRECTIONAL, dir_v), dir_v, out)
+        out = torch.where(_exp(kind == LIGHT_AMBIENT, amb_v), amb_v, out)
+        out = torch.where(_exp(kind == LIGHT_EMISSIVE_TRI, emi_v), emi_v, out)
+        return out
+
+    inf = torch.full((n,), INF, device=dev)
+    one = torch.ones(n, device=dev)
+    return LightSample(
+        radiant=sel(rad_p, rad_d, rad_a, rad_e),
+        incident=sel(wi_p, wi_d, wi_a, wi_e),
+        travel=sel(dist_p, inf, inf, dist_e),
+        pdf=sel(one, one, amb_pdf, pdf_e),
+        target_prim=torch.where(kind == LIGHT_EMISSIVE_TRI, target_e, -1),
+        use_mis=(kind == LIGHT_AMBIENT) | (kind == LIGHT_EMISSIVE_TRI),
+    )
+
+
+def area_light_pdf(scene: PreparedScene, prim, origin, point, geo_normal, direction):
+    """Solid-angle pdf of NEE having sampled `direction` toward the
+    emissive `prim` hit at `point`."""
+    area = scene.shade_pack[torch.clamp(prim, min=0).long(), 19]
+    delta = point - origin
+    dist2 = torch.clamp(vec.length_squared(delta), min=1e-12)
+    cos_l = torch.abs(vec.dot(geo_normal, direction))
+    return dist2 / torch.clamp(cos_l * area, min=1e-12)
+
+
+def hit_light_record(scene: PreparedScene, prim) -> torch.Tensor:
+    """Light record id of the emissive prim, or -1."""
+    return scene.lights.prim_light[torch.clamp(prim, min=0).long()]
+
+
+def _exp(mask, like):
+    return mask[..., None] if like.dim() > mask.dim() else mask

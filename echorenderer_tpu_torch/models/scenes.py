@@ -1,0 +1,184 @@
+"""Built-in benchmark scenes, the analogue of the reference's ext/Scenes
+(.echo files): a Cornell box, a material ball, a many-lights stress scene,
+and the 80-sphere field from the reference performance log
+(misc/performance.txt:4).
+
+Copied from echorenderer_tpu/models/scenes.py; its env-map and mesh-file
+scenes stay behind with the texture and model loaders this package does
+not have yet."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..scene import (
+    AmbientLight,
+    BoxEntity,
+    Conductor,
+    CoatedDiffuse,
+    Dielectric,
+    Diffuse,
+    Emissive,
+    PerspectiveCamera,
+    PlaneEntity,
+    PointLight,
+    Scene,
+    SphereEntity,
+)
+from ..scene.entities import euler_quaternion
+
+
+def cornell_box(light_scale: float = 1.0) -> Scene:
+    """The classic Cornell box: white floor/ceiling/back, red/green walls,
+    two diffuse boxes, one emissive quad on the ceiling."""
+    scene = Scene()
+    white = Diffuse(albedo=(0.73, 0.73, 0.73))
+    red = Diffuse(albedo=(0.65, 0.05, 0.05))
+    green = Diffuse(albedo=(0.12, 0.45, 0.15))
+    light = Emissive(albedo=tuple(np.asarray([18.4, 15.6, 8.0]) * light_scale))
+
+    s = 5.0  # box half size-ish scale
+    scene.add(PlaneEntity(size=(2 * s, 2 * s), material=white, position=(0, 0, 0)))  # floor
+    scene.add(
+        PlaneEntity(size=(2 * s, 2 * s), material=white, position=(0, 2 * s, 0), rotation=(180, 0, 0))
+    )  # ceiling
+    scene.add(
+        PlaneEntity(size=(2 * s, 2 * s), material=white, position=(0, s, s), rotation=(-90, 0, 0))
+    )  # back wall
+    scene.add(
+        PlaneEntity(size=(2 * s, 2 * s), material=red, position=(-s, s, 0), rotation=(0, 0, -90))
+    )  # left wall
+    scene.add(
+        PlaneEntity(size=(2 * s, 2 * s), material=green, position=(s, s, 0), rotation=(0, 0, 90))
+    )  # right wall
+    scene.add(
+        PlaneEntity(size=(0.5 * s, 0.5 * s), material=light, position=(0, 2 * s - 1e-3, 0), rotation=(180, 0, 0))
+    )  # area light
+
+    scene.add(
+        BoxEntity(size=(3, 6, 3), material=white, position=(-1.9, 3.0, 1.6), rotation=(0, 20, 0))
+    )
+    scene.add(
+        BoxEntity(size=(3, 3, 3), material=white, position=(2.0, 1.5, -1.3), rotation=(0, -18, 0))
+    )
+
+    cam = PerspectiveCamera(field_of_view=42.0, position=(0, s, -3.2 * s))
+    cam.look_at((0, s, 0))
+    scene.add(cam)
+    return scene
+
+
+def material_ball(material=None) -> Scene:
+    """A single sphere on a plane under an area light and ambient sky —
+    the material showcase (reference ext/Scenes material ball)."""
+    scene = Scene()
+    mat = material or Dielectric(albedo=(1.0, 1.0, 1.0), roughness=0.15, refractive_index=1.5)
+    scene.add(PlaneEntity(size=(40, 40), material=Diffuse(albedo=(0.4, 0.4, 0.4))))
+    scene.add(SphereEntity(radius=1.0, material=mat, position=(0, 1.0, 0)))
+    scene.add(
+        SphereEntity(
+            radius=0.5,
+            material=Conductor(albedo=(0.95, 0.64, 0.54), roughness=0.1),
+            position=(2.0, 0.5, -1.0),
+        )
+    )
+    scene.add(
+        SphereEntity(
+            radius=0.5,
+            material=CoatedDiffuse(albedo=(0.2, 0.3, 0.8), refractive_index=1.5),
+            position=(-2.0, 0.5, -1.0),
+        )
+    )
+    scene.add(
+        PlaneEntity(
+            size=(4, 4),
+            material=Emissive(albedo=(8.0, 7.6, 7.2)),
+            position=(0, 8, 0),
+            rotation=(180, 0, 0),
+        )
+    )
+    scene.add(AmbientLight(intensity=(0.06, 0.07, 0.09)))
+    cam = PerspectiveCamera(field_of_view=40.0, position=(0, 2.2, -7.0))
+    cam.look_at((0, 0.9, 0))
+    scene.add(cam)
+    return scene
+
+
+def many_lights(count: int = 128, seed: int = 5) -> Scene:
+    """Hundreds of emissive spheres over a diffuse plane — exercises the
+    light selection machinery (BASELINE.json config #3)."""
+    rs = np.random.RandomState(seed)
+    scene = Scene()
+    scene.add(PlaneEntity(size=(60, 60), material=Diffuse(albedo=(0.5, 0.5, 0.5))))
+    for _ in range(count):
+        pos = np.array([rs.uniform(-20, 20), rs.uniform(0.3, 6.0), rs.uniform(-20, 20)])
+        color = rs.uniform(0.2, 6.0, 3)
+        scene.add(
+            SphereEntity(radius=rs.uniform(0.05, 0.25), material=Emissive(albedo=tuple(color)), position=pos)
+        )
+    # a few matte objects to catch the light
+    for _ in range(24):
+        pos = np.array([rs.uniform(-12, 12), 0.6, rs.uniform(-12, 12)])
+        scene.add(SphereEntity(radius=0.6, material=Diffuse(albedo=tuple(rs.uniform(0.2, 0.9, 3))), position=pos))
+    cam = PerspectiveCamera(field_of_view=55.0, position=(0, 7, -22))
+    cam.look_at((0, 0.5, 0))
+    scene.add(cam)
+    return scene
+
+
+def sphere_field(count: int = 80, seed: int = 3) -> Scene:
+    """~80 random spheres, the reference's original benchmark scene
+    (misc/performance.txt:4 '80 spheres')."""
+    rs = np.random.RandomState(seed)
+    scene = Scene()
+    scene.add(PlaneEntity(size=(100, 100), material=Diffuse(albedo=(0.6, 0.6, 0.6))))
+    makers = [
+        lambda c: Diffuse(albedo=tuple(c)),
+        lambda c: Conductor(albedo=tuple(c), roughness=0.08),
+        lambda c: Dielectric(albedo=(1, 1, 1), roughness=0.0, refractive_index=1.5),
+        lambda c: Emissive(albedo=tuple(np.asarray(c) * 4.0)),
+    ]
+    for _ in range(count):
+        r = rs.uniform(0.3, 1.2)
+        pos = np.array([rs.uniform(-16, 16), r, rs.uniform(-16, 16)])
+        c = rs.uniform(0.2, 0.95, 3)
+        mat = makers[rs.randint(len(makers))](c)
+        scene.add(SphereEntity(radius=r, material=mat, position=pos))
+    scene.add(AmbientLight(intensity=(0.5, 0.6, 0.75)))
+    cam = PerspectiveCamera(field_of_view=60.0, position=(0, 6, -24), lens_radius=0.0)
+    cam.look_at((0, 1, 0))
+    scene.add(cam)
+    return scene
+
+
+def instanced_grid(side: int = 3, seed: int = 11) -> Scene:
+    """A TLAS showcase: ONE two-sphere pack instanced side*side times with
+    per-instance transforms and material swatches (reference
+    Scenic/Hierarchies/PackInstance.cs + SwatchExtractor) — exercises the
+    instance-leaf traversal path end-to-end."""
+    from ..scene import EntityPack, PackInstance
+
+    rs = np.random.RandomState(seed)
+    base = Diffuse(albedo=(0.8, 0.8, 0.8))
+    pack = EntityPack()
+    pack.add(SphereEntity(radius=0.5, material=base))
+    pack.add(SphereEntity(radius=0.22, material=Conductor(
+        albedo=(0.9, 0.7, 0.3), roughness=0.15), position=(0, 0.75, 0)))
+
+    scene = Scene()
+    scene.add(PlaneEntity(size=(40, 40), material=Diffuse(albedo=(0.5, 0.5, 0.5))))
+    for i in range(side):
+        for j in range(side):
+            c = rs.uniform(0.2, 0.95, 3)
+            scene.add(PackInstance(
+                pack,
+                material_swatch={base: Diffuse(albedo=tuple(c))},
+                position=(2.2 * (i - (side - 1) / 2), 0.5,
+                          2.2 * (j - (side - 1) / 2)),
+                scale=float(rs.uniform(0.7, 1.2)),
+            ))
+    scene.add(AmbientLight(intensity=(0.55, 0.6, 0.7)))
+    cam = PerspectiveCamera(field_of_view=55.0, position=(0, 4.5, -8.5))
+    cam.look_at((0, 0.4, 0))
+    scene.add(cam)
+    return scene

@@ -1,0 +1,93 @@
+"""Carry prepared-scene tables between the JAX package and this port.
+
+Tables travel as a flat dict of numpy arrays keyed by the JAX
+`PreparedScene` field paths ("geometry.tri_v0", "prim_soa.ax",
+"lights.cdf", "materials.present", "camera.kind", ...). `to_arrays`
+writes a port scene in that form; `from_jax_arrays` builds a port scene
+from it, so both packages can be fed identical tables and a difference in
+preparation cannot hide a difference in the physics.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.intersect import FlatGeometry
+from ..ops.pallas_intersect import PrimSoA
+from .prepare import LightTable, MaterialTable, PackedCamera, PreparedScene
+
+_ROWS = ("ax", "ay", "az", "bx", "by", "bz", "cx", "cy", "cz", "is_sphere")
+_INT_FIELDS = {
+    "geometry.tri_mat", "geometry.sph_mat", "materials.type", "materials.one_sided",
+    "materials.albedo_tex", "lights.kind", "lights.index", "lights.emissive_prim",
+    "lights.emissive_inst", "lights.emissive_light", "lights.prim_light",
+    "prim_soa.order", "prim_soa.inv_order",
+}
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x)
+
+
+def to_arrays(scene: PreparedScene) -> dict[str, np.ndarray]:
+    """The scene's tables under the JAX package's field paths."""
+    out: dict[str, np.ndarray] = {}
+    for group in ("geometry", "materials", "lights", "camera"):
+        table = getattr(scene, group)
+        for name, value in zip(table._fields, table):
+            out[f"{group}.{name}"] = _np(value)
+    soa = scene.prim_soa
+    rows = _np(soa.rows)
+    for k, name in enumerate(_ROWS):
+        out[f"prim_soa.{name}"] = rows[k: k + 1]
+    for name in ("chunk_bounds", "super_bounds", "order", "inv_order", "num_tris", "num_prims"):
+        out[f"prim_soa.{name}"] = _np(getattr(soa, name))
+    for name in ("shade_pack", "mat_pack", "emissive_pack"):
+        out[name] = _np(getattr(scene, name))
+    return out
+
+
+def from_jax_arrays(tables: dict[str, np.ndarray], device="cpu") -> PreparedScene:
+    """A port `PreparedScene` on `device` from the JAX scene's flattened
+    tables (extra keys, such as the BVH nodes, are ignored)."""
+    device = torch.device(device)
+
+    def put(key):
+        a = np.asarray(tables[key])
+        a = a.astype(np.int32) if key in _INT_FIELDS else a.astype(np.float32)
+        return torch.as_tensor(a.copy(), device=device)  # copy: C order, keeps 0-d
+
+    def group(cls, prefix, statics=()):
+        vals = {}
+        for name in cls._fields:
+            key = f"{prefix}.{name}"
+            if name in statics:
+                vals[name] = statics[name](tables[key])
+            else:
+                vals[name] = put(key)
+        return cls(**vals)
+
+    rows = np.concatenate([np.asarray(tables[f"prim_soa.{r}"], np.float32) for r in _ROWS], 0)
+    soa = PrimSoA(
+        rows=torch.as_tensor(np.ascontiguousarray(rows), device=device),
+        chunk_bounds=put("prim_soa.chunk_bounds"),
+        super_bounds=put("prim_soa.super_bounds"),
+        order=put("prim_soa.order"),
+        inv_order=put("prim_soa.inv_order"),
+        num_tris=int(tables["prim_soa.num_tris"]),
+        num_prims=int(tables["prim_soa.num_prims"]),
+    )
+    return PreparedScene(
+        geometry=group(FlatGeometry, "geometry"),
+        materials=group(MaterialTable, "materials",
+                        {"present": lambda a: tuple(int(t) for t in np.asarray(a).reshape(-1))}),
+        lights=group(LightTable, "lights"),
+        camera=group(PackedCamera, "camera", {"kind": lambda a: int(a)}),
+        prim_soa=soa,
+        shade_pack=put("shade_pack"),
+        mat_pack=put("mat_pack"),
+        emissive_pack=put("emissive_pack"),
+    )

@@ -1,0 +1,519 @@
+"""Scene preparation: mutable scene graph -> render-ready tensors on one
+device (counterpart of echorenderer_tpu/scene/prepare.py).
+
+The host walk, material interning, light census, SAH BVH order and the
+packed row layouts are the JAX package's, table for table:
+  shade_pack (P, 24)  tri: [geo_n(3) n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) mat area 0]
+                      sph: [center(3) radius .. mat area 1]
+  mat_pack (M, 16)    [albedo(3) params(4) extra(3) type tex one_sided ntex nint rtex]
+  emissive_pack (Le, 20) [v0(3) e1(3) e2(3) n(3) albedo(3) area is_sph]
+plus the dense kernels' `PrimSoA`. Every table lives on the `device` given
+to `prepare_scene`; everything downstream follows the scene's device.
+
+This package prepares non-instanced scenes without textures or env maps
+and with fewer than LIGHT_TREE_THRESHOLD finite lights, up to
+DENSE_PRIM_LIMIT padded prims. The rest raises NotImplementedError naming
+the ROADMAP.md item that brings it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..aggregation.bvh import build_bvh, geometry_bounds
+from ..ops.intersect import FlatGeometry
+from ..ops.pallas_intersect import PRIM_BLOCK, PrimSoA, build_prim_soa, pack_sorted_prims
+from . import materials as mat_mod
+from .cameras import Camera, PerspectiveCamera
+from .entities import Entity, PackInstance, Scene
+from .geometries import GeometryEntity
+from .lights import AmbientLight, DirectionalLight, PointLight
+
+_LUM = np.asarray([0.212671, 0.715160, 0.072169], np.float32)
+
+# light record kinds in the selection table
+LIGHT_POINT = 0
+LIGHT_DIRECTIONAL = 1
+LIGHT_AMBIENT = 2
+LIGHT_EMISSIVE_TRI = 3
+
+# finite-light count from which the JAX package switches to its light tree
+LIGHT_TREE_THRESHOLD = 64
+# padded prim count from which the JAX package leaves the dense kernels
+# for the packet BVH walk (scene_ops.HIER_TRACE_MIN)
+DENSE_PRIM_LIMIT = 65536
+# unrolled prim count up to which "auto" instancing bakes shared packs
+AUTO_BAKE_LIMIT = 2048
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not in the PyTorch port yet (ROADMAP.md: {item})"
+    )
+
+
+class PackedCamera(NamedTuple):
+    kind: int
+    position: torch.Tensor  # (3,)
+    rotation: torch.Tensor  # (3, 3) local->world
+    forward_length: torch.Tensor  # ()
+    lens_radius: torch.Tensor
+    focal_distance: torch.Tensor
+
+
+class MaterialTable(NamedTuple):
+    """Interned material parameter blocks. `present` lists the material
+    type ids in the scene so BSDF dispatch only evaluates those models."""
+
+    type: torch.Tensor  # (M,) int32
+    albedo: torch.Tensor  # (M, 3)
+    params: torch.Tensor  # (M, 4) [roughness, p1, p2, p3]
+    extra: torch.Tensor  # (M, 3)
+    one_sided: torch.Tensor  # (M,) int32
+    albedo_tex: torch.Tensor  # (M,) int32 texture id or -1
+    present: tuple = ()
+
+
+class LightTable(NamedTuple):
+    """Flat light records + power CDF for selection, plus per-kind data."""
+
+    kind: torch.Tensor  # (L,) int32
+    index: torch.Tensor  # (L,) int32 into the per-kind arrays
+    power: torch.Tensor  # (L,)
+    cdf: torch.Tensor  # (L,) inclusive prefix of power / total
+    point_pos: torch.Tensor  # (Lp, 3)
+    point_intensity: torch.Tensor  # (Lp, 3)
+    dir_dir: torch.Tensor  # (Ld, 3) direction the light travels
+    dir_intensity: torch.Tensor  # (Ld, 3)
+    emissive_prim: torch.Tensor  # (Le,) int32 original prim ids
+    emissive_inst: torch.Tensor  # (Le,) int32 (0: no instancing)
+    emissive_light: torch.Tensor  # (Le,) int32 back-map to light record
+    prim_light: torch.Tensor  # (P,) int32 prim -> light record or -1
+    ambient_all: torch.Tensor  # (3,) constant env radiance (indirect rays)
+    ambient_camera: torch.Tensor  # (3,) env radiance visible to camera rays
+
+    @property
+    def num_lights(self) -> int:
+        return self.kind.shape[0]
+
+
+class PreparedScene(NamedTuple):
+    """Immutable render-ready world on one device."""
+
+    geometry: FlatGeometry
+    materials: MaterialTable
+    lights: LightTable
+    camera: PackedCamera
+    prim_soa: PrimSoA
+    shade_pack: torch.Tensor  # (P, 24) float32
+    mat_pack: torch.Tensor  # (M, 16) float32
+    emissive_pack: torch.Tensor  # (Le, 20) float32
+
+    @property
+    def device(self) -> torch.device:
+        return self.shade_pack.device
+
+
+def _iter_world(entity: Entity, parent, swatch):
+    """Depth-first walk yielding (entity, world_matrix, swatch), baking
+    every PackInstance."""
+    world = parent @ entity.transform.matrix()
+    yield entity, world, swatch
+    if isinstance(entity, PackInstance):
+        merged = {**swatch, **{id(k): v for k, v in entity.material_swatch.items()}}
+        for child in entity.pack.children:
+            yield from _iter_world(child, world, merged)
+    for child in entity.children:
+        yield from _iter_world(child, world, swatch)
+
+
+class Collector:
+    """Accumulates flattened entities from one world-space walk."""
+
+    def __init__(self):
+        self.tri_v, self.tri_f, self.tri_n, self.tri_uv, self.tri_m = [], [], [], [], []
+        self.sph_c, self.sph_r, self.sph_m = [], [], []
+        self.cameras: list[tuple[Camera, np.ndarray]] = []
+        self.point_lights, self.dir_lights, self.ambient_lights = [], [], []
+
+    def add(self, entity, world, swatch, intern):
+        if isinstance(entity, GeometryEntity):
+            mat = swatch.get(id(entity.material), entity.material)
+            mid = intern(mat)
+            tris = entity.extract_triangles(world)
+            if tris is not None and len(tris["faces"]):
+                base = sum(len(v) for v in self.tri_v)
+                self.tri_v.append(np.asarray(tris["vertices"], np.float32))
+                self.tri_f.append(np.asarray(tris["faces"], np.int32) + base)
+                n = tris.get("normals")
+                u = tris.get("uvs")
+                self.tri_n.append(None if n is None else np.asarray(n, np.float32))
+                self.tri_uv.append(None if u is None else np.asarray(u, np.float32))
+                if tris.get("face_materials") is not None:
+                    fm = np.asarray(tris["face_materials"], np.int32)
+                    sub = [intern(swatch.get(id(m), m)) for m in tris["materials"]]
+                    table = np.asarray(sub + [mid], np.int32)
+                    self.tri_m.append(table[np.where(fm >= 0, fm, len(sub))])
+                else:
+                    self.tri_m.append(np.full(len(tris["faces"]), mid, np.int32))
+            sph = entity.extract_sphere(world)
+            if sph is not None:
+                self.sph_c.append(np.asarray(sph[0], np.float32))
+                self.sph_r.append(np.float32(sph[1]))
+                self.sph_m.append(np.int32(mid))
+        elif isinstance(entity, Camera):
+            self.cameras.append((entity, world))
+        elif isinstance(entity, PointLight):
+            self.point_lights.append(
+                (world[:3, 3].astype(np.float32), entity.intensity, entity.power)
+            )
+        elif isinstance(entity, DirectionalLight):
+            d = world[:3, :3] @ np.asarray([0.0, 0.0, 1.0])
+            d = (d / np.linalg.norm(d)).astype(np.float32)
+            self.dir_lights.append((d, entity.intensity, entity))
+        elif isinstance(entity, AmbientLight):
+            self.ambient_lights.append(entity)
+
+
+def build_material_arrays(materials):
+    """Interned material list -> packed parameter arrays. Textured
+    materials raise: the texture atlas is not ported."""
+    for m, _ in materials:
+        ntex = getattr(m, "normal", None)
+        if (
+            m.albedo_texture() is not None
+            or m.roughness_texture() is not None
+            or (ntex is not None and hasattr(ntex, "data"))
+        ):
+            _not_ported("a textured material", "queue 1, texture atlas")
+    mtypes = np.asarray([m.type_id for m, _ in materials], np.int32)
+    malbedo = np.stack([m.constant_albedo() for m, _ in materials], 0)
+    mparams = np.stack([m.params() for m, _ in materials], 0)
+    mextra = np.stack([m.extra_color() for m, _ in materials], 0)
+    mone = np.asarray([os for _, os in materials], np.int32)
+    return mtypes, malbedo, mparams, mextra, mone
+
+
+def assemble_triangles(tri_v, tri_f, tri_n, tri_uv, tri_m):
+    """Indexed triangle lists -> flat per-face arrays
+    (v0, e1, e2, n0, n1, n2, uv0, uv1, uv2, tmat)."""
+    verts = np.concatenate([np.asarray(v, np.float32) for v in tri_v], 0)
+    faces = np.concatenate(tri_f, 0)
+    norms, uvs = [], []
+    for v, n, u in zip(tri_v, tri_n, tri_uv):
+        norms.append(np.zeros((len(v), 3), np.float32) if n is None else np.asarray(n, np.float32))
+        uvs.append(np.zeros((len(v), 2), np.float32) if u is None else np.asarray(u, np.float32))
+    vn = np.concatenate(norms, 0)
+    vuv = np.concatenate(uvs, 0)
+    v0 = verts[faces[:, 0]]
+    v1 = verts[faces[:, 1]]
+    v2 = verts[faces[:, 2]]
+    e1, e2 = v1 - v0, v2 - v0
+    gn = np.cross(e1, e2)
+    gn /= np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+    n0, n1, n2 = vn[faces[:, 0]], vn[faces[:, 1]], vn[faces[:, 2]]
+    # faces without shading normals fall back to the geometric normal
+    for arr in (n0, n1, n2):
+        missing = np.linalg.norm(arr, axis=-1) < 1e-6
+        arr[missing] = gn[missing]
+    uv0, uv1, uv2 = vuv[faces[:, 0]], vuv[faces[:, 1]], vuv[faces[:, 2]]
+    tmat = np.concatenate(tri_m, 0)
+    return v0, e1, e2, n0, n1, n2, uv0, uv1, uv2, tmat
+
+
+def _unrolled_prim_estimate(scene: Scene) -> int | None:
+    """Total prim count if every PackInstance were baked, or None when an
+    unknown geometry type makes it unknowable without extraction."""
+    from .geometries import BoxEntity, MeshEntity, PlaneEntity, SphereEntity, TriangleEntity
+
+    unknown = False
+
+    def count(entity) -> int:
+        nonlocal unknown
+        total = 0
+        if isinstance(entity, MeshEntity):
+            total += len(entity.faces)
+        elif isinstance(entity, (TriangleEntity, SphereEntity)):
+            total += 1
+        elif isinstance(entity, PlaneEntity):
+            total += 2
+        elif isinstance(entity, BoxEntity):
+            total += 12
+        elif isinstance(entity, GeometryEntity):
+            unknown = True
+        if isinstance(entity, PackInstance):
+            total += count(entity.pack)
+        for child in entity.children:
+            total += count(child)
+        return total
+
+    n = count(scene)
+    return None if unknown else n
+
+
+def _check_instancing(scene: Scene, instancing: str) -> None:
+    """The JAX package bakes shared packs in "bake" mode, and in "auto"
+    mode when the unrolled scene is small; every other instanced scene
+    needs TLAS tables, which are not ported."""
+    if instancing == "bake":
+        return
+    counts: dict[int, int] = {}
+
+    def walk(entity):
+        if isinstance(entity, PackInstance):
+            counts[id(entity.pack)] = counts.get(id(entity.pack), 0) + 1
+            for child in entity.pack.children:
+                walk(child)
+        for child in entity.children:
+            walk(child)
+
+    walk(scene)
+    need = 1 if instancing == "tlas" else 2
+    if not any(c >= need for c in counts.values()):
+        return
+    est = _unrolled_prim_estimate(scene)
+    if instancing == "auto" and est is not None and est <= AUTO_BAKE_LIMIT:
+        return
+    _not_ported("TLAS instancing", "queue 1, instancing")
+
+
+def prepare_scene(scene: Scene, camera_name: str | None = None,
+                  instancing: str = "auto", device="cpu") -> PreparedScene:
+    """Flatten `scene` into tables on `device`."""
+    device = torch.device(device)
+    _check_instancing(scene, instancing)
+
+    materials: list = []
+    mat_index: dict = {}
+
+    def intern(mat) -> int:
+        one_sided = 0
+        if isinstance(mat, mat_mod.OneSided):
+            one_sided, mat = 1, mat.base
+        key = (id(mat), one_sided)
+        if key not in mat_index:
+            mat_index[key] = len(materials)
+            materials.append((mat, one_sided))
+        return mat_index[key]
+
+    col = Collector()
+    for entity, world, swatch in _iter_world(scene, np.eye(4), {}):
+        col.add(entity, world, swatch, intern)
+
+    # --- flat geometry ---
+    if col.tri_v:
+        v0, e1, e2, n0, n1, n2, uv0, uv1, uv2, tmat = assemble_triangles(
+            col.tri_v, col.tri_f, col.tri_n, col.tri_uv, col.tri_m
+        )
+    else:
+        # degenerate far-away invisible triangle keeps shapes non-empty
+        mid = intern(mat_mod.Invisible())
+        v0 = np.asarray([[1e7, 1e7, 1e7]], np.float32)
+        e1 = np.asarray([[1e-3, 0, 0]], np.float32)
+        e2 = np.asarray([[0, 1e-3, 0]], np.float32)
+        n0 = n1 = n2 = np.asarray([[0, 0, 1]], np.float32)
+        uv0 = uv1 = uv2 = np.zeros((1, 2), np.float32)
+        tmat = np.asarray([mid], np.int32)
+
+    sph_c, sph_r, sph_m = col.sph_c, col.sph_r, col.sph_m
+    geom_np = dict(
+        tri_v0=v0, tri_e1=e1, tri_e2=e2, tri_n0=n0, tri_n1=n1, tri_n2=n2,
+        tri_uv0=uv0, tri_uv1=uv1, tri_uv2=uv2, tri_mat=tmat,
+        sph_center=np.stack(sph_c, 0) if sph_c else np.zeros((0, 3), np.float32),
+        sph_radius=np.asarray(sph_r, np.float32) if sph_r else np.zeros(0, np.float32),
+        sph_mat=np.asarray(sph_m, np.int32) if sph_m else np.zeros(0, np.int32),
+    )
+    num_tris = geom_np["tri_v0"].shape[0]
+    num_prims = num_tris + geom_np["sph_center"].shape[0]
+    if -(-num_prims // PRIM_BLOCK) * PRIM_BLOCK >= DENSE_PRIM_LIMIT:
+        _not_ported(
+            f"a scene of {num_prims} prims (>= {DENSE_PRIM_LIMIT} padded)",
+            "queue 2, packet BVH walk",
+        )
+
+    mtypes, malbedo, mparams, mextra, mone = build_material_arrays(materials)
+
+    # --- light census ---
+    kinds, indices, powers = [], [], []
+    for i, (pos, inten, power) in enumerate(col.point_lights):
+        kinds.append(LIGHT_POINT)
+        indices.append(i)
+        powers.append(max(power, 1e-6))
+    for i, (d, inten, ent) in enumerate(col.dir_lights):
+        kinds.append(LIGHT_DIRECTIONAL)
+        indices.append(i)
+        powers.append(max(float(np.pi * _LUM @ inten), 1e-6))
+
+    ambient_all = np.zeros(3, np.float32)
+    ambient_camera = np.zeros(3, np.float32)
+    for ent in col.ambient_lights:
+        if ent.texture is not None:
+            _not_ported("a directional env map", "queue 1, env maps")
+        ambient_all += ent.intensity
+        if ent.directly_visible:
+            ambient_camera += ent.intensity
+    if float(ambient_all.sum()) > 0.0:
+        kinds.append(LIGHT_AMBIENT)
+        indices.append(0)  # the constant record (no env maps)
+        powers.append(max(float(4.0 * np.pi * (_LUM @ ambient_all)), 1e-6))
+
+    # emissive geometry census
+    emissive_prims = []
+    geo_normal = np.cross(geom_np["tri_e1"], geom_np["tri_e2"])
+    tri_area2 = np.linalg.norm(geo_normal, axis=-1)
+    geo_normal /= np.maximum(tri_area2[:, None], 1e-20)
+    tri_area = 0.5 * tri_area2
+    mat_power = np.asarray(
+        [m.power if isinstance(m, mat_mod.Emissive) else 0.0 for m, _ in materials],
+        np.float64,
+    )
+    tri_power = mat_power[geom_np["tri_mat"]]
+    for p in np.nonzero(tri_power > 0.0)[0]:
+        emissive_prims.append((int(p), float(tri_power[p] * tri_area[p] * np.pi)))
+    if geom_np["sph_center"].shape[0]:
+        sph_power = mat_power[geom_np["sph_mat"]]
+        sph_area = 4.0 * np.pi * geom_np["sph_radius"].astype(np.float64) ** 2
+        for s in np.nonzero(sph_power > 0.0)[0]:
+            emissive_prims.append(
+                (num_tris + int(s), float(sph_power[s] * sph_area[s] * np.pi))
+            )
+
+    emissive_light = []
+    for p, power in emissive_prims:
+        emissive_light.append(len(kinds))
+        kinds.append(LIGHT_EMISSIVE_TRI)
+        indices.append(len(emissive_light) - 1)
+        powers.append(max(power, 1e-6))
+
+    if not kinds:  # degenerate: a black ambient record
+        kinds, indices, powers = [LIGHT_AMBIENT], [0], [1e-6]
+
+    finite = sum(k in (LIGHT_POINT, LIGHT_EMISSIVE_TRI) for k in kinds)
+    if finite >= LIGHT_TREE_THRESHOLD:
+        _not_ported(f"a scene of {finite} finite lights (light tree)", "queue 1, light tree")
+
+    powers = np.asarray(powers, np.float64)
+    cdf = np.cumsum(powers / powers.sum()).astype(np.float32)
+    cdf[-1] = 1.0
+
+    prim_light = np.full(num_prims, -1, np.int32)
+    for (p, _), lrec in zip(emissive_prims, emissive_light):
+        prim_light[p] = lrec
+
+    put = lambda x, dt=None: torch.as_tensor(np.asarray(x, dt), device=device)
+    stack3 = lambda rows: np.stack(rows, 0) if rows else np.zeros((0, 3), np.float32)
+    lights = LightTable(
+        kind=put(kinds, np.int32),
+        index=put(indices, np.int32),
+        power=put(powers, np.float32),
+        cdf=put(cdf),
+        point_pos=put(stack3([p for p, _, _ in col.point_lights]), np.float32),
+        point_intensity=put(stack3([i for _, i, _ in col.point_lights]), np.float32),
+        dir_dir=put(stack3([d for d, _, _ in col.dir_lights]), np.float32),
+        dir_intensity=put(stack3([i for _, i, _ in col.dir_lights]), np.float32),
+        emissive_prim=put([p for p, _ in emissive_prims], np.int32),
+        emissive_inst=put(np.zeros(len(emissive_prims), np.int32)),
+        emissive_light=put(emissive_light, np.int32),
+        prim_light=put(prim_light),
+        ambient_all=put(ambient_all),
+        ambient_camera=put(ambient_camera),
+    )
+
+    # --- camera ---
+    cam_entity, cam_world = None, np.eye(4)
+    for c, w in col.cameras:
+        if camera_name is None or c.name == camera_name:
+            cam_entity, cam_world = c, w
+            break
+    if cam_entity is None:
+        cam_entity = PerspectiveCamera()
+    packed_cam = cam_entity.pack(cam_world)
+    camera = PackedCamera(
+        kind=int(packed_cam["kind"]),
+        position=put(packed_cam["position"]),
+        rotation=put(packed_cam["rotation"]),
+        forward_length=put(packed_cam["forward_length"]),
+        lens_radius=put(packed_cam["lens_radius"]),
+        focal_distance=put(packed_cam["focal_distance"]),
+    )
+
+    # --- kernel prim layout in BVH-leaf order ---
+    bmin, bmax = geometry_bounds(geom_np)
+    order = build_bvh(bmin, bmax).prim_order
+    packed = pack_sorted_prims(geom_np, order, bounds=(bmin, bmax))
+    prim_soa = build_prim_soa(geom_np, order=order, packed=packed, device=device)
+
+    materials_t = MaterialTable(
+        type=put(mtypes),
+        albedo=put(malbedo, np.float32),
+        params=put(mparams, np.float32),
+        extra=put(mextra, np.float32),
+        one_sided=put(mone),
+        albedo_tex=put(np.full(len(materials), -1, np.int32)),
+        present=tuple(
+            sorted(
+                {int(t) for t in np.unique(mtypes)}
+                | ({mat_mod.INVISIBLE} if mone.any() else set())
+            )
+        ),
+    )
+
+    # --- packed shading rows ---
+    shade = np.zeros((num_prims, 24), np.float32)
+    shade[:num_tris, 0:3] = geo_normal
+    shade[:num_tris, 3:6] = geom_np["tri_n0"]
+    shade[:num_tris, 6:9] = geom_np["tri_n1"]
+    shade[:num_tris, 9:12] = geom_np["tri_n2"]
+    shade[:num_tris, 12:14] = geom_np["tri_uv0"]
+    shade[:num_tris, 14:16] = geom_np["tri_uv1"]
+    shade[:num_tris, 16:18] = geom_np["tri_uv2"]
+    shade[:num_tris, 18] = geom_np["tri_mat"]
+    shade[:num_tris, 19] = 0.5 * tri_area2
+    if num_prims > num_tris:
+        shade[num_tris:, 0:3] = geom_np["sph_center"]
+        shade[num_tris:, 3] = geom_np["sph_radius"]
+        shade[num_tris:, 18] = geom_np["sph_mat"]
+        r = geom_np["sph_radius"]
+        shade[num_tris:, 19] = 4.0 * np.pi * r * r
+        shade[num_tris:, 20] = 1.0
+
+    mat_pack = np.zeros((len(materials), 16), np.float32)
+    mat_pack[:, 0:3] = malbedo
+    mat_pack[:, 3:7] = mparams
+    mat_pack[:, 7:10] = mextra
+    mat_pack[:, 10] = mtypes
+    mat_pack[:, 11] = -1  # albedo texture id
+    mat_pack[:, 12] = mone
+    mat_pack[:, 13] = -1  # normal-map texture id
+    mat_pack[:, 15] = -1  # roughness texture id
+
+    epack = np.zeros((len(emissive_prims), 20), np.float32)
+    for i, (p, _) in enumerate(emissive_prims):
+        if p < num_tris:
+            epack[i, 0:3] = geom_np["tri_v0"][p]
+            epack[i, 3:6] = geom_np["tri_e1"][p]
+            epack[i, 6:9] = geom_np["tri_e2"][p]
+            epack[i, 9:12] = geo_normal[p]
+            epack[i, 15] = 0.5 * tri_area2[p]
+        else:
+            s = p - num_tris
+            epack[i, 0:3] = geom_np["sph_center"][s]
+            epack[i, 3] = geom_np["sph_radius"][s]
+            epack[i, 15] = 4.0 * np.pi * float(geom_np["sph_radius"][s]) ** 2
+            epack[i, 16] = 1.0
+        mi = geom_np["tri_mat"][p] if p < num_tris else geom_np["sph_mat"][p - num_tris]
+        epack[i, 12:15] = malbedo[mi]
+
+    return PreparedScene(
+        geometry=FlatGeometry(**{k: put(v) for k, v in geom_np.items()}),
+        materials=materials_t,
+        lights=lights,
+        camera=camera,
+        prim_soa=prim_soa,
+        shade_pack=put(shade),
+        mat_pack=put(mat_pack),
+        emissive_pack=put(epack),
+    )

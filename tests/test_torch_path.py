@@ -1,0 +1,128 @@
+"""PyTorch port: the path tracer as a whole.
+
+- The port's wavefront against the JAX wavefront on 1024 lanes, both fed
+  the same prepared tables (`from_jax_arrays`) and the JAX side routed
+  through its (interpreted) dense Pallas kernels, as
+  tests/test_megakernel.py does: per-sample sums to atol/rtol 2e-3, sums
+  of squares to atol 4e-2, mean images to 1e-5 (float reduction order is
+  the only difference).
+- The port's `_sample_frame` against the committed golden images with
+  tests/test_golden.py's tolerances.
+- Importing and running the port leaves jax out of the process.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from echorenderer_tpu.evaluation import scene_ops as jscene_ops
+from echorenderer_tpu.evaluation.wavefront import sample_frame_wavefront as jwavefront
+from echorenderer_tpu.models import scenes as jscenes
+from echorenderer_tpu.scene.prepare import prepare_scene as jprepare
+from echorenderer_tpu_torch.evaluation.wavefront import sample_frame_wavefront
+from echorenderer_tpu_torch.models import scenes as tscenes
+from echorenderer_tpu_torch.processes.render import (
+    EvaluationProfile,
+    RenderProfile,
+    _sample_frame,
+    render,
+    render_layer,
+)
+from echorenderer_tpu_torch.scene.convert import from_jax_arrays
+from echorenderer_tpu_torch.scene.prepare import prepare_scene
+
+from test_torch_prepare import flatten_jax
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+GOLDEN_DIR = REPO / "tests" / "golden"
+
+
+@pytest.fixture
+def same_intersector(monkeypatch):
+    # route the JAX wavefront through the interpreted dense pallas kernel,
+    # the kernel the port's trace/occlude stand for
+    monkeypatch.setattr(jscene_ops, "_use_pallas", lambda scene: scene.prim_soa is not None)
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "sphere_field"])
+def test_wavefront_matches_jax(same_intersector, name):
+    jscene = jprepare(getattr(jscenes, name)())
+    tscene = from_jax_arrays(flatten_jax(jscene))
+    n, res = 1024, (32, 32)
+    pid = np.arange(n, dtype=np.uint32)
+    pxy = np.stack([pid % res[0], pid // res[0]], -1).astype(np.int32)
+    kw = dict(bounce_limit=3, survivability=2.5)
+    a, a2 = jwavefront(jscene, jnp.asarray(pid), jnp.asarray(pxy), res, 11,
+                       jnp.uint32(0), 2, **kw)
+    b, b2 = sample_frame_wavefront(tscene, torch.as_tensor(pid.astype(np.int64)),
+                                   torch.as_tensor(pxy), res, 11, 0, 2, **kw)
+    a, a2 = np.asarray(a), np.asarray(a2)
+    b, b2 = b.numpy(), b2.numpy()
+    assert a.sum() > 0
+    np.testing.assert_allclose(b, a, atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(b2, a2, atol=4e-2, rtol=2e-3)
+    np.testing.assert_allclose(b.mean(0), a.mean(0), atol=1e-5, rtol=1e-5)
+
+
+GOLDEN = {
+    "cornell": (tscenes.cornell_box, (32, 24), 8, 4),
+    "spheres": (lambda: tscenes.sphere_field(80), (32, 18), 4, 6),
+    "material_ball": (tscenes.material_ball, (32, 18), 4, 6),
+}
+
+
+@pytest.mark.parametrize("name", list(GOLDEN))
+def test_golden(name):
+    maker, res, spp, bounce = GOLDEN[name]
+    s_sum, _ = _sample_frame(prepare_scene(maker()), "path", res, 0, 0, spp, bounce, 2.5)
+    img = (s_sum.numpy() / spp).reshape(res[1], res[0], 3)
+    ref = np.load(GOLDEN_DIR / f"{name}.npy")
+    assert img.shape == ref.shape
+    diff = np.abs(img - ref)
+    assert diff.mean() < 5e-3, f"mean diff {diff.mean():.5f}"
+    assert np.abs(img.mean() - ref.mean()) < 2e-3
+
+
+def test_render_layer_counts_samples_and_iterations():
+    scene = prepare_scene(tscenes.cornell_box())
+    prof = EvaluationProfile(samples_per_epoch=2, max_epoch=2, bounce_limit=3, adaptive=False,
+                             noise_threshold=0.0)
+    img, info = render_layer(scene, prof, (16, 12))
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all() and img.mean() > 0
+    assert info["samples"] == 2 * 2 * 16 * 12 and info["epochs"] == 2
+    assert info["wavefront_iterations"] >= 2
+    assert info["dispatch"]["accelerator"] == "dense-stream"
+
+
+def test_unported_render_options_raise():
+    scene = prepare_scene(tscenes.material_ball())
+    with pytest.raises(NotImplementedError, match="adaptive"):
+        render_layer(scene, EvaluationProfile(max_epoch=3, adaptive=True), (8, 8))
+    with pytest.raises(NotImplementedError, match="composition"):
+        render(scene, RenderProfile(resolution=(8, 8), composition=("tonemap",)))
+
+
+def test_port_runs_without_jax():
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from echorenderer_tpu_torch.models import scenes\n"
+        "from echorenderer_tpu_torch.scene.prepare import prepare_scene\n"
+        "from echorenderer_tpu_torch.processes.render import _sample_frame\n"
+        "s, _ = _sample_frame(prepare_scene(scenes.cornell_box()), 'path', (8, 6), 0, 0, 2, 3, 2.5)\n"
+        "assert bool(torch.isfinite(s).all())\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'echorenderer_tpu' or m.startswith('echorenderer_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

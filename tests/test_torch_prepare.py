@@ -1,0 +1,112 @@
+"""PyTorch port: prepared-scene tables against the JAX package's
+`prepare_scene` on the three golden scenes (integers exact, floats to
+rtol/atol 1e-6), the `from_jax_arrays` round trip, and the scenes the
+port does not prepare yet, which must raise NotImplementedError."""
+
+import numpy as np
+import pytest
+import torch
+
+from echorenderer_tpu.models import scenes as jscenes
+from echorenderer_tpu.scene.prepare import prepare_scene as jprepare
+from echorenderer_tpu_torch.models import scenes as tscenes
+from echorenderer_tpu_torch.scene import AmbientLight, Diffuse, MeshEntity
+from echorenderer_tpu_torch.scene.convert import from_jax_arrays, to_arrays
+from echorenderer_tpu_torch.scene.prepare import prepare_scene as tprepare
+
+torch.set_num_threads(1)
+
+SCENES = {
+    "cornell_box": "cornell_box",
+    "sphere_field": "sphere_field",
+    "material_ball": "material_ball",
+}
+
+
+def flatten_jax(prepared) -> dict:
+    """The JAX PreparedScene's tables under their field paths."""
+    out = {}
+    for name, value in zip(prepared._fields, prepared):
+        if hasattr(value, "_fields"):
+            for sub, v in zip(value._fields, value):
+                if v is not None and not hasattr(v, "_fields"):
+                    out[f"{name}.{sub}"] = np.asarray(v)
+        elif value is not None and not isinstance(value, tuple):
+            out[name] = np.asarray(value)
+    return out
+
+
+def _pair(name):
+    return jprepare(getattr(jscenes, name)()), tprepare(getattr(tscenes, name)())
+
+
+def _assert_tables_equal(got: dict, ref: dict):
+    for key, value in got.items():
+        assert key in ref, key
+        want = ref[key]
+        assert value.shape == want.shape, (key, value.shape, want.shape)
+        if np.issubdtype(want.dtype, np.floating):
+            np.testing.assert_allclose(value, want, rtol=1e-6, atol=1e-6, err_msg=key)
+        else:
+            np.testing.assert_array_equal(value, want, err_msg=key)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_tables_match_jax(name):
+    jscene, tscene = _pair(name)
+    got = to_arrays(tscene)
+    assert len(got) > 40
+    _assert_tables_equal(got, flatten_jax(jscene))
+    assert all(t.device.type == "cpu" for t in tscene.geometry)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_from_jax_arrays_round_trips(name):
+    jscene, tscene = _pair(name)
+    ref = flatten_jax(jscene)
+    carried = from_jax_arrays(ref, device="cpu")
+    got = to_arrays(carried)
+    _assert_tables_equal(got, ref)
+    assert got.keys() == to_arrays(tscene).keys()
+    assert carried.materials.present == tscene.materials.present
+    assert carried.prim_soa.padded == tscene.prim_soa.padded
+
+
+def test_procedural_albedo_texture_raises():
+    from echorenderer_tpu.textures import CloudTexture
+
+    scene = tscenes.material_ball(material=Diffuse(albedo=CloudTexture()))
+    with pytest.raises(NotImplementedError, match="texture atlas"):
+        tprepare(scene)
+
+
+def test_env_map_raises():
+    """hdr_environment()'s sky is a directional texture: env maps wait."""
+    sky = next(e for e in jscenes.hdr_environment().children
+               if getattr(e, "texture", None) is not None).texture
+    scene = tscenes.material_ball()
+    scene.add(AmbientLight(intensity=(1, 1, 1), texture=sky))
+    with pytest.raises(NotImplementedError, match="env maps"):
+        tprepare(scene)
+
+
+def test_light_tree_raises():
+    with pytest.raises(NotImplementedError, match="light tree"):
+        tprepare(tscenes.many_lights(128))
+
+
+def test_large_scene_raises():
+    rs = np.random.RandomState(0)
+    scene = tscenes.material_ball()
+    scene.add(MeshEntity(vertices=rs.uniform(-5, 5, (3 * 65536, 3)),
+                         faces=np.arange(3 * 65536).reshape(-1, 3), material=Diffuse()))
+    with pytest.raises(NotImplementedError, match="packet BVH walk"):
+        tprepare(scene)
+
+
+def test_tlas_instancing_raises_and_small_auto_bakes():
+    # 4 instances of a two-sphere pack: "auto" bakes it like the JAX package
+    baked = tprepare(tscenes.instanced_grid(side=2))
+    assert baked.geometry.num_spheres == 8
+    with pytest.raises(NotImplementedError, match="instancing"):
+        tprepare(tscenes.instanced_grid(side=2), instancing="tlas")
