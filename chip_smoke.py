@@ -21,12 +21,20 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        against the wavefront: per-pixel sums to atol/rtol 2e-3 and sums of
        squares to atol 4e-2 / rtol 2e-3 on at least 99.99% of pixels, mean
        image to 1e-4 per channel; k_slots 1 and 4 bitwise equal;
+     - hier_trace / hier_occlude (the chunk-tree walk) on 2^20 random rays
+       against sphere_grid(1_000_000) (bench.py's large scene) and on every
+       call of the slice's first timed program below, recorded; the plain
+       versions on a strided subset of 65,536 rays of each call: ids, flags
+       and t/u/v bitwise equal; and sphere_grid(250_000) at 320x180, 8 spp,
+       bounce 6 rendered through the hier kernels and through the dense
+       kernels: sums bitwise equal;
      - median ms of each kernel (10 runs after a warm-up) and its plain
        version, and the bound: the larger of the float work over 67 TFLOP/s
        and the bytes over 3.35 TB/s. The float work is that of the prim
-       tests the rays of this run cannot do without (`least_flops`): chunks
-       a ray does not enter are skipped where the kernel culls, a blocked
-       shadow ray stops at its first blocker; shading is not counted.
+       tests the rays of this run cannot do without (`least_flops`,
+       `least_flops_hier`): chunks a ray does not enter before its final
+       hit are skipped where the kernel culls, a blocked shadow ray stops at
+       its first blocker; shading is not counted.
   4. golden: the cornell and spheres goldens rendered on the card through
      the megakernel and through the wavefront (dense kernels), held to
      tests/test_golden.py's tolerances.
@@ -35,9 +43,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      64 spp, bounce 16, through render_layer (the megakernel path: Mspps,
      peak memory); then the wavefront path, counters zeroed again:
      sphere_field(2400) (outside the megakernel's envelope) at 320x180,
-     8 spp through render_layer. The kernels line reports the dense
-     kernels' ms and bound per launch of that path, and the megakernel's
-     for the bench launch.
+     8 spp through render_layer; then the large-scene path, counters zeroed
+     again: bench.py's large configuration, sphere_grid(1_000_000) at
+     1920x1080, 1 spp, bounce 6, survivability 2.5, through _sample_frame:
+     a warm-up program, then 8 timed programs (sample_start 1..8): Mspps,
+     program seconds, prepare seconds, peak memory, dispatch, the liveness
+     cascade's widths, launches (hier > 0, dense and megakernel 0), mean
+     luminance. The kernels line reports the dense kernels' ms and bound
+     per launch of the wavefront path, the megakernel's for the bench
+     launch, and the hier kernels' per call of the large-scene program.
   6. summary: a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
@@ -61,6 +75,8 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
 FLOPS_TRI = 45
 FLOPS_SPH = 21
 LEAST_SLICE = 2 ** 16  # rays per pass of the least-work count
+HIER_LEAST_SLICE = 2 ** 13  # rays per pass of the chunk-tree least-work count
+HIER_SUBSET = 2 ** 16  # rays of each call the hier kernels' plain versions check
 MEGA_TOL = dict(sum_atol=2e-3, sum_rtol=2e-3, sq_atol=4e-2, sq_rtol=2e-3, share=0.9999,
                 mean=1e-4)
 DENSE_SOURCE = "echorenderer_tpu_torch/csrc/dense_intersect.cu"
@@ -68,6 +84,8 @@ MEGA_SOURCE = "echorenderer_tpu_torch/csrc/megakernel.cu"
 TRACE_SITE = "echorenderer_tpu/ops/pallas_intersect.py:322"
 OCCLUDE_SITE = "echorenderer_tpu/ops/pallas_intersect.py:400"
 MEGA_SITE = "echorenderer_tpu/ops/megakernel.py:1101"
+HIER_SOURCE = "echorenderer_tpu_torch/csrc/hier_walk.cu"
+HIER_SITE = "echorenderer_tpu/ops/pallas_hier.py:498"
 
 
 def log(*args):
@@ -152,11 +170,43 @@ def least_flops(soa, rays, ignore, t_end=None, cull=True) -> float:
     return total
 
 
+def least_flops_hier(soa, rays, t_end) -> float:
+    """Float ops of the prim tests these rays (7, N) cannot do without on
+    the chunk tree: for each ray with t_max > 0, every real prim of each
+    HCHUNK-prim chunk whose box it enters at or before t_end (its final
+    hit, its nearest blocker, else t_max). Box tests are left out, so this
+    is a lower bound."""
+    import torch
+
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    real = torch.arange(soa.padded, device=rays.device) < soa.num_prims
+    per_slot = torch.where(soa.prim_chunks[:, 9, :].reshape(-1) > 0.5, float(FLOPS_SPH),
+                           float(FLOPS_TRI)).double() * real
+    chunk_flops = per_slot.view(-1, ph.HCHUNK).sum(1)
+    cb = soa.chunk_bounds
+    total = 0.0
+    for s in range(0, rays.shape[1], HIER_LEAST_SLICE):
+        r, te = rays[:, s: s + HIER_LEAST_SLICE], t_end[s: s + HIER_LEAST_SLICE]
+        tn = tf = None
+        for a in range(3):
+            inv = pi._safe_inv(r[3 + a])[:, None]
+            t0 = (cb[None, :, a] - r[a][:, None]) * inv
+            t1 = (cb[None, :, 3 + a] - r[a][:, None]) * inv
+            lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            tn = lo if tn is None else torch.maximum(tn, lo)
+            tf = hi if tf is None else torch.minimum(tf, hi)
+        reach = (tn <= tf) & (tf > 0.0) & (tn <= te[:, None]) & (r[6] > 0.0)[:, None]
+        total += float((reach.double() @ chunk_flops).sum())
+    return total
+
+
 class RayWork:
     """While open, wraps the wavefront's scene_ops.trace / occlude: counts
-    each call's rays (t_max > 0) and the least float work of their prim
-    tests (`least_flops`), and with `record` keeps each call's kernel
-    inputs (rays (7, N), sorted ignores)."""
+    each call's rays (t_max > 0) and, on the dense kernels' scenes, the
+    least float work of their prim tests (`least_flops`), and with `record`
+    keeps each call's kernel inputs (rays (7, N), sorted ignores)."""
 
     def __init__(self, cull: bool, record: bool = False):
         self.cull, self.record = cull, record
@@ -168,18 +218,22 @@ class RayWork:
         import torch
 
         from echorenderer_tpu_torch.evaluation import scene_ops
+        from echorenderer_tpu_torch.ops import pallas_hier as ph
         from echorenderer_tpu_torch.ops import pallas_intersect as pi
 
         self._saved = trace, occlude = scene_ops.trace, scene_ops.occlude
 
         def add(kind, scene, o, d, t_max, ignore, t_end=None):
-            soa = scene.prim_soa
             rays = pi.ray_columns(o, d, t_max)
-            ig = pi._sorted_ignore(soa, ignore)
-            if t_end is not None:
-                t_end = torch.where(t_end[1] >= 0, t_end[0], rays[6])
             self.rays[kind] += int((rays[6] > 0).sum())
-            self.flops[kind] += least_flops(soa, rays, ig, t_end, self.cull)
+            if scene_ops._use_hier(scene):  # compare_hier counts their work
+                ig = ph._sorted_ignore(scene.hier_soa, ignore)
+            else:
+                soa = scene.prim_soa
+                ig = pi._sorted_ignore(soa, ignore)
+                if t_end is not None:
+                    t_end = torch.where(t_end[1] >= 0, t_end[0], rays[6])
+                self.flops[kind] += least_flops(soa, rays, ig, t_end, self.cull)
             if self.record:
                 self.calls[kind].append((rays, ig))
 
@@ -336,6 +390,117 @@ def compare_dense(label, soa, calls, plain_runs):
     return err, ms, bounds
 
 
+def compare_hier(label, soa, calls):
+    """Hier kernels against their plain versions on every call of `calls`
+    ({"trace": [(rays, ignore)], "occlude": [...]}), the plain version on a
+    strided subset of HIER_SUBSET rays of each call: identical ids, flags
+    and t/u/v bit for bit. Returns ({kernel: max_abs_err}, {timing: ms per
+    call; the plain version's per subset}, {kernel: (mean bound ms per
+    call, by)})."""
+    import torch
+
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+
+    err = dict(trace=0.0, occlude=0.0)
+    n_hit = n_blocked = n_checked = 0
+    plain_ms = dict(trace=0.0, occlude=0.0)
+    tables = soa.padded * 10 * 4 + table_bytes(soa.bounds, soa.codes)  # 10 used rows, nodes
+    least = dict(trace=[], occlude=[])
+    for kind in ("trace", "occlude"):
+        kernel = ph.hier_trace if kind == "trace" else ph.hier_occlude
+        plain = ph.hier_trace_plain if kind == "trace" else ph.hier_occlude_plain
+        for rays, ig in calls[kind]:
+            stride = -(-rays.shape[1] // HIER_SUBSET)
+            sub = (rays[:, ::stride].contiguous(), ig[::stride].contiguous())
+            got = kernel(rays, ig, soa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(*sub, soa)
+            torch.cuda.synchronize()
+            plain_ms[kind] += (time.perf_counter() - t0) * 1e3
+            n_checked += sub[0].shape[1]
+            if kind == "trace":
+                for name, k, p in zip("tpuv", got, want):
+                    k = k[::stride]
+                    if not torch.equal(k, p):
+                        bad = int((k != p).sum())
+                        raise AssertionError(f"{label}: hier_trace {name} differs on {bad} of "
+                                             f"{p.numel()} rays")
+                    if k.dtype == torch.float32 and k.numel():
+                        err[kind] = max(err[kind], float((k - p).abs().max()))
+                n_hit += int((want[1] >= 0).sum())
+                t, prim = got[0], got[1]
+            else:
+                if not torch.equal(got[::stride], want):
+                    bad = int((got[::stride] != want).sum())
+                    raise AssertionError(f"{label}: hier_occlude flags differ on {bad} rays")
+                n_blocked += int(want.sum())
+                t, prim = ph.hier_trace(rays, ig, soa)[:2]  # the nearest blocker
+            flops = least_flops_hier(soa, rays, torch.where(prim >= 0, t, rays[6]))
+            out_bytes = 16 if kind == "trace" else 1
+            least[kind].append((flops, bound_ms(flops, rays.shape[1] * (32 + out_bytes) + tables)))
+
+    def each(fn, kind):
+        return lambda: [fn(rays, ig, soa) for rays, ig in calls[kind]]
+
+    per = {k: len(v) for k, v in calls.items()}
+    ms = dict(trace=median_ms(each(ph.hier_trace, "trace")) / per["trace"],
+              trace_plain=plain_ms["trace"] / per["trace"],
+              occlude=median_ms(each(ph.hier_occlude, "occlude")) / per["occlude"],
+              occlude_plain=plain_ms["occlude"] / per["occlude"])
+    bounds = {k: (statistics.fmean(b[0] for _, b in v), statistics.mode(b[1] for _, b in v))
+              for k, v in least.items()}
+    flops = {k: statistics.fmean(f for f, _ in v) for k, v in least.items()}
+    rays = {k: sum(r.shape[1] for r, _ in v) for k, v in calls.items()}
+    log(f"[kernels] {label}: {per['trace']} trace calls on {rays['trace']} rays, "
+        f"{per['occlude']} occlude calls on {rays['occlude']} rays; {soa.padded} padded prims, "
+        f"{soa.num_chunks} chunks, {soa.codes.numel() // 2} nodes, stack {soa.stack_size} of "
+        f"{ph.MAX_STACK}; plain version on {n_checked} rays (a {HIER_SUBSET}-ray strided subset "
+        f"of each call): {n_hit} hits, {n_blocked} blocked, ids/flags/t/u/v bitwise equal "
+        f"(max |t,u,v err| {err['trace']:.3g})")
+    log(f"[kernels] {label}: median ms per full call (10 runs): trace {ms['trace']:.4f}, "
+        f"occlude {ms['occlude']:.4f}; plain ms per subset call (1 run): trace "
+        f"{ms['trace_plain']:.4f}, occlude {ms['occlude_plain']:.4f}; least prim-test work per "
+        f"call: trace {flops['trace']:.6g}, occlude {flops['occlude']:.6g} flops; bound per "
+        f"call: trace {bounds['trace'][0]:.6f} ({bounds['trace'][1]}), occlude "
+        f"{bounds['occlude'][0]:.6f} ({bounds['occlude'][1]})")
+    return err, ms, bounds
+
+
+def hier_against_dense(scene, res, spp, bounce):
+    """One frame through the hier kernels and once with dispatch forced to
+    the dense kernels: the sums must be bitwise equal."""
+    import torch
+
+    from echorenderer_tpu_torch.evaluation import scene_ops
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+    from echorenderer_tpu_torch.processes.render import _sample_frame
+
+    counts = lambda: (ph.hier_trace.launches + ph.hier_occlude.launches,
+                      pi.dense_trace.launches + pi.dense_occlude.launches)
+    sums, grew = [], []
+    saved = scene_ops.HIER_TRACE_MIN
+    try:
+        for threshold in (saved, 2 ** 31):
+            scene_ops.HIER_TRACE_MIN = threshold
+            before = counts()
+            t0 = time.perf_counter()
+            sums.append(_sample_frame(scene, "path", res, 0, 0, spp, bounce, 2.5))
+            torch.cuda.synchronize()
+            grew.append([a - b for a, b in zip(counts(), before)] + [time.perf_counter() - t0])
+    finally:
+        scene_ops.HIER_TRACE_MIN = saved
+    (hs, hq), (ds, dq) = sums
+    differ = int(((hs != ds) | (hq != dq)).any(dim=-1).sum())
+    log(f"[kernels] hier vs dense: {scene.geometry.num_primitives} prims {res[0]}x{res[1]} "
+        f"{spp} spp bounce {bounce}: {differ} of {hs.shape[0]} pixels not bitwise equal; "
+        f"hier render {grew[0][2]:.3f} s ({grew[0][0]} hier, {grew[0][1]} dense launches), dense "
+        f"render {grew[1][2]:.3f} s ({grew[1][0]} hier, {grew[1][1]} dense launches)")
+    if differ or grew[0][0] == 0 or grew[0][1] or grew[1][0] or grew[1][1] == 0:
+        raise AssertionError("hier and dense renders differ or took the wrong kernels")
+
+
 def tile_lanes(res, dev):
     """The main path's lanes: tile-major pixel ids and their coordinates."""
     import numpy as np
@@ -459,9 +624,12 @@ def main() -> int:
 
     from echorenderer_tpu_torch.aggregation.bvh import build_bvh, geometry_bounds
     from echorenderer_tpu_torch.entry import entry
+    from echorenderer_tpu_torch.evaluation.scene_ops import dispatch_summary
+    from echorenderer_tpu_torch.evaluation.wavefront import cascade_widths
     from echorenderer_tpu_torch.models import scenes
     from echorenderer_tpu_torch.ops import cuda_build
     from echorenderer_tpu_torch.ops import megakernel as mk
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
     from echorenderer_tpu_torch.ops import pallas_intersect as pi
     from echorenderer_tpu_torch.processes.render import (EvaluationProfile, _sample_frame,
                                                          render_layer)
@@ -489,6 +657,8 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
     pi._load()
     mk._load()
+    ph._load()
+    t_run = time.perf_counter()
 
     # --- kernel phase: dense kernels ---
     rs = np.random.RandomState(2024)
@@ -533,11 +703,11 @@ def main() -> int:
     for label, scene, res in mega_cases:
         if not mk.supported(scene):
             return fail(f"{label} lies outside the megakernel's envelope")
-        err, _, _ = compare_mega(label, scene, res, 8, 16, dev, plain_runs=4)
+        err, _, _ = compare_mega(label, scene, res, 8, 16, dev, plain_runs=2)
         mega_err = max(mega_err, err)
     # the launch of the main path's bench render stands for the kernel
     err, mega_ms, mega_bound = compare_mega("sphere_field(80) 960x540", bench, (960, 540), 64,
-                                            16, dev, plain_runs=4)
+                                            16, dev, plain_runs=2)
     mega_err = max(mega_err, err)
     many = mega_cases[3][1]
     if many.lights.tree is None:
@@ -553,6 +723,34 @@ def main() -> int:
 
     # --- golden phase ---
     golden_phase(dev)
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
+    # --- kernel phase: the chunk-tree walk of large scenes ---
+    torch.cuda.reset_peak_memory_stats()
+    t_prep = time.perf_counter()
+    grid = prepare_scene(scenes.sphere_grid(1_000_000), device=dev)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t_prep
+    prep_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    hsoa = grid.hier_soa
+    log(f"[kernels] sphere_grid(1_000_000): {grid.geometry.num_triangles} triangles, "
+        f"{grid.geometry.num_primitives} prims, {hsoa.num_chunks} chunks, "
+        f"{hsoa.codes.numel() // 2} nodes, tree depth {hsoa.stack_size - 8} (stack "
+        f"{hsoa.stack_size} of {ph.MAX_STACK}); prepared in {t_prep:.2f} s, peak "
+        f"{prep_gib:.2f} GiB")
+    lo = hsoa.chunk_bounds[:, 0:3].amin(0).tolist()
+    hi = hsoa.chunk_bounds[:, 3:6].amax(0).tolist()
+    rays_h = random_rays(rs, N_RAYS, [lo[0], 0.05, lo[2]], [hi[0], hi[1] + 1.0, hi[2]],
+                         grid.geometry.num_primitives)
+    o, d, t_max, ignore = (torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in rays_h)
+    call = (pi.ray_columns(o, d, t_max), ph._sorted_ignore(hsoa, ignore))
+    err_h, _, _ = compare_hier("sphere_grid(1M) random rays", hsoa,
+                               dict(trace=[call], occlude=[call]))
+    del call, o, d, t_max, ignore
+    mid = prepare_scene(scenes.sphere_grid(250_000), device=dev)
+    hier_against_dense(mid, (320, 180), 8, 6)
+    del mid
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     # --- slice phase: the megakernel path, counters from zero ---
     mk.sample_frame_mega.launches = 0
@@ -612,6 +810,61 @@ def main() -> int:
     if not np.isfinite(image).all() or min(dense.values()) <= 0 or mk.sample_frame_mega.launches:
         return fail("the wavefront path did not run on the dense kernels")
 
+    # --- slice phase: bench.py's large scene through the chunk-tree walk ---
+    res = (1920, 1080)
+    n_px = res[0] * res[1]
+    summary = dispatch_summary(grid)
+    log(f"[slice] sphere_grid(1_000_000) {res[0]}x{res[1]} 1 spp bounce 6: dispatch {summary}")
+    if summary["accelerator"] != "hier-packet" or summary["integrator"] != "wavefront":
+        return fail("the large scene does not dispatch to the chunk-tree walk")
+    mk.sample_frame_mega.launches = 0
+    pi.dense_trace.launches = pi.dense_occlude.launches = 0
+    ph.hier_trace.launches = ph.hier_occlude.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    program = lambda start: _sample_frame(grid, "path", res, 0, start, 1, 6, 2.5)
+    t0 = time.perf_counter()
+    program(0)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    seconds, first = [], None
+    for i in range(8):
+        t0 = time.perf_counter()
+        s_sum, _ = program(i + 1)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        first = s_sum if first is None else first
+    hier = dict(trace=ph.hier_trace.launches, occlude=ph.hier_occlude.launches)
+    others = (pi.dense_trace.launches, pi.dense_occlude.launches, mk.sample_frame_mega.launches)
+    slice_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    big_mspps = n_px * 8 / sum(seconds) / 1e6
+    img = (s_sum / 1.0).reshape(res[1], res[0], 3)
+    big_lum = float(luminance(img).mean())
+    log(f"[slice] {big_mspps:.4f} Mspps over 8 programs (2,073,600 x 8 samples / "
+        f"{sum(seconds):.4f} s); program seconds "
+        + ", ".join(f"{t:.4f}" for t in seconds)
+        + f"; warm-up {warm_s:.3f} s; prepare {t_prep:.2f} s; peak memory {slice_gib:.2f} GiB "
+          f"(prepare {prep_gib:.2f} GiB); mean luminance {big_lum:.4f} | {smi}")
+    log(f"[slice] launches: hier {hier}, dense trace/occlude {others[0]}/{others[1]}, "
+        f"megakernel {others[2]}; cascade widths {cascade_widths(n_px)}")
+    if not bool(torch.isfinite(s_sum).all()) or not 0.01 < big_lum < 10.0:
+        return fail(f"large-scene frame non-finite or mean luminance {big_lum} out of (0.01, 10)")
+    if min(hier.values()) <= 0 or max(others) != 0:
+        return fail("the large scene did not run on the hier kernels alone")
+    # the first timed program once more, its kernel calls recorded
+    with RayWork(cull=True, record=True) as rec:
+        again, _, stats = _sample_frame(grid, "path", res, 0, 1, 1, 6, 2.5, return_stats=True)
+    log(f"[slice] the first program again, recorded: {stats['Loop/Iterations']} wavefront "
+        f"iterations, {stats['Ray/Traced']} traced and {stats['Ray/Shadow']} shadow rays, "
+        f"sums {'bitwise equal' if torch.equal(again, first) else 'DIFFERENT'}")
+    if not torch.equal(again, first):
+        return fail("the recorded program's sums differ from the timed one's")
+    del again, first
+    err_r, ms_h, bound_h = compare_hier(
+        "sphere_grid(1M) 1920x1080 1 spp, the slice's first timed program's calls", hsoa,
+        rec.calls)
+    del rec
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
     kernels = [
         dict(name="dense_trace", route="cuda", source=DENSE_SOURCE, replaces=TRACE_SITE,
              launches=dense["trace"],
@@ -627,6 +880,12 @@ def main() -> int:
              launches=mega_launches, max_abs_err=mega_err, ms=mega_ms["ms"],
              plain_ms=mega_ms["plain_ms"], bound_ms=mega_bound[0], bound_by=mega_bound[1],
              library_ms=None),
+    ] + [
+        dict(name=f"hier_{k}", route="cuda", source=HIER_SOURCE, replaces=HIER_SITE,
+             launches=hier[k], max_abs_err=max(err_h[k], err_r[k]), ms=ms_h[k],
+             plain_ms=ms_h[f"{k}_plain"], bound_ms=bound_h[k][0], bound_by=bound_h[k][1],
+             library_ms=None)
+        for k in ("trace", "occlude")
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -9,8 +9,8 @@
 // as 10 rows of P floats in BVH-leaf order (a/b/c xyz, is_sphere; a sphere
 // keeps its center in a and its radius in b.x). Prims are walked in
 // 128-prim chunks in ascending order; a chunk is skipped when no ray of
-// the block can reach its AABB before that ray's current best t, and a
-// 32-chunk superchunk likewise. The ray-prim test (Moller-Trumbore, the
+// the block can reach its AABB before that ray's current best t (with the
+// relative slack echo::kCullMargin), and a 32-chunk superchunk likewise. The ray-prim test (Moller-Trumbore, the
 // findFar sphere rule) is `echo::prim_hit` of intersect.cuh, shared with
 // the megakernel. A running best is replaced only on a strictly
 // smaller t, so among equal t the lowest sorted slot wins, as on the TPU.
@@ -39,36 +39,21 @@
 namespace {
 
 using echo::Ray;
+using echo::safe_inv;
 
 constexpr int kBlock = 128;  // rays per block
 constexpr int kChunk = 128;  // prims per chunk
 constexpr int kSuper = 32;   // chunks per superchunk
 
-// NaN-propagating min/max, as torch.minimum / torch.maximum
-__device__ __forceinline__ float pmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float pmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float safe_inv(float d) {
-  return fabsf(d) < 1e-12f ? (d < 0.0f ? -1e12f : 1e12f) : 1.0f / d;
-}
-
 // Slab test of one ray against box j of a (8, count) bounds table.
 __device__ __forceinline__ bool box_hit(const float* __restrict__ tb, int count, int j,
                                         float ox, float oy, float oz,
                                         float ix, float iy, float iz, float limit) {
-  float t0x = (tb[0 * count + j] - ox) * ix;
-  float t1x = (tb[3 * count + j] - ox) * ix;
-  float t0y = (tb[1 * count + j] - oy) * iy;
-  float t1y = (tb[4 * count + j] - oy) * iy;
-  float t0z = (tb[2 * count + j] - oz) * iz;
-  float t1z = (tb[5 * count + j] - oz) * iz;
-  float tn = pmax(pmax(pmin(t0x, t1x), pmin(t0y, t1y)), pmin(t0z, t1z));
-  float tf = pmin(pmin(pmax(t0x, t1x), pmax(t0y, t1y)), pmax(t0z, t1z));
-  return (tn <= tf) && (tf > 0.0f) && (tn < limit);
+  float tn, tf;
+  echo::slab(tb[0 * count + j], tb[1 * count + j], tb[2 * count + j],
+             tb[3 * count + j], tb[4 * count + j], tb[5 * count + j],
+             ox, oy, oz, ix, iy, iz, tn, tf);
+  return echo::reaches(tn, tf, limit);
 }
 
 // Rays past n are the padding rays of the JAX layout: they take part in

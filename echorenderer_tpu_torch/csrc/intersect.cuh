@@ -1,6 +1,8 @@
 // The one ray-primitive test of the port's CUDA kernels, shared by the dense
-// trace/occlude kernels (dense_intersect.cu) and the path-tracing megakernel
-// (megakernel.cu), so that both report identical hits by construction.
+// trace/occlude kernels (dense_intersect.cu), the chunk-tree walk
+// (hier_walk.cu) and the path-tracing megakernel (megakernel.cu), so that
+// all report identical hits by construction; and the one ray-box slab test
+// of the two trace/occlude files.
 //
 // Prims are 10 rows of floats (a xyz, b xyz, c xyz, is_sphere) with a row
 // stride; a triangle keeps v0/e1/e2 in a/b/c, a sphere its center in a and
@@ -20,6 +22,48 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, tmax;
   int ignore;  // sorted prim slot to skip (-1 = none)
 };
+
+// NaN-propagating min/max, as torch.minimum / torch.maximum
+__device__ __forceinline__ float pmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float pmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// 1/d with the 1e12 clamp of `ops/pallas_intersect._safe_inv`
+__device__ __forceinline__ float safe_inv(float d) {
+  return fabsf(d) < 1e-12f ? (d < 0.0f ? -1e12f : 1e12f) : 1.0f / d;
+}
+
+// Relative slack of every cull test: a box is entered while its entry t is
+// at most limit * kCullMargin (`ops/pallas_intersect.CULL_MARGIN`). A hit
+// on a box's boundary can come out a few rounding steps before the box's
+// computed entry t; without the slack, kernels that cull by different boxes
+// (dense chunks, the chunk tree) would each lose different near-ties.
+constexpr float kCullMargin = 1.000244140625f;  // 1 + 2^-12
+
+// Slab test of a ray (origin o, inverse direction i) against the box
+// [lo, hi]: the entry and exit parameters tn, tf, in the plain version's op
+// order (`ops/pallas_intersect._box_reach`).
+__device__ __forceinline__ void slab(float lox, float loy, float loz,
+                                     float hix, float hiy, float hiz,
+                                     float ox, float oy, float oz,
+                                     float ix, float iy, float iz, float& tn, float& tf) {
+  const float t0x = (lox - ox) * ix;
+  const float t1x = (hix - ox) * ix;
+  const float t0y = (loy - oy) * iy;
+  const float t1y = (hiy - oy) * iy;
+  const float t0z = (loz - oz) * iz;
+  const float t1z = (hiz - oz) * iz;
+  tn = pmax(pmax(pmin(t0x, t1x), pmin(t0y, t1y)), pmin(t0z, t1z));
+  tf = pmin(pmin(pmax(t0x, t1x), pmax(t0y, t1y)), pmax(t0z, t1z));
+}
+
+// Does a ray whose slab test gave (tn, tf) enter the box before `limit`?
+__device__ __forceinline__ bool reaches(float tn, float tf, float limit) {
+  return (tn <= tf) && (tf > 0.0f) && (tn <= limit * kCullMargin);
+}
 
 // Prim k (sorted slot `slot`) of `rows` (row stride `stride`) against one
 // ray; t, u, v are valid only where the return is true. Spheres report

@@ -3,9 +3,11 @@ echorenderer_tpu/evaluation/scene_ops.py), batched over a leading lane
 axis on the scene's device.
 
 Accelerator rule, as in the JAX package: scenes under LINEAR_THRESHOLD
-prims take the plain dense broadcast; every other prepared scene (up to
-the 65535 padded prims `prepare_scene` accepts) takes the dense chunk
-kernels of ops/pallas_intersect.py.
+prims take the plain dense broadcast; scenes with a chunk tree and at
+least HIER_TRACE_MIN padded prims take its walk (ops/pallas_hier.py), as
+the JAX package's ECHO_NO_BINNED dispatch does (its binned traversal is
+not ported yet); every other scene takes the dense chunk kernels of
+ops/pallas_intersect.py.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from ..aggregation import light_tree
 from ..ops import megakernel
 from ..ops.intersect import INF, Hit, intersect_linear, occlude_linear, sphere_uv
+from ..ops.pallas_hier import intersect_hier, occlude_hier
 from ..ops.pallas_intersect import intersect_pallas, occlude_pallas
 from ..scene.materials import EMISSIVE, INVISIBLE
 from ..scene.prepare import (
@@ -32,15 +35,27 @@ from ..utils import vec
 from .bsdf import GatheredMaterial
 
 LINEAR_THRESHOLD = 32
+# padded prim count from which a scene's rays walk the chunk tree instead of
+# streaming every dense chunk
+HIER_TRACE_MIN = 65536
+
+
+def _use_hier(scene: PreparedScene) -> bool:
+    return scene.hier_soa is not None and scene.prim_soa.padded >= HIER_TRACE_MIN
 
 
 def dispatch_summary(scene: PreparedScene, return_stats: bool = False) -> dict:
     """Which accelerator and integrator this scene's renders take, and why
     (a render that asks for the wavefront's stats bypasses the megakernel)."""
+    kind = "CUDA kernel" if scene.device.type == "cuda" else "plain PyTorch version"
     if scene.geometry.num_primitives < LINEAR_THRESHOLD:
         acc, why = "linear", f"< {LINEAR_THRESHOLD} prims"
+    elif _use_hier(scene):
+        acc = "hier-packet"
+        why = (f"chunk-tree walk ({kind}, {scene.prim_soa.padded} padded prims >= "
+               f"{HIER_TRACE_MIN}, {scene.hier_soa.num_chunks} chunks); the binned traversal "
+               f"is not ported yet (ROADMAP.md queue 2)")
     else:
-        kind = "CUDA kernel" if scene.device.type == "cuda" else "plain PyTorch version"
         acc = "dense-stream"
         why = f"dense chunk trace/occlude ({kind}, {scene.prim_soa.padded} padded prims)"
     if scene.device.type != "cuda":
@@ -61,12 +76,16 @@ def dispatch_summary(scene: PreparedScene, return_stats: bool = False) -> dict:
 def trace(scene: PreparedScene, o, d, t_max, ignore) -> Hit:
     if scene.geometry.num_primitives < LINEAR_THRESHOLD:
         return intersect_linear(scene.geometry, o, d, t_max, ignore)
+    if _use_hier(scene):
+        return intersect_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
     return intersect_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
 
 
 def occlude(scene: PreparedScene, o, d, t_max, ignore) -> torch.Tensor:
     if scene.geometry.num_primitives < LINEAR_THRESHOLD:
         return occlude_linear(scene.geometry, o, d, t_max, ignore)
+    if _use_hier(scene):
+        return occlude_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
     return occlude_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
 
 

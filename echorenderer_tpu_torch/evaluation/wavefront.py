@@ -11,7 +11,8 @@ streams; all physics is `integrators.path_step`.
 `sample_frame_wavefront` is the dispatch: a CUDA scene inside the
 megakernel's envelope, rendered without stats, goes to the fused kernel
 (ops/megakernel.py), which computes the same draws and physics in one
-launch; every other frame runs the wavefront loop, `run_wavefront`.
+launch; every other frame runs the wavefront loop, `run_wavefront`, which
+narrows its waves as lanes finish their samples (the liveness cascade).
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ from ..utils import vec
 from ..utils.rng import SampleStream, as_u32
 from .integrators import path_step
 from .scene_ops import dispatch_summary
+
+# lane count from which the liveness cascade engages, and the narrowest
+# stage width (`run_wavefront`)
+WAVE_CASCADE_MIN = 2 ** 18
+WAVE_CASCADE_FLOOR = 8192
 
 STAT_NAMES = (
     "Ray/Traced", "Ray/Shadow", "Sample/Completed",
@@ -59,6 +65,21 @@ def sample_frame_wavefront(
                          return_stats=return_stats)
 
 
+def cascade_widths(n: int) -> list[int]:
+    """Stage widths of the liveness cascade for n lanes (the JAX package's
+    schedule): each a quarter of the last, rounded up to 1024 lanes, down
+    to max(WAVE_CASCADE_FLOOR, n / 64); none below WAVE_CASCADE_MIN lanes."""
+    widths: list[int] = []
+    if n < WAVE_CASCADE_MIN:
+        return widths
+    w = n
+    while True:
+        w = -(-(w // 4) // 1024) * 1024
+        if w < max(WAVE_CASCADE_FLOOR, n // 64) or (widths and w >= widths[-1]) or w >= n:
+            return widths
+        widths.append(w)
+
+
 def run_wavefront(
     scene: PreparedScene,
     pixel_id,
@@ -73,25 +94,41 @@ def run_wavefront(
     return_stats: bool = False,
 ):
     """The regenerating wavefront loop over `path_step`, on the scene's
-    device (the plain version the megakernel is held to)."""
+    device (the plain version the megakernel is held to).
+
+    Liveness cascade: as lanes finish their samples, the live ones thin out
+    while every iteration still pays for the full width. From
+    WAVE_CASCADE_MIN lanes on, once the live count falls to a stage width
+    (`cascade_widths`), the lanes are compacted by a stable argsort of
+    their done flags, live lanes first, and the loop goes on at that width;
+    the stage's results are scattered back at its end. A lane keeps its
+    pixel and sample identity, and every draw keys on (pixel, sample, dim),
+    so its sums are bitwise the same; the counters and the iteration count
+    carry across stages."""
     dev = scene.device
     n = pixel_id.shape[0]
-    f3 = lambda: torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    pid = as_u32(pixel_id, dev)
-    pxy = pixel_xy.to(dev)
-    s0 = as_u32(sample_start, dev).expand(n)
     seed_t = as_u32(seed, dev)
 
-    def stream_lanes(sample_id):
-        return SampleStream(pixel_id=pid, sample_id=(s0 + sample_id) & 0xFFFFFFFF, seed=seed_t)
+    def stream_lanes(ln, sample_id):
+        return SampleStream(pixel_id=ln["pid"], sample_id=(ln["s0"] + sample_id) & 0xFFFFFFFF,
+                            seed=seed_t)
 
-    def spawn(sample_id):
-        s = stream_lanes(sample_id)
-        return spawn_rays(scene.camera, pxy, s.next_2d(0), s.next_2d(1), resolution)
+    def spawn(ln, sample_id):
+        s = stream_lanes(ln, sample_id)
+        return spawn_rays(scene.camera, ln["pxy"], s.next_2d(0), s.next_2d(1), resolution)
 
-    sample = torch.zeros(n, dtype=torch.int64, device=dev)  # current sample per lane
-    o, d = spawn(sample)
-    st = dict(
+    f3 = lambda: torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    lane = dict(  # every per-lane tensor of the loop, indexed by lane
+        pid=as_u32(pixel_id, dev),
+        pxy=pixel_xy.to(dev),
+        s0=as_u32(sample_start, dev).expand(n).contiguous(),
+        sample=torch.zeros(n, dtype=torch.int64, device=dev),  # current sample per lane
+        lane_done=torch.zeros(n, dtype=torch.bool, device=dev),
+        s_sum=f3(),
+        s_sq=f3(),
+    )
+    o, d = spawn(lane, lane["sample"])
+    lane.update(
         radiance=f3(),
         throughput=torch.ones((n, 3), dtype=torch.float32, device=dev),
         o=o,
@@ -102,15 +139,14 @@ def run_wavefront(
         prev_point=o,
         ignore=torch.full((n,), -1, dtype=torch.int32, device=dev),
     )
-    s_sum, s_sq = f3(), f3()
-    lane_done = torch.zeros(n, dtype=torch.bool, device=dev)
     counters = torch.zeros(6, dtype=torch.int64, device=dev)  # exact past 2^24 events
     iters = 0
 
-    while bool((~lane_done).any()):
-        live = ~lane_done
+    def step(ln):
+        nonlocal counters, iters
+        live = ~ln["lane_done"]
         out = path_step(
-            scene, stream_lanes(sample), st, live,
+            scene, stream_lanes(ln, ln["sample"]), ln, live,
             bounce_limit=bounce_limit, survivability=survivability,
         )
         radiance = out["radiance"]
@@ -120,25 +156,12 @@ def run_wavefront(
         path_done = live & ~out["continues"]
         finite = torch.isfinite(vec.component_sum(radiance))  # reject non-finite
         bank = path_done & finite
-        s_sum = s_sum + torch.where(bank[..., None], radiance, 0.0)
-        s_sq = s_sq + torch.where(bank[..., None], radiance * radiance, 0.0)
-        sample = sample + path_done.to(torch.int64)
-        lane_done = lane_done | (path_done & (sample >= count))
+        sample = ln["sample"] + path_done.to(torch.int64)
+        lane_done = ln["lane_done"] | (path_done & (sample >= count))
         respawn = path_done & ~lane_done
 
-        cam_o, cam_d = spawn(sample)
+        cam_o, cam_d = spawn(ln, sample)
         r3 = respawn[..., None]
-        st = dict(
-            radiance=torch.where(r3, 0.0, radiance),
-            throughput=torch.where(r3, 1.0, out["new_tp"]),
-            o=torch.where(r3, cam_o, out["cont_o"]),
-            d=torch.where(r3, cam_d, out["wi_world"]),
-            depth=torch.where(respawn, 0, st["depth"] + 1),
-            prev_pdf=torch.where(respawn, 0.0, out["bs_pdf"]),
-            prev_specular=torch.where(respawn, True, out["bs_specular"]),
-            prev_point=torch.where(r3, cam_o, out["contact_point"]),
-            ignore=torch.where(respawn, -1, out["hit_prim"]).to(torch.int32),
-        )
         iters += 1
         counters = counters + torch.stack([
             live.sum(),  # Ray/Traced
@@ -148,9 +171,43 @@ def run_wavefront(
             aux["found"].sum(),  # Bounce/Created
             (aux["has_bounce"] & ~aux["survived"]).sum(),  # Path/RRKilled
         ])
+        return dict(
+            pid=ln["pid"],
+            pxy=ln["pxy"],
+            s0=ln["s0"],
+            sample=sample,
+            lane_done=lane_done,
+            s_sum=ln["s_sum"] + torch.where(bank[..., None], radiance, 0.0),
+            s_sq=ln["s_sq"] + torch.where(bank[..., None], radiance * radiance, 0.0),
+            radiance=torch.where(r3, 0.0, radiance),
+            throughput=torch.where(r3, 1.0, out["new_tp"]),
+            o=torch.where(r3, cam_o, out["cont_o"]),
+            d=torch.where(r3, cam_d, out["wi_world"]),
+            depth=torch.where(respawn, 0, ln["depth"] + 1),
+            prev_pdf=torch.where(respawn, 0.0, out["bs_pdf"]),
+            prev_specular=torch.where(respawn, True, out["bs_specular"]),
+            prev_point=torch.where(r3, cam_o, out["contact_point"]),
+            ignore=torch.where(respawn, -1, out["hit_prim"]).to(torch.int32),
+        )
+
+    def run_until(ln, floor):
+        """Step until at most `floor` lanes are live."""
+        while int((~ln["lane_done"]).sum()) > floor:
+            ln = step(ln)
+        return ln
+
+    widths = cascade_widths(n)
+    lane = run_until(lane, widths[0] if widths else 0)
+    for i, width in enumerate(widths):
+        take = torch.argsort(lane["lane_done"].to(torch.uint8), stable=True)[:width]
+        sub = run_until({k: v[take] for k, v in lane.items()},
+                        widths[i + 1] if i + 1 < len(widths) else 0)
+        # lanes left out were all done and keep their sums
+        for k, v in sub.items():
+            lane[k] = lane[k].index_copy(0, take, v)
 
     if return_stats:
         stats = dict(zip(STAT_NAMES, counters.tolist()))
         stats["Loop/Iterations"] = iters
-        return s_sum, s_sq, stats
-    return s_sum, s_sq
+        return lane["s_sum"], lane["s_sq"], stats
+    return lane["s_sum"], lane["s_sq"]

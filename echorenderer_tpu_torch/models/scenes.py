@@ -1,11 +1,12 @@
 """Built-in benchmark scenes, the analogue of the reference's ext/Scenes
 (.echo files): a Cornell box, a material ball, a many-lights stress scene,
-and the 80-sphere field from the reference performance log
-(misc/performance.txt:4).
+the 80-sphere field from the reference performance log
+(misc/performance.txt:4), and the grid of triangulated spheres that
+bench.py's large-scene configuration renders at a million triangles.
 
-Copied from echorenderer_tpu/models/scenes.py; its env-map and mesh-file
-scenes stay behind with the texture and model loaders this package does
-not have yet."""
+Copied from echorenderer_tpu/models/scenes.py and, for `sphere_grid`, from
+benchmarks/scene_throughput.py; the env-map and mesh-file scenes stay
+behind with the texture and model loaders this package does not have yet."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..scene import (
     Dielectric,
     Diffuse,
     Emissive,
+    MeshEntity,
     PerspectiveCamera,
     PlaneEntity,
     PointLight,
@@ -180,5 +182,61 @@ def instanced_grid(side: int = 3, seed: int = 11) -> Scene:
     scene.add(AmbientLight(intensity=(0.55, 0.6, 0.7)))
     cam = PerspectiveCamera(field_of_view=55.0, position=(0, 4.5, -8.5))
     cam.look_at((0, 0.4, 0))
+    scene.add(cam)
+    return scene
+
+
+def sphere_grid_mesh(k: int, subdiv: int):
+    """Indexed UV-sphere grid: k*k spheres, 2*subdiv^2 triangles each,
+    at random heights and scales (RandomState(0))."""
+    nu = nv = subdiv
+    u = np.linspace(0, 2 * np.pi, nu + 1)
+    v = np.linspace(0, np.pi, nv + 1)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    pts = np.stack(
+        [np.cos(uu) * np.sin(vv), np.cos(vv), np.sin(uu) * np.sin(vv)], -1
+    ).reshape(-1, 3).astype(np.float32)
+    idx = lambda i, j: i * (nv + 1) + j
+    faces = []
+    for i in range(nu):
+        for j in range(nv):
+            faces.append((idx(i, j), idx(i, j + 1), idx(i + 1, j + 1)))
+            faces.append((idx(i, j), idx(i + 1, j + 1), idx(i + 1, j)))
+    faces = np.asarray(faces, np.int32)
+    rs = np.random.RandomState(0)
+    all_v, all_f = [], []
+    for gi in range(k):
+        for gj in range(k):
+            c = np.asarray([gi * 2.5, rs.uniform(0, 0.5) + 1.0, gj * 2.5], np.float32)
+            s = rs.uniform(0.7, 1.1)
+            all_f.append(faces + len(all_v) * len(pts))
+            all_v.append(pts * s + c)
+    return np.concatenate(all_v, 0), np.concatenate(all_f, 0)
+
+
+def sphere_grid(n_tris: int) -> Scene:
+    """A k x k grid of UV spheres near `n_tris` triangles, on a plane under
+    an ambient light (benchmarks/scene_throughput.build_scene):
+    sphere_grid(1_000_000) is a 59 x 59 grid at subdiv 12, 1,002,528
+    triangles, bench.py's large-scene configuration."""
+    best = None
+    for subdiv in range(8, 40):
+        per = 2 * subdiv * subdiv
+        k = max(1, int(round(np.sqrt(n_tris / per))))
+        err = abs(k * k * per - n_tris)
+        if best is None or err < best[0]:
+            best = (err, k, subdiv)
+    _, k, subdiv = best
+    verts, faces = sphere_grid_mesh(k, subdiv)
+    scene = Scene()
+    scene.add(MeshEntity(vertices=verts, faces=faces, material=Diffuse(albedo=(0.7, 0.6, 0.5))))
+    extent = k * 2.5
+    scene.add(PlaneEntity(size=(extent * 4, extent * 4), material=Diffuse(albedo=(0.4, 0.4, 0.4))))
+    scene.add(AmbientLight(intensity=(0.5, 0.6, 0.8)))
+    cam = PerspectiveCamera(
+        field_of_view=50.0,
+        position=(extent * 0.5, extent * 0.8, -extent * 0.6),
+    )
+    cam.look_at((extent * 0.5, 0.0, extent * 0.5))
     scene.add(cam)
     return scene

@@ -25,6 +25,9 @@ class Hit(NamedTuple):
     t: torch.Tensor  # (N,) distance, INF on miss
     prim: torch.Tensor  # (N,) int32 original primitive id, -1 on miss
     uv: torch.Tensor  # (N, 2) triangle barycentrics (spheres: see interact())
+    # (N,) int32 instance of the hit, zeros without instancing; None where
+    # the accelerator does not report it
+    inst: torch.Tensor | None = None
 
     @property
     def found(self) -> torch.Tensor:

@@ -42,6 +42,12 @@ RAY_BLOCK = 128  # rays per kernel block: the unit that culls a chunk together
 PRIM_BLOCK = 128  # primitives per chunk
 SC_FACTOR = 32  # chunks per superchunk (second culling level)
 PLAIN_SLICE = 2 ** 18  # rays per pass of the plain version on the card
+# relative slack of every cull test (csrc/intersect.cuh kCullMargin): a box
+# is entered while its entry t is at most limit * CULL_MARGIN, because a hit
+# on a box's boundary can come out a few rounding steps before the box's
+# computed entry t, and kernels that cull by different boxes would each lose
+# different near-ties
+CULL_MARGIN = 1.0 + 2.0 ** -12
 
 
 class PrimSoA(NamedTuple):
@@ -96,9 +102,17 @@ def pack_sorted_prims(geom_np: dict, order: np.ndarray, bounds=None):
     if bounds is not None:
         lo = np.ascontiguousarray(bounds[0][order], np.float32)
         hi = np.ascontiguousarray(bounds[1][order], np.float32)
-        return a, b, c, is_sph, lo, hi
-    lo = np.where(is_sph[:, None] > 0.5, a - b[:, :1], np.minimum(np.minimum(a, a + b), a + c))
-    hi = np.where(is_sph[:, None] > 0.5, a + b[:, :1], np.maximum(np.maximum(a, a + b), a + c))
+    else:
+        lo = np.where(is_sph[:, None] > 0.5, a - b[:, :1], np.minimum(np.minimum(a, a + b), a + c))
+        hi = np.where(is_sph[:, None] > 0.5, a + b[:, :1], np.maximum(np.maximum(a, a + b), a + c))
+    # a zero-area triangle (e.g. two vertices at a UV sphere's pole) keeps a
+    # rounding residue in its Moller-Trumbore determinant above the 1e-12
+    # threshold and reports hits far outside itself, which kernels that cull
+    # by other boxes find or not: zero its edges, so that the determinant is
+    # exactly 0 and it never hits (its box stays)
+    flat = (is_sph < 0.5) & (np.cross(b, c) == 0.0).all(-1)
+    b[flat] = 0.0
+    c[flat] = 0.0
     return a, b, c, is_sph, lo, hi
 
 
@@ -176,7 +190,8 @@ def _box_votes(table, j, ray, inv, limit):
 
 
 def _box_reach(table, j, ray, inv, limit):
-    """Per ray: does the ray enter box j of `table` before its `limit`?"""
+    """Per ray: does the ray enter box j of `table` before its `limit`
+    (with the CULL_MARGIN slack)?"""
     ox, oy, oz = ray[0], ray[1], ray[2]
     ix, iy, iz = inv
     t0x = (table[0, j] - ox) * ix
@@ -189,17 +204,21 @@ def _box_reach(table, j, ray, inv, limit):
                        torch.minimum(t0z, t1z))
     tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
                        torch.maximum(t0z, t1z))
-    return (tn <= tf) & (tf > 0.0) & (tn < limit)
+    return (tn <= tf) & (tf > 0.0) & (tn <= limit * CULL_MARGIN)
 
 
 def _chunk_hits(chunk, base, ray, ignore, has_tri, has_sph):
-    """Rays (M,) against one chunk's prim rows (10, CS): (t, u, v, ok) as
-    (M, CS), in the kernel's float order."""
+    """Rays (M,) against prim rows: (t, u, v, ok) as (M, CS), in the
+    kernel's float order. `chunk` is one chunk's rows (10, CS) shared by
+    every ray, with first sorted slot `base` (an int), or one chunk per
+    ray (10, M, CS) with first slots `base` (M,)."""
     col = lambda r: r[:, None]
     ox, oy, oz, dx, dy, dz = (col(ray[k]) for k in range(6))
-    ax, ay, az, bx, by, bz, cx, cy, cz, sph = (chunk[k][None, :] for k in range(10))
-    slot = base + torch.arange(chunk.shape[1], dtype=torch.int32, device=chunk.device)
-    ignored = slot[None, :] == col(ignore)
+    per_ray = chunk.dim() == 3
+    ax, ay, az, bx, by, bz, cx, cy, cz, sph = (
+        chunk[k] if per_ray else chunk[k][None, :] for k in range(10))
+    slot = torch.arange(chunk.shape[-1], dtype=torch.int32, device=chunk.device)[None, :]
+    ignored = slot + (col(base) if per_ray else base) == col(ignore)
 
     if has_tri:
         px = dy * cz - dz * cy

@@ -3,7 +3,9 @@
 Tables travel as a flat dict of numpy arrays keyed by the JAX
 `PreparedScene` field paths ("geometry.tri_v0", "prim_soa.ax",
 "lights.cdf", "materials.present", "camera.kind", ...); a light tree
-travels under "lights.tree.nodes", "lights.tree.light_path", ... `to_arrays`
+travels under "lights.tree.nodes", "lights.tree.light_path", ..., the
+chunk-tree tables under "hier_soa.prim_chunks", "hier_soa.root_code", ...
+`to_arrays`
 writes a port scene in that form; `from_jax_arrays` builds a port scene
 from it, so both packages can be fed identical tables and a difference in
 preparation cannot hide a difference in the physics.
@@ -16,6 +18,7 @@ import torch
 
 from ..aggregation.light_tree import FlatLightTree
 from ..ops.intersect import FlatGeometry
+from ..ops.pallas_hier import HierSoA
 from ..ops.pallas_intersect import PrimSoA
 from .prepare import LightTable, MaterialTable, PackedCamera, PreparedScene
 
@@ -25,8 +28,12 @@ _INT_FIELDS = {
     "materials.albedo_tex", "lights.kind", "lights.index", "lights.emissive_prim",
     "lights.emissive_inst", "lights.emissive_light", "lights.prim_light",
     "lights.tree_records", "lights.record_tree", "lights.tree.light_depth",
-    "prim_soa.order", "prim_soa.inv_order",
+    "prim_soa.order", "prim_soa.inv_order", "hier_soa.codes", "hier_soa.order",
+    "hier_soa.inv_order", "hier_soa.inst_codes", "hier_soa.binned_g2c", "hier_soa.binned_g2i",
 }
+# HierSoA fields that are Python scalars, with their types
+_HIER_STATICS = {"root_code": int, "stack_size": int, "num_tris": int, "num_prims": int,
+                 "instanced": bool}
 
 
 def _np(x) -> np.ndarray:
@@ -54,6 +61,9 @@ def to_arrays(scene: PreparedScene) -> dict[str, np.ndarray]:
         out[f"prim_soa.{name}"] = _np(getattr(soa, name))
     for name in ("shade_pack", "mat_pack", "emissive_pack"):
         out[name] = _np(getattr(scene, name))
+    if scene.hier_soa is not None:
+        for name, value in zip(HierSoA._fields, scene.hier_soa):
+            out[f"hier_soa.{name}"] = _np(value)
     return out
 
 
@@ -100,6 +110,9 @@ def from_jax_arrays(tables: dict[str, np.ndarray], device="cpu") -> PreparedScen
         num_tris=int(tables["prim_soa.num_tris"]),
         num_prims=int(tables["prim_soa.num_prims"]),
     )
+    hier = None
+    if "hier_soa.prim_chunks" in tables:
+        hier = group(HierSoA, "hier_soa", _HIER_STATICS)
     return PreparedScene(
         geometry=group(FlatGeometry, "geometry"),
         materials=group(MaterialTable, "materials",
@@ -110,4 +123,5 @@ def from_jax_arrays(tables: dict[str, np.ndarray], device="cpu") -> PreparedScen
         shade_pack=put("shade_pack"),
         mat_pack=put("mat_pack"),
         emissive_pack=put("emissive_pack"),
+        hier_soa=hier,
     )

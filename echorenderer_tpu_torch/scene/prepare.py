@@ -7,14 +7,16 @@ packed row layouts are the JAX package's, table for table:
                       sph: [center(3) radius .. mat area 1]
   mat_pack (M, 16)    [albedo(3) params(4) extra(3) type tex one_sided ntex nint rtex]
   emissive_pack (Le, 20) [v0(3) e1(3) e2(3) n(3) albedo(3) area is_sph]
-plus the dense kernels' `PrimSoA`. Every table lives on the `device` given
-to `prepare_scene`; everything downstream follows the scene's device.
+plus the dense kernels' `PrimSoA` and, from HIER_BUILD_MIN prims on, the
+chunk-tree walk's `HierSoA` (ops/pallas_hier.py), both from the same BVH
+leaf order. Every table lives on the `device` given to `prepare_scene`;
+everything downstream follows the scene's device.
 
 From LIGHT_TREE_THRESHOLD finite lights on, the light table carries an
 Estevez-Kulla light tree (aggregation/light_tree.py), built as the JAX
 package builds it. This package prepares non-instanced scenes without
-textures or env maps, up to DENSE_PRIM_LIMIT padded prims. The rest
-raises NotImplementedError naming the ROADMAP.md item that brings it.
+textures or env maps, of any size. The rest raises NotImplementedError
+naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import torch
 from ..aggregation.bvh import build_bvh, geometry_bounds
 from ..aggregation.light_tree import FlatLightTree, build_light_tree
 from ..ops.intersect import FlatGeometry
-from ..ops.pallas_intersect import PRIM_BLOCK, PrimSoA, build_prim_soa, pack_sorted_prims
+from ..ops.pallas_hier import HIER_BUILD_MIN, HierSoA, build_hier_soa
+from ..ops.pallas_intersect import PrimSoA, build_prim_soa, pack_sorted_prims
 from . import materials as mat_mod
 from .cameras import Camera, PerspectiveCamera
 from .entities import Entity, PackInstance, Scene
@@ -44,9 +47,6 @@ LIGHT_EMISSIVE_TRI = 3
 
 # finite-light count from which the light tree replaces the flat power CDF
 LIGHT_TREE_THRESHOLD = 64
-# padded prim count from which the JAX package leaves the dense kernels
-# for the packet BVH walk (scene_ops.HIER_TRACE_MIN)
-DENSE_PRIM_LIMIT = 65536
 # unrolled prim count up to which "auto" instancing bakes shared packs
 AUTO_BAKE_LIMIT = 2048
 
@@ -116,6 +116,8 @@ class PreparedScene(NamedTuple):
     shade_pack: torch.Tensor  # (P, 24) float32
     mat_pack: torch.Tensor  # (M, 16) float32
     emissive_pack: torch.Tensor  # (Le, 20) float32
+    # chunk-tree walk tables from HIER_BUILD_MIN prims on; None below
+    hier_soa: HierSoA | None = None
 
     @property
     def device(self) -> torch.device:
@@ -334,11 +336,6 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
     )
     num_tris = geom_np["tri_v0"].shape[0]
     num_prims = num_tris + geom_np["sph_center"].shape[0]
-    if -(-num_prims // PRIM_BLOCK) * PRIM_BLOCK >= DENSE_PRIM_LIMIT:
-        _not_ported(
-            f"a scene of {num_prims} prims (>= {DENSE_PRIM_LIMIT} padded)",
-            "queue 2, packet BVH walk",
-        )
 
     mtypes, malbedo, mparams, mextra, mone = build_material_arrays(materials)
 
@@ -488,6 +485,8 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
     order = build_bvh(bmin, bmax).prim_order
     packed = pack_sorted_prims(geom_np, order, bounds=(bmin, bmax))
     prim_soa = build_prim_soa(geom_np, order=order, packed=packed, device=device)
+    hier_soa = (build_hier_soa(geom_np, order, packed=packed, device=device)
+                if num_prims >= HIER_BUILD_MIN else None)
 
     materials_t = MaterialTable(
         type=put(mtypes),
@@ -559,4 +558,5 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
         shade_pack=put(shade),
         mat_pack=put(mat_pack),
         emissive_pack=put(epack),
+        hier_soa=hier_soa,
     )

@@ -1,8 +1,9 @@
 """PyTorch port: prepared-scene tables against the JAX package's
 `prepare_scene` on the three golden scenes and on many-light scenes with
 a light tree (integers exact, floats to rtol/atol 1e-6), the
-`from_jax_arrays` round trip, and the scenes the port does not prepare
-yet, which must raise NotImplementedError."""
+`from_jax_arrays` round trip, a scene large enough for the chunk-tree
+tables, and the scenes the port does not prepare yet, which must raise
+NotImplementedError."""
 
 import numpy as np
 import pytest
@@ -113,12 +114,22 @@ def test_light_tree_tables_match_jax(count):
 
 
 def test_large_scene_raises():
+    """A scene of 65,536 or more padded prims no longer raises: it prepares
+    with the chunk-tree tables and dispatches to their walk."""
+    from echorenderer_tpu_torch.evaluation.scene_ops import HIER_TRACE_MIN, dispatch_summary
+
     rs = np.random.RandomState(0)
     scene = tscenes.material_ball()
     scene.add(MeshEntity(vertices=rs.uniform(-5, 5, (3 * 65536, 3)),
                          faces=np.arange(3 * 65536).reshape(-1, 3), material=Diffuse()))
-    with pytest.raises(NotImplementedError, match="packet BVH walk"):
-        tprepare(scene, device="cpu")
+    prepared = tprepare(scene, device="cpu")
+    assert prepared.prim_soa.padded >= HIER_TRACE_MIN
+    soa = prepared.hier_soa
+    assert soa is not None and soa.num_prims == prepared.geometry.num_primitives
+    assert soa.num_chunks == -(-soa.num_prims // 256) and soa.root_code >= 0
+    summary = dispatch_summary(prepared)
+    assert summary["accelerator"] == "hier-packet"
+    assert summary["integrator"] == "wavefront"
 
 
 def test_tlas_instancing_raises_and_small_auto_bakes():

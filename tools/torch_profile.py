@@ -5,15 +5,21 @@ on one NVIDIA GPU under torch.profiler.
     python3 tools/torch_profile.py                       # the bench epoch
     python3 tools/torch_profile.py --count 2400 --res 320x180 --spp 8
     python3 tools/torch_profile.py --spp 8 --wavefront   # the wavefront's frame
+    python3 tools/torch_profile.py --tris 1000000 --res 1920x1080 --spp 1 --bounce 6
 
 The scene is sphere_field(count) (bench.py's scene at the default 80),
 rendered through `render_layer` for one epoch of `spp` samples at bounce
 limit `bounce` (the megakernel where it takes the scene); with
 `--wavefront`, one frame of the same samples through the wavefront, as a
-render that asks for the wavefront's stats runs it. Prints the card's name and power limit, the wall time of
-two unprofiled epochs after a warm-up, then for one profiled epoch: its
-wall time, the device's busy time (sum of kernel and copy times) and idle
-share, and device time grouped by kernel name with launch counts.
+render that asks for the wavefront's stats runs it. With `--tris N` the
+scene is sphere_grid(N) instead (bench.py's large scene at 1,000,000), and
+an epoch is one program of `_sample_frame`, as bench.py times it (the
+wavefront, through the chunk-tree walk from 65,536 padded prims on).
+Prints the card's name and power limit, the wall time of two unprofiled
+epochs after a warm-up, then for one profiled epoch: its wall time, the
+device's busy time (sum of kernel and copy times) and idle share, device
+time grouped by kernel name with launch counts, and the share of
+PyTorch's elementwise kernels.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ def main() -> int:
     ap.add_argument("--bounce", type=int, default=16)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--wavefront", action="store_true")
+    ap.add_argument("--tris", type=int, default=0, help="profile sphere_grid(TRIS) instead")
     a = ap.parse_args()
 
     import torch
@@ -52,14 +59,21 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     res = tuple(int(v) for v in a.res.split("x"))
-    scene = prepare_scene(scenes.sphere_field(a.count), device="cuda")
+    name = f"sphere_grid({a.tris})" if a.tris else f"sphere_field({a.count})"
+    t0 = time.perf_counter()
+    scene = prepare_scene(scenes.sphere_grid(a.tris) if a.tris else scenes.sphere_field(a.count),
+                          device="cuda")
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
     prof = EvaluationProfile(samples_per_epoch=a.spp, max_epoch=1, bounce_limit=a.bounce,
                              survivability=2.5, adaptive=False)
     _, info = render_layer(scene, prof, res)  # warm-up: kernel build and load
     dispatch = info["dispatch"]
 
     def epoch():
-        if a.wavefront:
+        if a.tris:  # one bench.py program
+            _sample_frame(scene, "path", res, 0, 1, a.spp, a.bounce, 2.5)
+        elif a.wavefront:
             _sample_frame(scene, "path", res, 0, 0, a.spp, a.bounce, 2.5, return_stats=True)
         else:
             render_layer(scene, prof, res)
@@ -74,8 +88,8 @@ def main() -> int:
     samples = res[0] * res[1] * a.spp
     integ = ("wavefront: stats render" if a.wavefront
              else f"{dispatch['integrator']}: {dispatch['integrator_reason']}")
-    print(f"[profile] {smi} | sphere_field({a.count}) {res[0]}x{res[1]} {a.spp} spp bounce "
-          f"{a.bounce} | {integ}")
+    print(f"[profile] {smi} | {name} {res[0]}x{res[1]} {a.spp} spp bounce "
+          f"{a.bounce} | {integ} | {dispatch['accelerator']} | prepared in {prep_s:.2f} s")
     print("[profile] unprofiled epochs: " + ", ".join(
         f"{w:.4f} s = {samples / w / 1e6:.3f} Mspps" for w in walls))
 
@@ -102,6 +116,10 @@ def main() -> int:
     for dev_us, count, key in rows[: a.top]:
         print(f"[profile]   {dev_us / 1e3:10.3f} ms {dev_us / 1e3 / busy_ms:7.2%} "
               f"{count:8d}x  {key[:90]}")
+    elem = [r for r in rows if "elementwise" in r[2]]
+    print(f"[profile] PyTorch elementwise kernels: {sum(r[0] for r in elem) / 1e3:.3f} ms "
+          f"({sum(r[0] for r in elem) / 1e3 / busy_ms:.1%} of busy) in "
+          f"{sum(r[1] for r in elem)} launches")
 
     # host pieces of every epoch, timed alone (median of 5)
     from echorenderer_tpu_torch.ops import megakernel
@@ -118,8 +136,10 @@ def main() -> int:
         return sorted(times)[2]
 
     image = torch.zeros((res[1], res[0], 3), device="cuda")
-    print(f"[profile] host pieces (ms, median of 5): lane_order {host_ms(lambda: lane_order(res)):.3f}"
-          f", megakernel tables {host_ms(lambda: megakernel._build_tables(scene)):.3f}"
+    tables = "" if a.tris else (
+        f", megakernel tables {host_ms(lambda: megakernel._build_tables(scene)):.3f}")
+    print(f"[profile] host pieces (ms, median of 5): lane_order at {res[0] * res[1]} keys "
+          f"{host_ms(lambda: lane_order(res)):.3f}{tables}"
           f", image download {host_ms(lambda: image.cpu().numpy()):.3f}")
     return 0
 
