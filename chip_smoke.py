@@ -23,11 +23,26 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        image to 1e-4 per channel; k_slots 1 and 4 bitwise equal;
      - hier_trace / hier_occlude (the chunk-tree walk) on 2^20 random rays
        against sphere_grid(1_000_000) (bench.py's large scene) and on every
-       call of the slice's first timed program below, recorded; the plain
-       versions on a strided subset of 65,536 rays of each call: ids, flags
-       and t/u/v bitwise equal; and sphere_grid(250_000) at 320x180, 8 spp,
-       bounce 6 rendered through the hier kernels and through the dense
-       kernels: sums bitwise equal;
+       coherent call (the first wave) of the slice's first timed program
+       below, recorded; the plain versions on a strided subset of 65,536
+       rays of each call: ids, flags and t/u/v bitwise equal;
+     - the binned traversal's kernels setup_rank / select / seg_keys on one
+       trace_binned and one occlude_binned call of the same 2^20 random
+       rays and on every binned call of that program: every launch against
+       its plain version on the same inputs, bitwise; then each call against
+       the hier kernels: the same rays hit, equal prims give bitwise equal
+       t/u/v, differing prims (counted) have t in one band (bits & ~0xFF),
+       occlude flags identical; per kernel the mean ms per launch (the sum
+       over the launches over their count, as the bound, which counts only
+       the bytes each launch needs: the records of live pairs, the new keys
+       of refilling rays) and the median per call, the plain version's,
+       launches, rounds and host reads per call, and torch.sort of setup's
+       key matrix as its yardstick (the ranking step only);
+     - sphere_grid(250_000) at 320x180, 8 spp, bounce 6 rendered through
+       the hier kernels alone (binned patched off), through the main
+       dispatch (first wave on the walk, the rest binned) and through the
+       dense kernels: hier = dense bitwise; binned vs dense: pixels not
+       bitwise equal counted, sums within the megakernel's tolerance;
      - median ms of each kernel (10 runs after a warm-up) and its plain
        version, and the bound: the larger of the float work over 67 TFLOP/s
        and the bytes over 3.35 TB/s. The float work is that of the prim
@@ -47,17 +62,22 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      again: bench.py's large configuration, sphere_grid(1_000_000) at
      1920x1080, 1 spp, bounce 6, survivability 2.5, through _sample_frame:
      a warm-up program, then 8 timed programs (sample_start 1..8): Mspps,
-     program seconds, prepare seconds, peak memory, dispatch, the liveness
-     cascade's widths, launches (hier > 0, dense and megakernel 0), mean
-     luminance. The kernels line reports the dense kernels' ms and bound
-     per launch of the wavefront path, the megakernel's for the bench
-     launch, and the hier kernels' per call of the large-scene program.
+     program seconds, prepare seconds, peak memory, dispatch ("binned"), the
+     liveness cascade's widths, launches (binned kernels and hier > 0, dense
+     and megakernel 0), rounds and host reads, mean luminance; then the same
+     8 programs with the binned traversal patched off (every wave on the
+     walk, the dispatch before the binned port) for comparison. The kernels
+     line reports the dense kernels' ms and bound per launch of the
+     wavefront path, the megakernel's for the bench launch, the hier
+     kernels' per call of the large-scene program, and the binned kernels'
+     per launch of its binned calls.
   6. summary: a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -86,6 +106,13 @@ OCCLUDE_SITE = "echorenderer_tpu/ops/pallas_intersect.py:400"
 MEGA_SITE = "echorenderer_tpu/ops/megakernel.py:1101"
 HIER_SOURCE = "echorenderer_tpu_torch/csrc/hier_walk.cu"
 HIER_SITE = "echorenderer_tpu/ops/pallas_hier.py:498"
+BINNED_SOURCE = "echorenderer_tpu_torch/csrc/binned.cu"
+BINNED_SITES = dict(setup="echorenderer_tpu/ops/binned_trace.py:552",
+                    select="echorenderer_tpu/ops/binned_trace.py:402",
+                    seg="echorenderer_tpu/ops/binned_trace.py:117")
+# float ops of one ray-box slab test (6 subtractions, 6 products, 10 mins
+# and maxes; compares not counted), counted from csrc/intersect.cuh
+FLOPS_SLAB = 22
 
 
 def log(*args):
@@ -178,13 +205,9 @@ def least_flops_hier(soa, rays, t_end) -> float:
     is a lower bound."""
     import torch
 
-    from echorenderer_tpu_torch.ops import pallas_hier as ph
     from echorenderer_tpu_torch.ops import pallas_intersect as pi
 
-    real = torch.arange(soa.padded, device=rays.device) < soa.num_prims
-    per_slot = torch.where(soa.prim_chunks[:, 9, :].reshape(-1) > 0.5, float(FLOPS_SPH),
-                           float(FLOPS_TRI)).double() * real
-    chunk_flops = per_slot.view(-1, ph.HCHUNK).sum(1)
+    per_chunk = chunk_flops(soa)
     cb = soa.chunk_bounds
     total = 0.0
     for s in range(0, rays.shape[1], HIER_LEAST_SLICE):
@@ -198,7 +221,7 @@ def least_flops_hier(soa, rays, t_end) -> float:
             tn = lo if tn is None else torch.maximum(tn, lo)
             tf = hi if tf is None else torch.minimum(tf, hi)
         reach = (tn <= tf) & (tf > 0.0) & (tn <= te[:, None]) & (r[6] > 0.0)[:, None]
-        total += float((reach.double() @ chunk_flops).sum())
+        total += float((reach.double() @ per_chunk).sum())
     return total
 
 
@@ -206,27 +229,38 @@ class RayWork:
     """While open, wraps the wavefront's scene_ops.trace / occlude: counts
     each call's rays (t_max > 0) and, on the dense kernels' scenes, the
     least float work of their prim tests (`least_flops`), and with `record`
-    keeps each call's kernel inputs (rays (7, N), sorted ignores)."""
+    keeps each call's kernel inputs (rays (7, N), sorted ignores): in
+    `calls` those of the dense kernels or the walk (a large scene's coherent
+    first wave), in `binned` those of the binned traversal, with each binned
+    call's launches, rounds and host reads in `per_call`."""
 
     def __init__(self, cull: bool, record: bool = False):
         self.cull, self.record = cull, record
         self.rays = dict(trace=0, occlude=0)
         self.flops = dict(trace=0.0, occlude=0.0)
         self.calls = dict(trace=[], occlude=[])
+        self.binned = dict(trace=[], occlude=[])
+        self.per_call = []
 
     def __enter__(self):
         import torch
 
         from echorenderer_tpu_torch.evaluation import scene_ops
+        from echorenderer_tpu_torch.ops import binned_trace as bt
         from echorenderer_tpu_torch.ops import pallas_hier as ph
         from echorenderer_tpu_torch.ops import pallas_intersect as pi
 
         self._saved = trace, occlude = scene_ops.trace, scene_ops.occlude
 
-        def add(kind, scene, o, d, t_max, ignore, t_end=None):
+        def counts():
+            return (bt.LAUNCHES["setup"], bt.LAUNCHES["select"], bt.LAUNCHES["seg"],
+                    bt.STATS["rounds"], bt.STATS["syncs"])
+
+        def add(kind, scene, o, d, t_max, ignore, coherent, before, t_end=None):
             rays = pi.ray_columns(o, d, t_max)
             self.rays[kind] += int((rays[6] > 0).sum())
-            if scene_ops._use_hier(scene):  # compare_hier counts their work
+            binned = scene_ops._use_binned(scene) and not coherent
+            if scene_ops._use_hier(scene):  # compare_hier / compare_binned count their work
                 ig = ph._sorted_ignore(scene.hier_soa, ignore)
             else:
                 soa = scene.prim_soa
@@ -234,17 +268,24 @@ class RayWork:
                 if t_end is not None:
                     t_end = torch.where(t_end[1] >= 0, t_end[0], rays[6])
                 self.flops[kind] += least_flops(soa, rays, ig, t_end, self.cull)
+            if binned:
+                grew = [a - b for a, b in zip(counts(), before)]
+                self.per_call.append(dict(kind=kind, rays=rays.shape[1], setup=grew[0],
+                                          select=grew[1], seg=grew[2], rounds=grew[3],
+                                          syncs=grew[4]))
             if self.record:
-                self.calls[kind].append((rays, ig))
+                (self.binned if binned else self.calls)[kind].append((rays, ig))
 
-        def traced(scene, o, d, t_max, ignore):
-            hit = trace(scene, o, d, t_max, ignore)
-            add("trace", scene, o, d, t_max, ignore, (hit.t, hit.prim))
+        def traced(scene, o, d, t_max, ignore, coherent=False):
+            before = counts()
+            hit = trace(scene, o, d, t_max, ignore, coherent=coherent)
+            add("trace", scene, o, d, t_max, ignore, coherent, before, (hit.t, hit.prim))
             return hit
 
-        def occluded(scene, o, d, t_max, ignore):
-            blocked = occlude(scene, o, d, t_max, ignore)
-            add("occlude", scene, o, d, t_max, ignore)
+        def occluded(scene, o, d, t_max, ignore, coherent=False):
+            before = counts()
+            blocked = occlude(scene, o, d, t_max, ignore, coherent=coherent)
+            add("occlude", scene, o, d, t_max, ignore, coherent, before)
             return blocked
 
         scene_ops.trace, scene_ops.occlude = traced, occluded
@@ -254,6 +295,224 @@ class RayWork:
         from echorenderer_tpu_torch.evaluation import scene_ops
 
         scene_ops.trace, scene_ops.occlude = self._saved
+
+
+def timed(fn):
+    """(fn's result, its ms on the card by CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def chunk_flops(soa):
+    """Float ops of one ray's tests of every real prim, per HCHUNK chunk."""
+    import torch
+
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+
+    real = torch.arange(soa.padded, device=soa.prim_chunks.device) < soa.num_prims
+    per_slot = torch.where(soa.prim_chunks[:, 9, :].reshape(-1) > 0.5, float(FLOPS_SPH),
+                           float(FLOPS_TRI)).double() * real
+    return per_slot.view(-1, ph.HCHUNK).sum(1)
+
+
+class BinnedCheck:
+    """While open, every launch of the binned traversal's three kernels
+    (ops/binned_trace.setup_rank / select / seg_keys) first runs the plain
+    version on the same inputs (on a copy of select's in-place buffer), then
+    the kernel, and the integer outputs must be identical; `max_err` keeps
+    the largest |kernel - plain| seen per kernel. Records per launch: the
+    traversal call it belongs to, kernel and plain ms (CUDA events), the
+    least float work and the bytes the launch must move, the bound; with
+    `library`, for setup also the ms of torch.sort over the same (N, S) key
+    matrix. The kernels count their launches in binned_trace.LAUNCHES, as
+    on the main path."""
+
+    def __init__(self, soa, library: bool = False):
+        self.library = library
+        self.rows = dict(setup=[], select=[], seg=[])
+        self.max_err = dict(setup=0, select=0, seg=0)
+        self.chunk_flops = chunk_flops(soa)
+
+    def __enter__(self):
+        import torch
+
+        from echorenderer_tpu_torch.ops import binned_trace as bt
+
+        self._saved = setup_k, select_k, seg_k = bt.setup_rank, bt.select, bt.seg_keys
+
+        def record(kind, k_ms, p_ms, flops, nbytes, **extra):
+            self.rows[kind].append(dict(call=bt.STATS["calls"], ms=k_ms, plain_ms=p_ms,
+                                        flops=flops, bound=bound_ms(flops, nbytes), **extra))
+
+        def differ(kind, got, want):
+            for g, w in zip(got, want):
+                err = int((g.long() - w.long()).abs().max()) if w.numel() else 0
+                self.max_err[kind] = max(self.max_err[kind], err)
+                if err:
+                    raise AssertionError(f"binned {kind} kernel differs from its plain version on "
+                                         f"{int((g != w).sum())} of {w.numel()} values")
+
+        def setup(rays, sup_cb, sbits, cap=None):
+            want, p_ms = timed(lambda: bt.setup_rank_plain(rays, sup_cb, sbits, cap))
+            got, k_ms = timed(lambda: setup_k(rays, sup_cb, sbits, cap))
+            differ("setup", (got,), (want,))
+            n, s = rays.shape[1], sup_cb.shape[0]
+            lib = None
+            if self.library:  # the ranking step alone: one row sort of the same keys
+                ids = torch.arange(s, dtype=torch.int32, device=rays.device)[None]
+                keys = torch.cat([bt._enc(bt._slab_all(r[0:3].T, r[3:6].T, sup_cb, r[6]), ids,
+                                          sbits) for r in rays.split(bt.PLAIN_SLICE, dim=1)])
+                torch.sort(keys, dim=1)
+                lib = timed(lambda: torch.sort(keys, dim=1))[1]
+                del keys
+            record("setup", k_ms, p_ms, float(n) * s * FLOPS_SLAB,
+                   n * 28 + got.numel() * 4 + sup_cb.numel() * 4, library_ms=lib)
+            return got
+
+        def select(cand, new_keys, best_t, do_refill, k, cbits):
+            copy = cand.clone()
+            want, p_ms = timed(lambda: bt.select_plain(copy, new_keys, best_t, do_refill, k,
+                                                       cbits))
+            got, k_ms = timed(lambda: select_k(cand, new_keys, best_t, do_refill, k, cbits))
+            differ("select", (cand,) + tuple(got), (copy,) + tuple(want))
+            w, n = cand.shape
+            # the buffer read and written, the new keys of refilling rays
+            # only, the pops, and per ray best_t, the flag, live and mink
+            refills = int(do_refill.sum())
+            record("select", k_ms, p_ms, 0.0,
+                   2 * cand.numel() * 4 + new_keys.shape[0] * refills * 4 + k * n * 4
+                   + n * (4 + 1 + 8), rays=n, refills=refills)
+            return got
+
+        def seg(rec, chunk, prim_chunks, has_tri, has_sph):
+            want, p_ms = timed(lambda: bt.seg_keys_plain(rec, chunk, prim_chunks, has_tri,
+                                                         has_sph))
+            got, k_ms = timed(lambda: seg_k(rec, chunk, prim_chunks, has_tri, has_sph))
+            differ("seg", (got,), (want,))
+            live = (rec[:, 6] > 0.0) & (chunk >= 0) & (chunk < prim_chunks.shape[0])
+            used = chunk[live].long()
+            n_live = int(live.sum())
+            distinct = int(torch.unique(used).numel())
+            # a live pair reads its record and chunk id (36 B) and writes its
+            # key; a dead one needs only its chunk id and its key (8 B); each
+            # distinct chunk's 10 used rows once
+            record("seg", k_ms, p_ms, float(self.chunk_flops[used].sum()),
+                   n_live * (36 + 4) + (rec.shape[0] - n_live) * 8
+                   + distinct * 10 * prim_chunks.shape[2] * 4,
+                   pairs=rec.shape[0], live=n_live)
+            return got
+
+        bt.setup_rank, bt.select, bt.seg_keys = setup, select, seg
+        return self
+
+    def __exit__(self, *exc):
+        from echorenderer_tpu_torch.ops import binned_trace as bt
+
+        bt.setup_rank, bt.select, bt.seg_keys = self._saved
+
+    def summary(self, label):
+        """Log per kernel: launches checked, the mean kernel, plain and
+        bound ms per launch (each a sum over the launches over their count,
+        so the bound share is sum(bound) / sum(ms)), the median ms per launch
+        and per call, the largest |kernel - plain|. Returns {kernel: dict}."""
+        out = {}
+        for kind, rows in self.rows.items():
+            if not rows:
+                raise AssertionError(f"{label}: no {kind} launch was checked")
+            per_call = {}
+            for r in rows:
+                c = per_call.setdefault(r["call"], [0.0, 0.0])
+                c[0] += r["ms"]
+                c[1] += r["plain_ms"]
+            lib = [r["library_ms"] for r in rows if r.get("library_ms") is not None]
+            total = sum(r["ms"] for r in rows)
+            total_bound = sum(r["bound"][0] for r in rows)
+            by = {}  # the summed bound split by what bounds each launch
+            for r in rows:
+                by[r["bound"][1]] = by.get(r["bound"][1], 0.0) + r["bound"][0]
+            bound_by = max(by, key=by.get)
+            out[kind] = dict(
+                launches=len(rows), ms=total / len(rows),
+                plain_ms=statistics.fmean(r["plain_ms"] for r in rows),
+                median_ms=statistics.median(r["ms"] for r in rows),
+                median_plain_ms=statistics.median(r["plain_ms"] for r in rows),
+                call_ms=statistics.median(c[0] for c in per_call.values()),
+                call_plain_ms=statistics.median(c[1] for c in per_call.values()),
+                bound_ms=total_bound / len(rows), share=total_bound / total,
+                bound_by=bound_by, bound_by_share=by[bound_by] / total_bound,
+                flops=statistics.fmean(r["flops"] for r in rows),
+                library_ms=statistics.fmean(lib) if lib else None,
+                max_abs_err=self.max_err[kind])
+            o = out[kind]
+            shares = {name: (sum(r[part] for r in rows), sum(r[whole] for r in rows))
+                      for name, part, whole in (("live pairs", "live", "pairs"),
+                                                ("refilling rays", "refills", "rays"))
+                      if part in rows[0]}
+            log(f"[kernels] {label}: binned {kind}: {o['launches']} launches over "
+                f"{len(per_call)} calls, each bitwise equal to its plain version (max |diff| "
+                f"{o['max_abs_err']}); mean ms per launch {o['ms']:.4f} (plain "
+                f"{o['plain_ms']:.4f}), median per launch {o['median_ms']:.4f} (plain "
+                f"{o['median_plain_ms']:.4f}), median per call {o['call_ms']:.4f} (plain "
+                f"{o['call_plain_ms']:.4f}); mean least float work per launch {o['flops']:.6g}; "
+                f"mean bound per launch {o['bound_ms']:.6f} ms ({100 * o['bound_by_share']:.1f}% "
+                f"of it from launches bound by {o['bound_by']}), "
+                f"{100 * o['share']:.2f}% of the kernel's time"
+                + "".join(f"; {name} {a} of {b}" for name, (a, b) in shares.items())
+                + (f"; torch.sort of the same key matrix (ranking step only) "
+                   f"{o['library_ms']:.4f} ms per launch" if lib else ""))
+        return out
+
+
+def compare_binned(label, soa, calls):
+    """The binned traversal against the hier kernels on every call of
+    `calls` ({"trace": [(rays, ignore)], "occlude": [...]}, sorted-slot
+    ignores): the same rays hit; equal prims give bitwise equal t, u, v;
+    differing prims have t in one band. Occlude flags identical. Returns the
+    count of rays whose prims differ."""
+    import torch
+
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+
+    ties = n_hit = n_blocked = 0
+    for rays, ig in calls["trace"]:
+        t, p, u, v = bt._Walk(rays, ig, soa, False).traverse()
+        ht, hp, hu, hv = ph.hier_trace(rays, ig, soa)
+        if not torch.equal(p >= 0, hp >= 0):
+            raise AssertionError(f"{label}: binned and hier disagree on hit or miss for "
+                                 f"{int(((p >= 0) != (hp >= 0)).sum())} rays")
+        same = (p == hp) & (p >= 0)
+        for name, a, b in (("t", t, ht), ("u", u, hu), ("v", v, hv)):
+            if not torch.equal(a[same], b[same]):
+                raise AssertionError(f"{label}: binned {name} differs from hier on "
+                                     f"{int((a[same] != b[same]).sum())} rays with equal prims")
+        diff = (p != hp) & (p >= 0)
+        band = lambda x: x.contiguous().view(torch.int32) & -256
+        if not torch.equal(band(t[diff]), band(ht[diff])):
+            raise AssertionError(f"{label}: binned and hier prims differ beyond one band")
+        ties += int(diff.sum())
+        n_hit += int((p >= 0).sum())
+    for rays, ig in calls["occlude"]:
+        blocked = bt._Walk(rays, ig, soa, True).traverse()
+        want = ph.hier_occlude(rays, ig, soa)
+        if not torch.equal(blocked, want):
+            raise AssertionError(f"{label}: binned and hier occlude flags differ on "
+                                 f"{int((blocked != want).sum())} rays")
+        n_blocked += int(want.sum())
+    rays_n = {k: sum(r.shape[1] for r, _ in v) for k, v in calls.items()}
+    log(f"[kernels] {label}: binned vs hier on {len(calls['trace'])} trace calls "
+        f"({rays_n['trace']} rays, {n_hit} hits) and {len(calls['occlude'])} occlude calls "
+        f"({rays_n['occlude']} rays, {n_blocked} blocked): same hits and flags, equal prims "
+        f"bitwise equal; {ties} rays with another prim in the same band; "
+        f"recovery misses so far {int(bt.STATS['misses'])}")
+    return ties
 
 
 def table_bytes(*tensors) -> int:
@@ -467,38 +726,83 @@ def compare_hier(label, soa, calls):
     return err, ms, bounds
 
 
-def hier_against_dense(scene, res, spp, bounce):
-    """One frame through the hier kernels and once with dispatch forced to
-    the dense kernels: the sums must be bitwise equal."""
+def renders_against_dense(scene, res, spp, bounce):
+    """One frame through the main dispatch (the first wave on the walk, the
+    rest binned), through the hier kernels alone (binned patched off) and
+    through the dense kernels: hier = dense bitwise. Binned vs dense: the
+    mean image within MEGA_TOL, and every pixel outside MEGA_TOL's per-pixel
+    tolerance must own a ray on which binned kept another prim than the
+    walk in the same band (its path diverges from there). The frame must
+    stay under the liveness cascade's threshold, so that a call's ray i is
+    lane i."""
     import torch
 
     from echorenderer_tpu_torch.evaluation import scene_ops
+    from echorenderer_tpu_torch.evaluation.wavefront import cascade_widths
+    from echorenderer_tpu_torch.ops import binned_trace as bt
     from echorenderer_tpu_torch.ops import pallas_hier as ph
     from echorenderer_tpu_torch.ops import pallas_intersect as pi
     from echorenderer_tpu_torch.processes.render import _sample_frame
+    from echorenderer_tpu_torch.processes.tiles import lane_order
 
-    counts = lambda: (ph.hier_trace.launches + ph.hier_occlude.launches,
+    counts = lambda: (bt.LAUNCHES["seg"], ph.hier_trace.launches + ph.hier_occlude.launches,
                       pi.dense_trace.launches + pi.dense_occlude.launches)
     sums, grew = [], []
-    saved = scene_ops.HIER_TRACE_MIN
+    saved = scene_ops.HIER_TRACE_MIN, scene_ops._use_binned
     try:
-        for threshold in (saved, 2 ** 31):
+        for threshold, binned in ((saved[0], True), (saved[0], False), (2 ** 31, False)):
             scene_ops.HIER_TRACE_MIN = threshold
+            scene_ops._use_binned = saved[1] if binned else (lambda scene: False)
             before = counts()
             t0 = time.perf_counter()
-            sums.append(_sample_frame(scene, "path", res, 0, 0, spp, bounce, 2.5))
+            # only the binned render's calls are recorded (RayWork would also
+            # count the dense render's least work, which nothing reads here)
+            with RayWork(cull=True, record=True) if binned else contextlib.nullcontext() as rec:
+                sums.append(_sample_frame(scene, "path", res, 0, 0, spp, bounce, 2.5))
             torch.cuda.synchronize()
             grew.append([a - b for a, b in zip(counts(), before)] + [time.perf_counter() - t0])
+            if binned:
+                calls = rec.binned
     finally:
-        scene_ops.HIER_TRACE_MIN = saved
-    (hs, hq), (ds, dq) = sums
+        scene_ops.HIER_TRACE_MIN, scene_ops._use_binned = saved
+    (bs, bq), (hs, hq), (ds, dq) = sums
+    n = bs.shape[0]
     differ = int(((hs != ds) | (hq != dq)).any(dim=-1).sum())
-    log(f"[kernels] hier vs dense: {scene.geometry.num_primitives} prims {res[0]}x{res[1]} "
-        f"{spp} spp bounce {bounce}: {differ} of {hs.shape[0]} pixels not bitwise equal; "
-        f"hier render {grew[0][2]:.3f} s ({grew[0][0]} hier, {grew[0][1]} dense launches), dense "
-        f"render {grew[1][2]:.3f} s ({grew[1][0]} hier, {grew[1][1]} dense launches)")
-    if differ or grew[0][0] == 0 or grew[0][1] or grew[1][0] or grew[1][1] == 0:
+    # the pixels of the rays on which binned keeps another prim in the band
+    perm = torch.as_tensor(lane_order(res)[0].astype("int64"), device=bs.device)
+    tie_px = torch.zeros(n, dtype=torch.bool, device=bs.device)
+    ties = 0
+    for rays, ig in calls["trace"]:
+        if cascade_widths(rays.shape[1]):
+            raise AssertionError("the render check's frame must stay under the cascade")
+        p = bt._Walk(rays, ig, scene.hier_soa, False).traverse()[1]
+        other = (p != ph.hier_trace(rays, ig, scene.hier_soa)[1]).nonzero().squeeze(1)
+        tie_px[perm[other % n]] = True
+        ties += other.numel()
+    compare_binned("sphere_grid(250k) render's binned calls", scene.hier_soa, calls)
+    t = MEGA_TOL
+    close = ((bs - ds).abs() <= t["sum_atol"] + t["sum_rtol"] * ds.abs()) & (
+        (bq - dq).abs() <= t["sq_atol"] + t["sq_rtol"] * dq.abs())
+    outside = ~close.all(dim=-1)
+    unexplained = int((outside & ~tie_px).sum())
+    mean_diff = float(((bs - ds) / spp).mean(dim=0).abs().max())
+    b_differ = int(((bs != ds) | (bq != dq)).any(dim=-1).sum())
+    log(f"[kernels] renders: {scene.geometry.num_primitives} prims {res[0]}x{res[1]} {spp} spp "
+        f"bounce {bounce}: hier vs dense {differ} of {n} pixels not bitwise equal; binned "
+        f"dispatch vs dense {b_differ} pixels not bitwise equal, {int(outside.sum())} outside "
+        f"the per-pixel tolerance (share within {1 - float(outside.float().mean()):.6f}), "
+        f"{ties} band-tie rays on {int(tie_px.sum())} pixels, {unexplained} pixels outside "
+        f"tolerance without a band tie (need 0), mean image |diff| {mean_diff:.3g} "
+        f"(< {t['mean']})")
+    for label, g in zip(("binned dispatch", "hier", "dense"), grew):
+        log(f"[kernels]   {label} render {g[3]:.3f} s: {g[0]} seg, {g[1]} hier, {g[2]} dense "
+            f"launches")
+    if differ or grew[1][1] == 0 or grew[1][2] or grew[2][1] or grew[2][2] == 0:
         raise AssertionError("hier and dense renders differ or took the wrong kernels")
+    if unexplained or not mean_diff < t["mean"]:
+        raise AssertionError("the binned render disagrees with the dense render")
+    if grew[0][0] == 0 or grew[0][1] == 0 or grew[0][2]:
+        raise AssertionError("the main dispatch's render did not take the binned and hier kernels")
 
 
 def tile_lanes(res, dev):
@@ -627,6 +931,8 @@ def main() -> int:
     from echorenderer_tpu_torch.evaluation.scene_ops import dispatch_summary
     from echorenderer_tpu_torch.evaluation.wavefront import cascade_widths
     from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.evaluation import scene_ops
+    from echorenderer_tpu_torch.ops import binned_trace as bt
     from echorenderer_tpu_torch.ops import cuda_build
     from echorenderer_tpu_torch.ops import megakernel as mk
     from echorenderer_tpu_torch.ops import pallas_hier as ph
@@ -658,6 +964,7 @@ def main() -> int:
     pi._load()
     mk._load()
     ph._load()
+    bt._load()
     t_run = time.perf_counter()
 
     # --- kernel phase: dense kernels ---
@@ -746,9 +1053,19 @@ def main() -> int:
     call = (pi.ray_columns(o, d, t_max), ph._sorted_ignore(hsoa, ignore))
     err_h, _, _ = compare_hier("sphere_grid(1M) random rays", hsoa,
                                dict(trace=[call], occlude=[call]))
+    # the binned traversal on the same rays: every launch checked, then
+    # each call against the hier kernels
+    bt.reset_stats()
+    with BinnedCheck(hsoa) as check_rnd:
+        bt._Walk(*call, hsoa, False).traverse()
+        bt._Walk(*call, hsoa, True).traverse()
+    log(f"[kernels] sphere_grid(1M) random rays, binned: {bt.STATS['rounds']} rounds, "
+        f"{bt.STATS['syncs']} host reads over 2 calls")
+    b_rnd = check_rnd.summary("sphere_grid(1M) random rays")
+    compare_binned("sphere_grid(1M) random rays", hsoa, dict(trace=[call], occlude=[call]))
     del call, o, d, t_max, ignore
     mid = prepare_scene(scenes.sphere_grid(250_000), device=dev)
-    hier_against_dense(mid, (320, 180), 8, 6)
+    renders_against_dense(mid, (320, 180), 8, 6)
     del mid
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
@@ -810,32 +1127,43 @@ def main() -> int:
     if not np.isfinite(image).all() or min(dense.values()) <= 0 or mk.sample_frame_mega.launches:
         return fail("the wavefront path did not run on the dense kernels")
 
-    # --- slice phase: bench.py's large scene through the chunk-tree walk ---
+    # --- slice phase: bench.py's large scene, the first wave on the walk and
+    # every later wave through the binned traversal ---
     res = (1920, 1080)
     n_px = res[0] * res[1]
     summary = dispatch_summary(grid)
     log(f"[slice] sphere_grid(1_000_000) {res[0]}x{res[1]} 1 spp bounce 6: dispatch {summary}")
-    if summary["accelerator"] != "hier-packet" or summary["integrator"] != "wavefront":
-        return fail("the large scene does not dispatch to the chunk-tree walk")
+    if summary["accelerator"] != "binned" or summary["integrator"] != "wavefront":
+        return fail("the large scene does not dispatch to the binned traversal")
+    program = lambda start: _sample_frame(grid, "path", res, 0, start, 1, 6, 2.5)
+
+    def programs():
+        """A warm-up and 8 timed programs: (seconds, warm-up s, first sums, last sums)."""
+        t0 = time.perf_counter()
+        program(0)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        secs, first_sum = [], None
+        for i in range(8):
+            t0 = time.perf_counter()
+            out, _ = program(i + 1)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            first_sum = out if first_sum is None else first_sum
+        return secs, warm, first_sum, out
+
     mk.sample_frame_mega.launches = 0
     pi.dense_trace.launches = pi.dense_occlude.launches = 0
     ph.hier_trace.launches = ph.hier_occlude.launches = 0
+    bt.reset_stats()  # the binned kernels' launch counts too
     torch.cuda.reset_peak_memory_stats()
-    program = lambda start: _sample_frame(grid, "path", res, 0, start, 1, 6, 2.5)
-    t0 = time.perf_counter()
-    program(0)  # warm-up
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    seconds, first = [], None
-    for i in range(8):
-        t0 = time.perf_counter()
-        s_sum, _ = program(i + 1)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        first = s_sum if first is None else first
+    seconds, warm_s, first, s_sum = programs()
     hier = dict(trace=ph.hier_trace.launches, occlude=ph.hier_occlude.launches)
+    binned = dict(bt.LAUNCHES)
     others = (pi.dense_trace.launches, pi.dense_occlude.launches, mk.sample_frame_mega.launches)
     slice_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rounds, syncs, calls = bt.STATS["rounds"], bt.STATS["syncs"], bt.STATS["calls"]
+    misses = int(bt.STATS["misses"])
     big_mspps = n_px * 8 / sum(seconds) / 1e6
     img = (s_sum / 1.0).reshape(res[1], res[0], 3)
     big_lum = float(luminance(img).mean())
@@ -844,14 +1172,29 @@ def main() -> int:
         + ", ".join(f"{t:.4f}" for t in seconds)
         + f"; warm-up {warm_s:.3f} s; prepare {t_prep:.2f} s; peak memory {slice_gib:.2f} GiB "
           f"(prepare {prep_gib:.2f} GiB); mean luminance {big_lum:.4f} | {smi}")
-    log(f"[slice] launches: hier {hier}, dense trace/occlude {others[0]}/{others[1]}, "
-        f"megakernel {others[2]}; cascade widths {cascade_widths(n_px)}")
+    log(f"[slice] launches: binned {binned}, hier {hier}, dense trace/occlude "
+        f"{others[0]}/{others[1]}, megakernel {others[2]}; {calls} binned calls, {rounds} "
+        f"rounds, {syncs} host reads, {misses} recovery misses over 9 programs; cascade widths "
+        f"{cascade_widths(n_px)}")
     if not bool(torch.isfinite(s_sum).all()) or not 0.01 < big_lum < 10.0:
         return fail(f"large-scene frame non-finite or mean luminance {big_lum} out of (0.01, 10)")
-    if min(hier.values()) <= 0 or max(others) != 0:
-        return fail("the large scene did not run on the hier kernels alone")
-    # the first timed program once more, its kernel calls recorded
-    with RayWork(cull=True, record=True) as rec:
+    if min(binned.values()) <= 0 or min(hier.values()) <= 0 or max(others) != 0:
+        return fail("the large scene did not run on the binned and hier kernels alone")
+    # the same programs through the walk alone (the dispatch before the
+    # binned traversal), for comparison
+    saved = scene_ops._use_binned
+    scene_ops._use_binned = lambda scene: False
+    try:
+        walk_seconds, _, _, _ = programs()
+    finally:
+        scene_ops._use_binned = saved
+    log(f"[slice] for comparison, the same programs through the walk alone: "
+        f"{n_px * 8 / sum(walk_seconds) / 1e6:.4f} Mspps; program seconds "
+        + ", ".join(f"{t:.4f}" for t in walk_seconds) + f" | {smi}")
+    # the first timed program once more, its kernel calls recorded and every
+    # binned launch checked against its plain version
+    bt.reset_stats()
+    with RayWork(cull=True, record=True) as rec, BinnedCheck(hsoa, library=True) as check:
         again, _, stats = _sample_frame(grid, "path", res, 0, 1, 1, 6, 2.5, return_stats=True)
     log(f"[slice] the first program again, recorded: {stats['Loop/Iterations']} wavefront "
         f"iterations, {stats['Ray/Traced']} traced and {stats['Ray/Shadow']} shadow rays, "
@@ -859,10 +1202,15 @@ def main() -> int:
     if not torch.equal(again, first):
         return fail("the recorded program's sums differ from the timed one's")
     del again, first
-    err_r, ms_h, bound_h = compare_hier(
-        "sphere_grid(1M) 1920x1080 1 spp, the slice's first timed program's calls", hsoa,
-        rec.calls)
-    del rec
+    for c in rec.per_call:
+        log(f"[slice]   binned {c['kind']} call on {c['rays']} rays: launches setup "
+            f"{c['setup']}, select {c['select']}, seg {c['seg']}; {c['rounds']} rounds, "
+            f"{c['syncs']} host reads")
+    label = "sphere_grid(1M) 1920x1080 1 spp, the slice's first timed program's calls"
+    err_r, ms_h, bound_h = compare_hier(label, hsoa, rec.calls)
+    b_out = check.summary(label)
+    compare_binned(label, hsoa, rec.binned)
+    del rec, check
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     kernels = [
@@ -886,6 +1234,14 @@ def main() -> int:
              plain_ms=ms_h[f"{k}_plain"], bound_ms=bound_h[k][0], bound_by=bound_h[k][1],
              library_ms=None)
         for k in ("trace", "occlude")
+    ] + [
+        dict(name=f"binned_{k}", route="cuda", source=BINNED_SOURCE, replaces=BINNED_SITES[k],
+             launches=binned[k],
+             max_abs_err=float(max(b_rnd[k]["max_abs_err"], b_out[k]["max_abs_err"])),
+             ms=b_out[k]["ms"],
+             plain_ms=b_out[k]["plain_ms"], bound_ms=b_out[k]["bound_ms"],
+             bound_by=b_out[k]["bound_by"], library_ms=b_out[k]["library_ms"])
+        for k in ("setup", "select", "seg")
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

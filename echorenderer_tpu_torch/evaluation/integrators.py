@@ -42,16 +42,18 @@ def _offset_origin(point, geo_normal, direction):
 
 
 def path_step(scene: PreparedScene, stream: SampleStream, st: dict, live, *,
-              bounce_limit: int, survivability: float):
+              bounce_limit: int, survivability: float, coherent: bool = False):
     """One path-tracing iteration for every lane. `st` carries radiance,
     throughput, o, d, depth, prev_pdf, prev_specular, prev_point, ignore.
     Returns the updated radiance, the post-bounce throughput (new_tp), the
     continuation mask/ray (continues, cont_o, wi_world), next-iteration MIS
     state (bs_pdf, bs_specular, contact_point, hit_prim) and an `aux` dict
-    of event masks for the statistics counters."""
+    of event masks for the statistics counters. `coherent` marks the
+    wavefront's first wave for the trace and the shadow rays
+    (`scene_ops.trace`)."""
     # --- trace the pending ray ---
     seg_t = torch.where(live, INF, 0.0)
-    hit = scene_ops.trace(scene, st["o"], st["d"], seg_t, st["ignore"])
+    hit = scene_ops.trace(scene, st["o"], st["d"], seg_t, st["ignore"], coherent=coherent)
     found = live & hit.found
     contact = scene_ops.interact(scene, hit, st["o"], st["d"])
 
@@ -113,7 +115,7 @@ def path_step(scene: PreparedScene, stream: SampleStream, st: dict, live, *,
     shadow_t = torch.where(ls.travel >= INF, INF, ls.travel * (1.0 - 1e-3))
     shadow_t = torch.where(candidate, shadow_t, 0.0)
     blocked = scene_ops.occlude(
-        scene, shadow_o, ls.incident, shadow_t, torch.clamp(hit.prim, min=0)
+        scene, shadow_o, ls.incident, shadow_t, torch.clamp(hit.prim, min=0), coherent=coherent
     )
     visible = candidate & ~blocked
     scatter_pdf_l = bsdf_mod.pdf(contact.material, wo_local, wi_l)

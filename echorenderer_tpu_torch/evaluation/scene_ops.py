@@ -4,10 +4,11 @@ axis on the scene's device.
 
 Accelerator rule, as in the JAX package: scenes under LINEAR_THRESHOLD
 prims take the plain dense broadcast; scenes with a chunk tree and at
-least HIER_TRACE_MIN padded prims take its walk (ops/pallas_hier.py), as
-the JAX package's ECHO_NO_BINNED dispatch does (its binned traversal is
-not ported yet); every other scene takes the dense chunk kernels of
-ops/pallas_intersect.py.
+least HIER_TRACE_MIN padded prims take the binned traversal
+(ops/binned_trace.py), except for a population marked `coherent` (the
+wavefront's first wave: camera rays in tile-major order and their shadow
+rays), which takes the chunk-tree walk (ops/pallas_hier.py); every other
+scene takes the dense chunk kernels of ops/pallas_intersect.py.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ..aggregation import light_tree
 from ..ops import megakernel
+from ..ops.binned_trace import occlude_binned, trace_binned
 from ..ops.intersect import INF, Hit, intersect_linear, occlude_linear, sphere_uv
 from ..ops.pallas_hier import intersect_hier, occlude_hier
 from ..ops.pallas_intersect import intersect_pallas, occlude_pallas
@@ -44,17 +46,28 @@ def _use_hier(scene: PreparedScene) -> bool:
     return scene.hier_soa is not None and scene.prim_soa.padded >= HIER_TRACE_MIN
 
 
+def _use_binned(scene: PreparedScene) -> bool:
+    """The binned traversal takes every population but the coherent one
+    wherever the chunk tree would (tests patch this off to run the walk
+    alone, as the JAX package's ECHO_NO_BINNED does)."""
+    return _use_hier(scene)
+
+
 def dispatch_summary(scene: PreparedScene, return_stats: bool = False) -> dict:
     """Which accelerator and integrator this scene's renders take, and why
     (a render that asks for the wavefront's stats bypasses the megakernel)."""
     kind = "CUDA kernel" if scene.device.type == "cuda" else "plain PyTorch version"
     if scene.geometry.num_primitives < LINEAR_THRESHOLD:
         acc, why = "linear", f"< {LINEAR_THRESHOLD} prims"
+    elif _use_binned(scene):
+        acc = "binned"
+        why = (f"large scene: per-ray binned traversal ({kind}, {scene.prim_soa.padded} padded "
+               f"prims >= {HIER_TRACE_MIN}, {scene.hier_soa.num_chunks} chunks); the coherent "
+               f"first wave takes the chunk-tree walk")
     elif _use_hier(scene):
         acc = "hier-packet"
         why = (f"chunk-tree walk ({kind}, {scene.prim_soa.padded} padded prims >= "
-               f"{HIER_TRACE_MIN}, {scene.hier_soa.num_chunks} chunks); the binned traversal "
-               f"is not ported yet (ROADMAP.md queue 2)")
+               f"{HIER_TRACE_MIN}, {scene.hier_soa.num_chunks} chunks); binned traversal off")
     else:
         acc = "dense-stream"
         why = f"dense chunk trace/occlude ({kind}, {scene.prim_soa.padded} padded prims)"
@@ -73,17 +86,25 @@ def dispatch_summary(scene: PreparedScene, return_stats: bool = False) -> dict:
     }
 
 
-def trace(scene: PreparedScene, o, d, t_max, ignore) -> Hit:
+def trace(scene: PreparedScene, o, d, t_max, ignore, coherent: bool = False) -> Hit:
+    """`coherent=True` marks a tile-coherent population (the wavefront's
+    first wave), which a large scene sends to the chunk-tree walk; every
+    other population of such a scene takes the binned traversal."""
     if scene.geometry.num_primitives < LINEAR_THRESHOLD:
         return intersect_linear(scene.geometry, o, d, t_max, ignore)
+    if _use_binned(scene) and not coherent:
+        return trace_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
     if _use_hier(scene):
         return intersect_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
     return intersect_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
 
 
-def occlude(scene: PreparedScene, o, d, t_max, ignore) -> torch.Tensor:
+def occlude(scene: PreparedScene, o, d, t_max, ignore, coherent: bool = False) -> torch.Tensor:
+    """See trace()."""
     if scene.geometry.num_primitives < LINEAR_THRESHOLD:
         return occlude_linear(scene.geometry, o, d, t_max, ignore)
+    if _use_binned(scene) and not coherent:
+        return occlude_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
     if _use_hier(scene):
         return occlude_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
     return occlude_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)

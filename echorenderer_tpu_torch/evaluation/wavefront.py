@@ -142,12 +142,12 @@ def run_wavefront(
     counters = torch.zeros(6, dtype=torch.int64, device=dev)  # exact past 2^24 events
     iters = 0
 
-    def step(ln):
+    def step(ln, coherent=False):
         nonlocal counters, iters
         live = ~ln["lane_done"]
         out = path_step(
             scene, stream_lanes(ln, ln["sample"]), ln, live,
-            bounce_limit=bounce_limit, survivability=survivability,
+            bounce_limit=bounce_limit, survivability=survivability, coherent=coherent,
         )
         radiance = out["radiance"]
         aux = out["aux"]
@@ -196,6 +196,12 @@ def run_wavefront(
             ln = step(ln)
         return ln
 
+    # iteration 0 is peeled: every lane holds its first camera ray, in
+    # tile-major order, so its trace and shadow waves are marked coherent
+    # (the chunk-tree walk on a large scene, `scene_ops.trace`); the loop,
+    # the counters and the cascade carry on from it
+    if count >= 1:
+        lane = step(lane, coherent=True)
     widths = cascade_widths(n)
     lane = run_until(lane, widths[0] if widths else 0)
     for i, width in enumerate(widths):

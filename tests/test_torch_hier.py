@@ -16,7 +16,9 @@
   of the visit order.
 - prepare / convert carry the tables; the slice renders as the JAX
   wavefront does with its ECHO_NO_BINNED dispatch (tests/test_torch_path.py's
-  tolerances); the liveness cascade leaves sums and counters bitwise equal.
+  tolerances), through the walk alone and through the binned dispatch
+  (first wave on the walk, the rest binned); the liveness cascade leaves
+  sums and counters bitwise equal.
 - The CUDA kernels are held to their plain versions on the card:
 
     python -m pytest --noconftest tests/test_torch_hier.py -k cuda
@@ -311,14 +313,17 @@ def test_prepare_builds_hier_tables_like_jax(grid_pair):
 
 
 def test_slice_matches_jax(grid_pair, monkeypatch):
-    """The wavefront on sphere_grid(20_000), 16x16, 2 spp, bounce 4, through
-    the chunk-tree walk in both packages (the JAX side as its
-    ECHO_NO_BINNED dispatch runs it), on identical tables; and the port's
-    hier render equals its dense render bit for bit."""
+    """The wavefront on sphere_grid(20_000), 16x16, 2 spp, bounce 4, on
+    identical tables: the JAX side through the chunk-tree walk, as its
+    ECHO_NO_BINNED dispatch runs it; the port through its large-scene
+    dispatch (the first wave on the walk, every later one binned) and
+    through the walk alone, both held to the JAX sums; and the port's walk
+    render equals its dense render bit for bit."""
     import jax.numpy as jnp
 
     from echorenderer_tpu.evaluation import scene_ops as jscene_ops
     from echorenderer_tpu.evaluation.wavefront import sample_frame_wavefront as jwavefront
+    from echorenderer_tpu_torch.ops import binned_trace as bt
     from test_torch_prepare import flatten_jax
 
     jscene, _ = grid_pair
@@ -331,6 +336,8 @@ def test_slice_matches_jax(grid_pair, monkeypatch):
     kw = dict(bounce_limit=4, survivability=2.5)
     a, a2 = jwavefront(jscene, jnp.asarray(pid), jnp.asarray(pxy), res, 11, jnp.uint32(0), 2,
                        **kw)
+    a, a2 = np.asarray(a), np.asarray(a2)
+    assert a.sum() > 0
     args = (torch.as_tensor(pid.astype(np.int64)), torch.as_tensor(pxy), res, 11, 0, 2)
     launches = ph.hier_trace.launches, ph.hier_occlude.launches
     calls = {"hier": 0}
@@ -340,17 +347,26 @@ def test_slice_matches_jax(grid_pair, monkeypatch):
         calls["hier"] += 1
         return walk(*a_, **k_)
 
+    def close_to_jax(s, s2):
+        np.testing.assert_allclose(s, a, atol=2e-3, rtol=2e-3)
+        np.testing.assert_allclose(s2, a2, atol=4e-2, rtol=2e-3)
+        np.testing.assert_allclose(s.mean(0), a.mean(0), atol=1e-5, rtol=1e-5)
+
     monkeypatch.setattr(ph, "_walk", counted)
     monkeypatch.setattr(tscene_ops, "HIER_TRACE_MIN", 0)
+    assert tscene_ops.dispatch_summary(tscene)["accelerator"] == "binned"
+    bt.reset_stats()
+    s, s2 = twave.sample_frame_wavefront(tscene, *args, **kw)
+    assert calls["hier"] == 2 and bt.STATS["calls"] > 0  # the first wave, then binned
+    close_to_jax(s.numpy(), s2.numpy())
+
+    monkeypatch.setattr(tscene_ops, "_use_binned", lambda scene: False)
     assert tscene_ops.dispatch_summary(tscene)["accelerator"] == "hier-packet"
     b, b2 = twave.sample_frame_wavefront(tscene, *args, **kw)
-    assert calls["hier"] > 0
+    assert calls["hier"] > 2
     assert (ph.hier_trace.launches, ph.hier_occlude.launches) == launches  # CPU: no kernel
-    a, a2, b, b2 = np.asarray(a), np.asarray(a2), b.numpy(), b2.numpy()
-    assert a.sum() > 0
-    np.testing.assert_allclose(b, a, atol=2e-3, rtol=2e-3)
-    np.testing.assert_allclose(b2, a2, atol=4e-2, rtol=2e-3)
-    np.testing.assert_allclose(b.mean(0), a.mean(0), atol=1e-5, rtol=1e-5)
+    b, b2 = b.numpy(), b2.numpy()
+    close_to_jax(b, b2)
 
     monkeypatch.setattr(tscene_ops, "HIER_TRACE_MIN", 2 ** 30)
     assert tscene_ops.dispatch_summary(tscene)["accelerator"] == "dense-stream"

@@ -117,3 +117,24 @@ def test_watch_passes_vec():
     assert watch.calls == []
     torch.testing.assert_close(vec.rotate(x, m), x @ m.T, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(vec.cross(x, y), torch.linalg.cross(x, y), rtol=1e-6, atol=1e-6)
+
+
+def test_binned_wavefront_keeps_fixed_op_order(monkeypatch):
+    """A large scene's wavefront: the first wave on the chunk-tree walk,
+    the rest through the binned traversal (the threshold lowered so a
+    17,000-triangle scene takes it)."""
+    from echorenderer_tpu_torch.evaluation import scene_ops
+    from echorenderer_tpu_torch.ops import binned_trace
+
+    scene = prepare_scene(scenes.sphere_grid(17_000), device="cpu")
+    monkeypatch.setattr(scene_ops, "HIER_TRACE_MIN", 0)
+    assert scene_ops.dispatch_summary(scene)["accelerator"] == "binned"
+    res = (8, 8)
+    pid = torch.arange(res[0] * res[1])
+    pxy = torch.stack([pid % res[0], pid // res[0]], dim=-1).to(torch.int32)
+    binned_trace.reset_stats()
+    watch = OrderWatch()
+    with watch:
+        s_sum, _ = run_wavefront(scene, pid, pxy, res, 5, 0, 2, bounce_limit=4)
+    assert float(s_sum.sum()) > 0.0 and binned_trace.STATS["calls"] > 0
+    assert watch.calls == [], f"order-dependent float ops on the path: {sorted(set(watch.calls))}"

@@ -120,13 +120,14 @@ def test_port_runs_without_jax():
         "from echorenderer_tpu_torch.processes.render import _sample_frame\n"
         "from echorenderer_tpu_torch.ops import megakernel\n"
         "from echorenderer_tpu_torch.aggregation import light_tree\n"
-        "from echorenderer_tpu_torch.ops import pallas_hier\n"
+        "from echorenderer_tpu_torch.ops import pallas_hier, binned_trace\n"
         "from echorenderer_tpu_torch.evaluation import scene_ops\n"
         "g = prepare_scene(scenes.sphere_grid(17_000), device='cpu')\n"
         "assert g.hier_soa is not None\n"
         "scene_ops.HIER_TRACE_MIN = 0\n"
         "s, _ = _sample_frame(g, 'path', (4, 4), 0, 0, 1, 2, 2.5)\n"
         "assert bool(torch.isfinite(s).all()) and pallas_hier.hier_trace.launches == 0\n"
+        "assert binned_trace.STATS['calls'] > 0 and binned_trace.LAUNCHES['seg'] == 0\n"
         "s, _ = _sample_frame(prepare_scene(scenes.cornell_box(), device='cpu'), 'path', (8, 6),\n"
         "                     0, 0, 2, 3, 2.5)\n"
         "assert bool(torch.isfinite(s).all())\n"

@@ -115,7 +115,8 @@ def test_light_tree_tables_match_jax(count):
 
 def test_large_scene_raises():
     """A scene of 65,536 or more padded prims no longer raises: it prepares
-    with the chunk-tree tables and dispatches to their walk."""
+    with the chunk-tree tables and dispatches to the binned traversal (its
+    first wave to their walk)."""
     from echorenderer_tpu_torch.evaluation.scene_ops import HIER_TRACE_MIN, dispatch_summary
 
     rs = np.random.RandomState(0)
@@ -128,7 +129,7 @@ def test_large_scene_raises():
     assert soa is not None and soa.num_prims == prepared.geometry.num_primitives
     assert soa.num_chunks == -(-soa.num_prims // 256) and soa.root_code >= 0
     summary = dispatch_summary(prepared)
-    assert summary["accelerator"] == "hier-packet"
+    assert summary["accelerator"] == "binned"
     assert summary["integrator"] == "wavefront"
 
 

@@ -14,7 +14,8 @@ limit `bounce` (the megakernel where it takes the scene); with
 render that asks for the wavefront's stats runs it. With `--tris N` the
 scene is sphere_grid(N) instead (bench.py's large scene at 1,000,000), and
 an epoch is one program of `_sample_frame`, as bench.py times it (the
-wavefront, through the chunk-tree walk from 65,536 padded prims on).
+wavefront; from 65,536 padded prims on its first wave takes the chunk-tree
+walk and every later wave the binned traversal).
 Prints the card's name and power limit, the wall time of two unprofiled
 epochs after a warm-up, then for one profiled epoch: its wall time, the
 device's busy time (sum of kernel and copy times) and idle share, device
@@ -52,6 +53,7 @@ def main() -> int:
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
     from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.ops import binned_trace
     from echorenderer_tpu_torch.processes.render import (EvaluationProfile, _sample_frame,
                                                          render_layer)
     from echorenderer_tpu_torch.scene.prepare import prepare_scene
@@ -94,6 +96,7 @@ def main() -> int:
         f"{w:.4f} s = {samples / w / 1e6:.3f} Mspps" for w in walls))
 
     torch.cuda.synchronize()
+    binned_trace.reset_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
         epoch()
@@ -116,10 +119,21 @@ def main() -> int:
     for dev_us, count, key in rows[: a.top]:
         print(f"[profile]   {dev_us / 1e3:10.3f} ms {dev_us / 1e3 / busy_ms:7.2%} "
               f"{count:8d}x  {key[:90]}")
-    elem = [r for r in rows if "elementwise" in r[2]]
-    print(f"[profile] PyTorch elementwise kernels: {sum(r[0] for r in elem) / 1e3:.3f} ms "
-          f"({sum(r[0] for r in elem) / 1e3 / busy_ms:.1%} of busy) in "
-          f"{sum(r[1] for r in elem)} launches")
+    families = {  # csrc kernels by name, then PyTorch's own
+        "binned setup_kernel": "setup_kernel", "binned select_kernel": "select_kernel",
+        "binned seg_kernel": "seg_kernel", "hier_kernel": "hier_kernel",
+        "dense trace/occlude": "trace_kernel|occlude_kernel", "mega_kernel": "mega_kernel",
+        "PyTorch sorts": "sort|Sort", "PyTorch elementwise kernels": "elementwise",
+    }
+    for label, keys in families.items():
+        fam = [r for r in rows if any(k in r[2] for k in keys.split("|"))]
+        if fam:
+            ms = sum(r[0] for r in fam) / 1e3
+            print(f"[profile] {label}: {ms:.3f} ms ({ms / busy_ms:.1%} of busy) in "
+                  f"{sum(r[1] for r in fam)} launches")
+    st = binned_trace.STATS
+    print(f"[profile] binned traversal in the profiled epoch: {st['calls']} calls, "
+          f"{st['rounds']} rounds, {st['syncs']} host reads")
 
     # host pieces of every epoch, timed alone (median of 5)
     from echorenderer_tpu_torch.ops import megakernel
