@@ -71,7 +71,30 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      wavefront path, the megakernel's for the bench launch, the hier
      kernels' per call of the large-scene program, and the binned kernels'
      per launch of its binned calls.
-  6. summary: a JSON line of the kernels, then the last line
+  6. instanced: TLAS instancing, counters zeroed again:
+     instanced_sphere_grids() (4 placements of a 123,008-triangle pack,
+     ~2,000 global chunks, a ground plane, an ambient light) prepared with
+     instancing="tlas"; the instanced walk (hier_trace / hier_occlude on
+     instanced tables) against its plain version and the instanced binned
+     traversal (every setup / select / seg launch against its plain
+     version, bitwise) on 2^20 random rays with per-instance ignores, then
+     binned against the walk (same hits, instances and flags, band ties
+     counted, 0 recovery misses); bench.py's large-scene traffic
+     (1920x1080, 1 spp, bounce 6, a warm-up and 8 timed programs: the
+     first wave on the instanced walk, the rest binned): Mspps, prepare
+     seconds, peak memory, launches (instanced kernels only), rounds, host
+     reads, mean luminance; the baked twin (instancing="bake", ~492k
+     triangles, the flat dispatch) timed the same way; the first program
+     again with every kernel call checked as above (ms per launch, mean
+     and median, and the bound: the least float work, with 18 flops a ray
+     transform, over 67 TFLOP/s or the bytes over 3.35 TB/s); then the
+     TLAS render against the baked one (mean |tlas - bake| / mean(bake) <
+     0.02, tests/test_instancing.py's bound) of 1,001 instances of a
+     two-sphere pack (binned) and of instanced_grid(side=3) (the walk),
+     320x180, 8 spp, bounce 6. The kernels line adds hier_trace[instanced],
+     hier_occlude[instanced] and binned_seg[instanced] (the instanced forms
+     of hier_kernel and seg_kernel) from this program.
+  7. summary: a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -113,6 +136,13 @@ BINNED_SITES = dict(setup="echorenderer_tpu/ops/binned_trace.py:552",
 # float ops of one ray-box slab test (6 subtractions, 6 products, 10 mins
 # and maxes; compares not counted), counted from csrc/intersect.cuh
 FLOPS_SLAB = 22
+# float ops of moving a ray into an instance's space (csrc/hier_walk.cu:
+# 9 + 9 products, 6 + 6 sums, 3 offsets; counted as 18 here, the products
+# of the origin and the direction), and of the instanced sphere test's
+# extra quadratic terms (not counted)
+FLOPS_XFORM = 18
+INSTANCED_RES = (1920, 1080)  # bench.py's large-scene frame, for the TLAS slice
+TLAS_BAKE_RES = (320, 180)  # the TLAS-against-bake renders
 
 
 def log(*args):
@@ -124,7 +154,8 @@ def fail(msg: str) -> int:
     return 1
 
 
-def median_ms(fn, runs: int = 10, warm: bool = True) -> float:
+def run_ms(fn, runs: int = 10, warm: bool = True) -> list[float]:
+    """fn's ms on the card (CUDA events) in each of `runs` runs."""
     import torch
 
     if warm:
@@ -139,7 +170,11 @@ def median_ms(fn, runs: int = 10, warm: bool = True) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def median_ms(fn, runs: int = 10, warm: bool = True) -> float:
+    return statistics.median(run_ms(fn, runs, warm))
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -225,14 +260,50 @@ def least_flops_hier(soa, rays, t_end) -> float:
     return total
 
 
+def least_flops_instanced(soa, rays, t_end) -> float:
+    """least_flops_hier on instanced tables: for each ray with t_max > 0
+    and each instance, every real prim of each pack chunk whose box the ray,
+    moved into the instance's space, enters at or before t_end, plus one
+    ray transform (FLOPS_XFORM) per instance in which it enters any chunk.
+    Box tests are left out, so this is a lower bound."""
+    import torch
+
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    per_chunk = chunk_flops(soa)
+    real = soa.binned_wcb[:, 0] <= soa.binned_wcb[:, 3]  # not an instance's padding
+    total = 0.0
+    for i in range(soa.inst_codes.numel()):
+        lc = soa.binned_g2c[real & (soa.binned_g2i == i)].long()
+        cb = soa.chunk_bounds[lc]
+        for s in range(0, rays.shape[1], HIER_LEAST_SLICE):
+            r, te = rays[:, s: s + HIER_LEAST_SLICE], t_end[s: s + HIER_LEAST_SLICE]
+            inst = torch.full((r.shape[1],), i, dtype=torch.int32, device=r.device)
+            o, d = ph.to_instance(soa.inst_f32, inst, r[0:3], r[3:6])
+            tn = tf = None
+            for a in range(3):
+                inv = pi._safe_inv(d[a])[:, None]
+                t0 = (cb[None, :, a] - o[a][:, None]) * inv
+                t1 = (cb[None, :, 3 + a] - o[a][:, None]) * inv
+                lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+                tn = lo if tn is None else torch.maximum(tn, lo)
+                tf = hi if tf is None else torch.minimum(tf, hi)
+            reach = (tn <= tf) & (tf > 0.0) & (tn <= te[:, None]) & (r[6] > 0.0)[:, None]
+            total += float((reach.double() @ per_chunk[lc]).sum())
+            total += FLOPS_XFORM * float(reach.any(dim=1).sum())
+    return total
+
+
 class RayWork:
     """While open, wraps the wavefront's scene_ops.trace / occlude: counts
     each call's rays (t_max > 0) and, on the dense kernels' scenes, the
     least float work of their prim tests (`least_flops`), and with `record`
-    keeps each call's kernel inputs (rays (7, N), sorted ignores): in
-    `calls` those of the dense kernels or the walk (a large scene's coherent
-    first wave), in `binned` those of the binned traversal, with each binned
-    call's launches, rounds and host reads in `per_call`."""
+    keeps each call's kernel inputs (rays (7, N), sorted ignores, and on an
+    instanced scene the ignores' instances): in `calls` those of the dense
+    kernels or the walk (a large scene's coherent first wave), in `binned`
+    those of the binned traversal, with each binned call's launches, rounds
+    and host reads in `per_call`."""
 
     def __init__(self, cull: bool, record: bool = False):
         self.cull, self.record = cull, record
@@ -253,14 +324,22 @@ class RayWork:
         self._saved = trace, occlude = scene_ops.trace, scene_ops.occlude
 
         def counts():
-            return (bt.LAUNCHES["setup"], bt.LAUNCHES["select"], bt.LAUNCHES["seg"],
-                    bt.STATS["rounds"], bt.STATS["syncs"])
+            return (bt.LAUNCHES["setup"], bt.LAUNCHES["select"],
+                    bt.LAUNCHES["seg"] + bt.LAUNCHES_INSTANCED["seg"], bt.STATS["rounds"],
+                    bt.STATS["syncs"])
 
-        def add(kind, scene, o, d, t_max, ignore, coherent, before, t_end=None):
+        def add(kind, scene, o, d, t_max, ignore, ignore_inst, coherent, before, t_end=None):
             rays = pi.ray_columns(o, d, t_max)
             self.rays[kind] += int((rays[6] > 0).sum())
-            binned = scene_ops._use_binned(scene) and not coherent
-            if scene_ops._use_hier(scene):  # compare_hier / compare_binned count their work
+            inst = scene.instances is not None
+            binned = (scene_ops._use_binned_instanced(scene) if inst
+                      else scene_ops._use_binned(scene)) and not coherent
+            extra = ()
+            if inst:  # instanced calls carry the ignore's instance
+                ig = ph._sorted_ignore(scene.hier_soa, ignore)
+                extra = (ph._ignore_inst(scene.hier_soa, ignore, ignore_inst,
+                                         missing=0 if binned else -1),)
+            elif scene_ops._use_hier(scene):  # compare_hier / compare_binned count their work
                 ig = ph._sorted_ignore(scene.hier_soa, ignore)
             else:
                 soa = scene.prim_soa
@@ -274,18 +353,19 @@ class RayWork:
                                           select=grew[1], seg=grew[2], rounds=grew[3],
                                           syncs=grew[4]))
             if self.record:
-                (self.binned if binned else self.calls)[kind].append((rays, ig))
+                (self.binned if binned else self.calls)[kind].append((rays, ig) + extra)
 
-        def traced(scene, o, d, t_max, ignore, coherent=False):
+        def traced(scene, o, d, t_max, ignore, ignore_inst=None, coherent=False):
             before = counts()
-            hit = trace(scene, o, d, t_max, ignore, coherent=coherent)
-            add("trace", scene, o, d, t_max, ignore, coherent, before, (hit.t, hit.prim))
+            hit = trace(scene, o, d, t_max, ignore, ignore_inst, coherent=coherent)
+            add("trace", scene, o, d, t_max, ignore, ignore_inst, coherent, before,
+                (hit.t, hit.prim))
             return hit
 
-        def occluded(scene, o, d, t_max, ignore, coherent=False):
+        def occluded(scene, o, d, t_max, ignore, ignore_inst=None, coherent=False):
             before = counts()
-            blocked = occlude(scene, o, d, t_max, ignore, coherent=coherent)
-            add("occlude", scene, o, d, t_max, ignore, coherent, before)
+            blocked = occlude(scene, o, d, t_max, ignore, ignore_inst, coherent=coherent)
+            add("occlude", scene, o, d, t_max, ignore, ignore_inst, coherent, before)
             return blocked
 
         scene_ops.trace, scene_ops.occlude = traced, occluded
@@ -336,8 +416,8 @@ class BinnedCheck:
 
     def __init__(self, soa, library: bool = False):
         self.library = library
-        self.rows = dict(setup=[], select=[], seg=[])
-        self.max_err = dict(setup=0, select=0, seg=0)
+        self.rows = dict(setup=[], select=[], seg=[], seg_instanced=[])
+        self.max_err = dict(setup=0, select=0, seg=0, seg_instanced=0)
         self.chunk_flops = chunk_flops(soa)
 
     def __enter__(self):
@@ -391,21 +471,30 @@ class BinnedCheck:
                    + n * (4 + 1 + 8), rays=n, refills=refills)
             return got
 
-        def seg(rec, chunk, prim_chunks, has_tri, has_sph):
+        def seg(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
+            kind = "seg" if inst is None else "seg_instanced"
             want, p_ms = timed(lambda: bt.seg_keys_plain(rec, chunk, prim_chunks, has_tri,
-                                                         has_sph))
-            got, k_ms = timed(lambda: seg_k(rec, chunk, prim_chunks, has_tri, has_sph))
-            differ("seg", (got,), (want,))
-            live = (rec[:, 6] > 0.0) & (chunk >= 0) & (chunk < prim_chunks.shape[0])
+                                                         has_sph, inst))
+            got, k_ms = timed(lambda: seg_k(rec, chunk, prim_chunks, has_tri, has_sph,
+                                            inst=inst))
+            differ(kind, (got,), (want,))
+            n_valid = prim_chunks.shape[0] if inst is None else inst[0].shape[0]
+            live = (rec[:, 6] > 0.0) & (chunk >= 0) & (chunk < n_valid)
             used = chunk[live].long()
             n_live = int(live.sum())
+            extra_flops = extra_bytes = 0
+            if inst is not None:  # per live pair a ray transform; per chunk its map
+                distinct_g = int(torch.unique(used).numel())
+                used = inst[0][used].long()
+                extra_flops = FLOPS_XFORM * n_live
+                extra_bytes = distinct_g * 8 + inst[2].numel() * 4
             distinct = int(torch.unique(used).numel())
-            # a live pair reads its record and chunk id (36 B) and writes its
-            # key; a dead one needs only its chunk id and its key (8 B); each
-            # distinct chunk's 10 used rows once
-            record("seg", k_ms, p_ms, float(self.chunk_flops[used].sum()),
-                   n_live * (36 + 4) + (rec.shape[0] - n_live) * 8
-                   + distinct * 10 * prim_chunks.shape[2] * 4,
+            # a live pair reads its record and chunk id (4 B a column, 4 B)
+            # and writes its key; a dead one needs only its chunk id and its
+            # key (8 B); each distinct pack chunk's 10 used rows once
+            record(kind, k_ms, p_ms, float(self.chunk_flops[used].sum()) + extra_flops,
+                   n_live * (4 * rec.shape[1] + 4 + 4) + (rec.shape[0] - n_live) * 8
+                   + distinct * 10 * prim_chunks.shape[2] * 4 + extra_bytes,
                    pairs=rec.shape[0], live=n_live)
             return got
 
@@ -417,13 +506,15 @@ class BinnedCheck:
 
         bt.setup_rank, bt.select, bt.seg_keys = self._saved
 
-    def summary(self, label):
-        """Log per kernel: launches checked, the mean kernel, plain and
-        bound ms per launch (each a sum over the launches over their count,
-        so the bound share is sum(bound) / sum(ms)), the median ms per launch
-        and per call, the largest |kernel - plain|. Returns {kernel: dict}."""
+    def summary(self, label, kinds=("setup", "select", "seg")):
+        """Log per kernel of `kinds`: launches checked, the mean kernel,
+        plain and bound ms per launch (each a sum over the launches over
+        their count, so the bound share is sum(bound) / sum(ms)), the median
+        ms per launch and per call, the largest |kernel - plain|. Returns
+        {kernel: dict}."""
         out = {}
-        for kind, rows in self.rows.items():
+        for kind in kinds:
+            rows = self.rows[kind]
             if not rows:
                 raise AssertionError(f"{label}: no {kind} launch was checked")
             per_call = {}
@@ -482,35 +573,39 @@ def compare_binned(label, soa, calls):
     from echorenderer_tpu_torch.ops import pallas_hier as ph
 
     ties = n_hit = n_blocked = 0
-    for rays, ig in calls["trace"]:
-        t, p, u, v = bt._Walk(rays, ig, soa, False).traverse()
-        ht, hp, hu, hv = ph.hier_trace(rays, ig, soa)
+    for rays, ig, *extra in calls["trace"]:  # extra: an instanced call's ignore instances
+        out = bt._Walk(rays, ig, soa, False, *extra).traverse()
+        hout = ph.hier_trace(rays, ig, soa, *extra)
+        (t, p, u, v), (ht, hp, hu, hv) = out[:4], hout[:4]
         if not torch.equal(p >= 0, hp >= 0):
             raise AssertionError(f"{label}: binned and hier disagree on hit or miss for "
                                  f"{int(((p >= 0) != (hp >= 0)).sum())} rays")
         same = (p == hp) & (p >= 0)
+        if extra:  # the same prim of another instance is another hit
+            same &= out[4] == hout[4]
         for name, a, b in (("t", t, ht), ("u", u, hu), ("v", v, hv)):
             if not torch.equal(a[same], b[same]):
                 raise AssertionError(f"{label}: binned {name} differs from hier on "
                                      f"{int((a[same] != b[same]).sum())} rays with equal prims")
-        diff = (p != hp) & (p >= 0)
+        diff = ~same & (p >= 0)
         band = lambda x: x.contiguous().view(torch.int32) & -256
         if not torch.equal(band(t[diff]), band(ht[diff])):
             raise AssertionError(f"{label}: binned and hier prims differ beyond one band")
         ties += int(diff.sum())
         n_hit += int((p >= 0).sum())
-    for rays, ig in calls["occlude"]:
-        blocked = bt._Walk(rays, ig, soa, True).traverse()
-        want = ph.hier_occlude(rays, ig, soa)
+    for rays, ig, *extra in calls["occlude"]:
+        blocked = bt._Walk(rays, ig, soa, True, *extra).traverse()
+        want = ph.hier_occlude(rays, ig, soa, *extra)
         if not torch.equal(blocked, want):
             raise AssertionError(f"{label}: binned and hier occlude flags differ on "
                                  f"{int((blocked != want).sum())} rays")
         n_blocked += int(want.sum())
-    rays_n = {k: sum(r.shape[1] for r, _ in v) for k, v in calls.items()}
+    rays_n = {k: sum(c[0].shape[1] for c in v) for k, v in calls.items()}
     log(f"[kernels] {label}: binned vs hier on {len(calls['trace'])} trace calls "
         f"({rays_n['trace']} rays, {n_hit} hits) and {len(calls['occlude'])} occlude calls "
         f"({rays_n['occlude']} rays, {n_blocked} blocked): same hits and flags, equal prims "
-        f"bitwise equal; {ties} rays with another prim in the same band; "
+        f"{'and instances ' if soa.instanced else ''}bitwise equal; {ties} rays with another "
+        f"prim{' or instance' if soa.instanced else ''} in the same band; "
         f"recovery misses so far {int(bt.STATS['misses'])}")
     return ties
 
@@ -663,23 +758,27 @@ def compare_hier(label, soa, calls):
     err = dict(trace=0.0, occlude=0.0)
     n_hit = n_blocked = n_checked = 0
     plain_ms = dict(trace=0.0, occlude=0.0)
+    inst = soa.instanced  # calls then carry the ignores' instances; hits report theirs
     tables = soa.padded * 10 * 4 + table_bytes(soa.bounds, soa.codes)  # 10 used rows, nodes
+    if inst:
+        tables += table_bytes(soa.inst_f32, soa.inst_codes)
     least = dict(trace=[], occlude=[])
     for kind in ("trace", "occlude"):
         kernel = ph.hier_trace if kind == "trace" else ph.hier_occlude
         plain = ph.hier_trace_plain if kind == "trace" else ph.hier_occlude_plain
-        for rays, ig in calls[kind]:
+        for rays, ig, *extra in calls[kind]:
             stride = -(-rays.shape[1] // HIER_SUBSET)
-            sub = (rays[:, ::stride].contiguous(), ig[::stride].contiguous())
-            got = kernel(rays, ig, soa)
+            sub = [rays[:, ::stride].contiguous()] + [x[::stride].contiguous()
+                                                     for x in (ig, *extra)]
+            got = kernel(rays, ig, soa, *extra)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            want = plain(*sub, soa)
+            want = plain(sub[0], sub[1], soa, *sub[2:])
             torch.cuda.synchronize()
             plain_ms[kind] += (time.perf_counter() - t0) * 1e3
             n_checked += sub[0].shape[1]
             if kind == "trace":
-                for name, k, p in zip("tpuv", got, want):
+                for name, k, p in zip("tpuvi", got, want):
                     k = k[::stride]
                     if not torch.equal(k, p):
                         bad = int((k != p).sum())
@@ -694,31 +793,39 @@ def compare_hier(label, soa, calls):
                     bad = int((got[::stride] != want).sum())
                     raise AssertionError(f"{label}: hier_occlude flags differ on {bad} rays")
                 n_blocked += int(want.sum())
-                t, prim = ph.hier_trace(rays, ig, soa)[:2]  # the nearest blocker
-            flops = least_flops_hier(soa, rays, torch.where(prim >= 0, t, rays[6]))
-            out_bytes = 16 if kind == "trace" else 1
-            least[kind].append((flops, bound_ms(flops, rays.shape[1] * (32 + out_bytes) + tables)))
+                t, prim = ph.hier_trace(rays, ig, soa, *extra)[:2]  # the nearest blocker
+            t_end = torch.where(prim >= 0, t, rays[6])
+            flops = (least_flops_instanced if inst else least_flops_hier)(soa, rays, t_end)
+            out_bytes = (20 if inst else 16) if kind == "trace" else 1
+            in_bytes = 36 if inst else 32
+            least[kind].append((flops, bound_ms(flops, rays.shape[1] * (in_bytes + out_bytes)
+                                                + tables)))
 
     def each(fn, kind):
-        return lambda: [fn(rays, ig, soa) for rays, ig in calls[kind]]
+        return lambda: [fn(c[0], c[1], soa, *c[2:]) for c in calls[kind]]
 
     per = {k: len(v) for k, v in calls.items()}
-    ms = dict(trace=median_ms(each(ph.hier_trace, "trace")) / per["trace"],
+    runs = {k: run_ms(each(fn, k)) for k, fn in (("trace", ph.hier_trace),
+                                                 ("occlude", ph.hier_occlude))}
+    ms = dict(trace=statistics.median(runs["trace"]) / per["trace"],
+              trace_mean=statistics.fmean(runs["trace"]) / per["trace"],
               trace_plain=plain_ms["trace"] / per["trace"],
-              occlude=median_ms(each(ph.hier_occlude, "occlude")) / per["occlude"],
+              occlude=statistics.median(runs["occlude"]) / per["occlude"],
+              occlude_mean=statistics.fmean(runs["occlude"]) / per["occlude"],
               occlude_plain=plain_ms["occlude"] / per["occlude"])
     bounds = {k: (statistics.fmean(b[0] for _, b in v), statistics.mode(b[1] for _, b in v))
               for k, v in least.items()}
     flops = {k: statistics.fmean(f for f, _ in v) for k, v in least.items()}
-    rays = {k: sum(r.shape[1] for r, _ in v) for k, v in calls.items()}
+    rays = {k: sum(c[0].shape[1] for c in v) for k, v in calls.items()}
     log(f"[kernels] {label}: {per['trace']} trace calls on {rays['trace']} rays, "
         f"{per['occlude']} occlude calls on {rays['occlude']} rays; {soa.padded} padded prims, "
         f"{soa.num_chunks} chunks, {soa.codes.numel() // 2} nodes, stack {soa.stack_size} of "
         f"{ph.MAX_STACK}; plain version on {n_checked} rays (a {HIER_SUBSET}-ray strided subset "
         f"of each call): {n_hit} hits, {n_blocked} blocked, ids/flags/t/u/v bitwise equal "
         f"(max |t,u,v err| {err['trace']:.3g})")
-    log(f"[kernels] {label}: median ms per full call (10 runs): trace {ms['trace']:.4f}, "
-        f"occlude {ms['occlude']:.4f}; plain ms per subset call (1 run): trace "
+    log(f"[kernels] {label}: ms per full call (one launch), median / mean of 10 runs: trace "
+        f"{ms['trace']:.4f} / {ms['trace_mean']:.4f}, occlude {ms['occlude']:.4f} / "
+        f"{ms['occlude_mean']:.4f}; plain ms per subset call (1 run): trace "
         f"{ms['trace_plain']:.4f}, occlude {ms['occlude_plain']:.4f}; least prim-test work per "
         f"call: trace {flops['trace']:.6g}, occlude {flops['occlude']:.6g} flops; bound per "
         f"call: trace {bounds['trace'][0]:.6f} ({bounds['trace'][1]}), occlude "
@@ -912,6 +1019,345 @@ def golden_phase(dev):
                 grew[0] == 0 and min(grew[1:]) > 0)
             if not want:
                 raise AssertionError(f"golden {name} did not go through the {path} kernels")
+
+
+def timed_programs(program, count: int = 8):
+    """A warm-up and `count` timed programs (sample_start 1..count):
+    (seconds, warm-up seconds, first sums, last sums)."""
+    import torch
+
+    t0 = time.perf_counter()
+    program(0)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    secs, first_sum = [], None
+    for i in range(count):
+        t0 = time.perf_counter()
+        out, _ = program(i + 1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        first_sum = out if first_sum is None else first_sum
+    return secs, warm, first_sum, out
+
+
+def zero_launch_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+    from echorenderer_tpu_torch.ops import megakernel as mk
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    mk.sample_frame_mega.launches = 0
+    pi.dense_trace.launches = pi.dense_occlude.launches = 0
+    for fn in (ph.hier_trace, ph.hier_occlude):
+        fn.launches = fn.launches_instanced = 0
+    bt.reset_stats()  # the binned kernels' launch counts too
+
+
+def launch_counts() -> dict:
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+    from echorenderer_tpu_torch.ops import megakernel as mk
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    return dict(hier_trace=ph.hier_trace.launches, hier_occlude=ph.hier_occlude.launches,
+                hier_trace_inst=ph.hier_trace.launches_instanced,
+                hier_occlude_inst=ph.hier_occlude.launches_instanced,
+                setup=bt.LAUNCHES["setup"], select=bt.LAUNCHES["select"], seg=bt.LAUNCHES["seg"],
+                seg_inst=bt.LAUNCHES_INSTANCED["seg"], dense_trace=pi.dense_trace.launches,
+                dense_occlude=pi.dense_occlude.launches, mega=mk.sample_frame_mega.launches)
+
+
+INSTANCED_PATH = ("hier_trace_inst", "hier_occlude_inst", "setup", "select", "seg_inst")
+
+
+def thousand_instances():
+    """tests/test_instancing.py's 1,000 placements of a two-sphere pack
+    (RandomState(7)) under an ambient light."""
+    import numpy as np
+
+    from echorenderer_tpu_torch import scene as sc
+
+    pack = sc.EntityPack()
+    pack.add(sc.SphereEntity(radius=0.5, material=sc.Diffuse(albedo=(0.9, 0.2, 0.2))))
+    pack.add(sc.SphereEntity(radius=0.25, material=sc.Diffuse(albedo=(0.2, 0.2, 0.9)),
+                             position=(0, 0.9, 0)))
+    scene = sc.Scene()
+    rs = np.random.RandomState(7)
+    for _ in range(1000):
+        scene.add(sc.PackInstance(pack, position=tuple(rs.uniform(-50, 50, 3)),
+                                  scale=float(rs.uniform(0.5, 1.5))))
+    scene.add(sc.AmbientLight(intensity=(1, 1, 1)))
+    scene.add(sc.PerspectiveCamera(position=(0, 0, -120)))
+    return scene
+
+
+def tie_pixels(soa, calls, res):
+    """Pixels whose rays in `calls` (the binned calls of one frame under the
+    liveness cascade: call ray i is lane i, whose pixel is lane i modulo
+    the pixel count, one sample chain after another) keep another prim, or
+    another instance, than the walk in the same band; and the count of such
+    rays."""
+    import torch
+
+    from echorenderer_tpu_torch.evaluation.wavefront import cascade_widths
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.processes.tiles import lane_order
+
+    n = res[0] * res[1]
+    perm = torch.as_tensor(lane_order(res)[0].astype("int64"))
+    tie_px = torch.zeros(n, dtype=torch.bool)
+    ties = 0
+    for rays, ig, *extra in calls["trace"]:
+        if cascade_widths(rays.shape[1]) or rays.shape[1] % n:
+            raise AssertionError("the render check's frame must stay under the cascade")
+        out = bt._Walk(rays, ig, soa, False, *extra).traverse()
+        walk = ph.hier_trace(rays, ig, soa, *extra)
+        if not torch.equal(out[1] >= 0, walk[1] >= 0):
+            raise AssertionError("binned and the walk disagree on hit or miss")
+        other = out[1] != walk[1]
+        if extra:
+            other |= (out[4] != walk[4]) & (out[1] >= 0)
+        other = other.nonzero().squeeze(1).cpu()
+        tie_px[perm[other % n]] = True
+        ties += other.numel()
+    return tie_px, ties
+
+
+def tlas_against_bake(label, make, res, spp, bounce, dev, accelerator):
+    """One frame of the scene `make()` prepared with instancing="tlas" (its
+    dispatch must be `accelerator`, on the instanced kernels) and with
+    "bake": mean |tlas - bake| / mean(bake) < 0.02
+    (tests/test_instancing.py's bound); pixels outside MEGA_TOL's per-pixel
+    tolerance counted. A binned TLAS frame is also held to the same frame
+    through the instanced walk alone by the binned render criterion: every
+    pixel outside MEGA_TOL's per-pixel tolerance owns a band-tie ray, the
+    mean image within MEGA_TOL's 1e-4."""
+    import torch
+
+    from echorenderer_tpu_torch.evaluation import scene_ops
+    from echorenderer_tpu_torch.evaluation.scene_ops import dispatch_summary
+    from echorenderer_tpu_torch.processes.render import _sample_frame
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+
+    t = MEGA_TOL
+
+    def outside(a, b):
+        (as_, aq), (bs, bq) = a, b
+        close = ((as_ - bs).abs() <= t["sum_atol"] + t["sum_rtol"] * bs.abs()) & (
+            (aq - bq).abs() <= t["sq_atol"] + t["sq_rtol"] * bq.abs())
+        return ~close.all(dim=-1)
+
+    sums, info = {}, {}
+    for mode in ("tlas", "bake"):
+        scene = prepare_scene(make(), instancing=mode, device=dev)
+        summary = dispatch_summary(scene)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        with RayWork(cull=True, record=True) if mode == "tlas" else contextlib.nullcontext() as rec:
+            sums[mode] = _sample_frame(scene, "path", res, 0, 0, spp, bounce, 2.5)
+        torch.cuda.synchronize()
+        grew = launch_counts()
+        info[mode] = (summary, time.perf_counter() - t0, grew)
+        if mode == "tlas":
+            n_inst = scene.instances.num_instances
+            if summary["accelerator"] != accelerator:
+                raise AssertionError(f"{label}: TLAS dispatch {summary['accelerator']}, want "
+                                     f"{accelerator}")
+            used = ["hier_trace_inst", "hier_occlude_inst"] + (
+                ["seg_inst"] if accelerator == "binned" else [])
+            if min(grew[k] for k in used) <= 0 or grew["seg"] or grew["hier_trace"]:
+                raise AssertionError(f"{label}: the TLAS render did not take the instanced "
+                                     f"kernels: {grew}")
+            if accelerator == "binned":  # the band-tie criterion against the walk alone
+                saved = scene_ops._use_binned_instanced
+                scene_ops._use_binned_instanced = lambda scene: False
+                try:
+                    walk_sums = _sample_frame(scene, "path", res, 0, 0, spp, bounce, 2.5)
+                finally:
+                    scene_ops._use_binned_instanced = saved
+                tie_px, ties = tie_pixels(scene.hier_soa, rec.binned, res)
+                off = outside(sums["tlas"], walk_sums).cpu()
+                unexplained = int((off & ~tie_px).sum())
+                mean_diff = float(((sums["tlas"][0] - walk_sums[0]) / spp).mean(dim=0).abs().max())
+                log(f"[instanced] {label}: binned dispatch vs the walk alone: "
+                    f"{int(off.sum())} pixels outside the per-pixel tolerance, {ties} band-tie "
+                    f"rays on {int(tie_px.sum())} pixels, {unexplained} pixels outside tolerance "
+                    f"without a band tie (need 0), mean image |diff| {mean_diff:.3g} "
+                    f"(< {t['mean']})")
+                if unexplained or not mean_diff < t["mean"]:
+                    raise AssertionError(f"{label}: the binned TLAS render disagrees with the walk")
+            del rec
+        del scene
+    ts, bs = sums["tlas"][0], sums["bake"][0]
+    rel = float((ts - bs).abs().mean() / bs.abs().mean().clamp(min=1e-6))
+    n_out = int(outside(sums["tlas"], sums["bake"]).sum())
+    log(f"[instanced] TLAS vs bake, {label} ({n_inst} instances) {res[0]}x{res[1]} {spp} spp "
+        f"bounce {bounce}: mean |tlas - bake| / mean(bake) {rel:.6f} (< 0.02); {n_out} of "
+        f"{ts.shape[0]} pixels outside MEGA_TOL's per-pixel tolerance; tlas "
+        f"{info['tlas'][0]['accelerator']} {info['tlas'][1]:.3f} s, bake "
+        f"{info['bake'][0]['accelerator']} / {info['bake'][0]['integrator']} "
+        f"{info['bake'][1]:.3f} s; tlas launches "
+        + ", ".join(f"{k} {v}" for k, v in info["tlas"][2].items() if v))
+    if not (rel < 0.02) or not bool(torch.isfinite(ts).all()):
+        raise AssertionError(f"{label}: the TLAS render differs from the baked one")
+
+
+def instanced_phase(dev, rs, smi):
+    """The TLAS slice (instanced_sphere_grids: 4 x 123,008 triangles)
+    and its kernels: the instanced walk and the instanced binned
+    traversal on 2^20 random rays and on every call of one program,
+    against their plain versions and each other; bench.py's large-scene
+    traffic timed against the baked twin; two TLAS-against-bake renders.
+    Returns the kernels-line rows of the instanced kernels."""
+    import numpy as np
+    import torch
+
+    from echorenderer_tpu_torch.evaluation.scene_ops import dispatch_summary
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+    from echorenderer_tpu_torch.processes.render import _sample_frame
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+    from echorenderer_tpu_torch.utils.colors import luminance
+
+    res = INSTANCED_RES
+    n_px = res[0] * res[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tlas = prepare_scene(scenes.instanced_sphere_grids(), instancing="tlas", device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    prep_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    soa = tlas.hier_soa
+    summary = dispatch_summary(tlas)
+    log(f"[instanced] instanced_sphere_grids: {tlas.instances.num_instances} instances, "
+        f"{tlas.geometry.num_triangles} stored triangles, {soa.num_chunks} pack chunks, "
+        f"{soa.binned_g2c.shape[0]} global chunks, {soa.codes.numel() // 2} nodes, stack "
+        f"{soa.stack_size} of {ph.MAX_STACK}; prepared (tlas) in {prep_s:.2f} s, peak "
+        f"{prep_gib:.3f} GiB; dispatch {summary}")
+    if summary["accelerator"] != "binned" or summary["integrator"] != "wavefront":
+        raise AssertionError("the instanced slice does not dispatch to the binned traversal")
+
+    # --- the kernels on 2^20 random rays ---
+    real = (soa.binned_wcb[:, 0] <= soa.binned_wcb[:, 3]) & (soa.binned_wcb[:, 3] < 1e6)
+    lo = soa.binned_wcb[real, 0:3].amin(0).tolist()
+    hi = soa.binned_wcb[real, 3:6].amax(0).tolist()
+    o, d, t_max, ignore = random_rays(rs, N_RAYS, lo, hi, soa.num_prims)
+    inst_np = rs.randint(0, tlas.instances.num_instances, N_RAYS).astype(np.int32)
+    o, d, t_max, ignore, inst = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                                 for a in (o, d, t_max, ignore, inst_np))
+    call = (pi.ray_columns(o, d, t_max), ph._sorted_ignore(soa, ignore),
+            ph._ignore_inst(soa, ignore, inst))
+    calls = dict(trace=[call], occlude=[call])
+    err_rnd, _, _ = compare_hier("instanced random rays", soa, calls)
+    bt.reset_stats()
+    with BinnedCheck(soa) as check_rnd:
+        bt._Walk(*call[:2], soa, False, call[2]).traverse()
+        bt._Walk(*call[:2], soa, True, call[2]).traverse()
+    log(f"[instanced] random rays, binned: {bt.STATS['rounds']} rounds, {bt.STATS['syncs']} "
+        f"host reads over 2 calls")
+    b_rnd = check_rnd.summary("instanced random rays", kinds=("setup", "select", "seg_instanced"))
+    compare_binned("instanced random rays", soa, calls)
+    misses = int(bt.STATS["misses"])
+    del call, calls, o, d, t_max, ignore, inst, check_rnd
+
+    # --- the slice: bench.py's large-scene traffic, counters from zero ---
+    program = lambda start: _sample_frame(tlas, "path", res, 0, start, 1, 6, 2.5)
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, warm_s, first, s_sum = timed_programs(program)
+    grew = launch_counts()
+    slice_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rounds, syncs, b_calls = bt.STATS["rounds"], bt.STATS["syncs"], bt.STATS["calls"]
+    misses += int(bt.STATS["misses"])
+    mspps = n_px * 8 / sum(seconds) / 1e6
+    lum = float(luminance(s_sum.reshape(res[1], res[0], 3)).mean())
+    log(f"[instanced] TLAS slice {res[0]}x{res[1]} 1 spp bounce 6: {mspps:.4f} Mspps over 8 "
+        f"programs ({n_px} x 8 samples / {sum(seconds):.4f} s); program seconds "
+        + ", ".join(f"{t:.4f}" for t in seconds)
+        + f"; warm-up {warm_s:.3f} s; prepare {prep_s:.2f} s; peak memory {slice_gib:.3f} GiB; "
+          f"mean luminance {lum:.4f} | {smi}")
+    log(f"[instanced] TLAS slice launches over 9 programs: "
+        + ", ".join(f"{k} {v}" for k, v in grew.items())
+        + f"; per program: " + ", ".join(f"{k} {grew[k] / 9:.2f}" for k in INSTANCED_PATH)
+        + f"; {b_calls} binned calls, {rounds} rounds, {syncs} host reads")
+    if not bool(torch.isfinite(s_sum).all()) or not 0.01 < lum < 10.0:
+        raise AssertionError(f"instanced slice non-finite or mean luminance {lum} out of (0.01, 10)")
+    others = [k for k, v in grew.items() if v and k not in INSTANCED_PATH]
+    if min(grew[k] for k in INSTANCED_PATH) <= 0 or others:
+        raise AssertionError(f"the instanced slice did not run on the instanced kernels alone: "
+                             f"{grew}")
+    path_launches = dict(grew)
+
+    # --- the baked twin: the same traffic through the flat dispatch ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bake = prepare_scene(scenes.instanced_sphere_grids(), instancing="bake", device=dev)
+    torch.cuda.synchronize()
+    bake_prep_s = time.perf_counter() - t0
+    bake_prep_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    bsum = dispatch_summary(bake)
+    torch.cuda.reset_peak_memory_stats()
+    bt.reset_stats()
+    b_seconds, b_warm, _, b_sum = timed_programs(
+        lambda start: _sample_frame(bake, "path", res, 0, start, 1, 6, 2.5))
+    bake_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    b_lum = float(luminance(b_sum.reshape(res[1], res[0], 3)).mean())
+    log(f"[instanced] baked twin ({bake.geometry.num_triangles} triangles, dispatch "
+        f"{bsum['accelerator']}): {n_px * 8 / sum(b_seconds) / 1e6:.4f} Mspps over 8 programs; "
+        f"program seconds " + ", ".join(f"{t:.4f}" for t in b_seconds)
+        + f"; warm-up {b_warm:.3f} s; prepare {bake_prep_s:.2f} s (peak {bake_prep_gib:.3f} "
+          f"GiB); peak memory {bake_gib:.3f} GiB (TLAS {slice_gib:.3f}); {bt.STATS['calls']} "
+          f"binned calls, {bt.STATS['rounds']} rounds, {bt.STATS['syncs']} host reads; mean "
+          f"luminance {b_lum:.4f} (TLAS {lum:.4f}) | {smi}")
+    if not bool(torch.isfinite(b_sum).all()):
+        raise AssertionError("the baked twin's frame is not finite")
+    del bake, b_sum
+
+    # --- the first timed program once more, every kernel call checked ---
+    bt.reset_stats()
+    with RayWork(cull=True, record=True) as rec, BinnedCheck(soa) as check:
+        again, _, stats = _sample_frame(tlas, "path", res, 0, 1, 1, 6, 2.5, return_stats=True)
+    log(f"[instanced] the first program again, recorded: {stats['Loop/Iterations']} wavefront "
+        f"iterations, {stats['Ray/Traced']} traced and {stats['Ray/Shadow']} shadow rays, sums "
+        f"{'bitwise equal' if torch.equal(again, first) else 'DIFFERENT'}")
+    if not torch.equal(again, first):
+        raise AssertionError("the recorded instanced program's sums differ from the timed one's")
+    del again, first
+    label = "instanced slice 1920x1080 1 spp, the first timed program's calls"
+    err_p, ms_h, bound_h = compare_hier(label, soa, rec.calls)
+    b_out = check.summary(label, kinds=("setup", "select", "seg_instanced"))
+    compare_binned(label, soa, rec.binned)
+    misses += int(bt.STATS["misses"])
+    log(f"[instanced] recovery misses over the random rays and the programs: {misses} (need 0)")
+    if misses:
+        raise AssertionError("a binned winner missed on its exact re-test")
+    del rec, check, tlas, soa
+
+    # --- TLAS against bake ---
+    tlas_against_bake("1,001 instances of a two-sphere pack", thousand_instances, TLAS_BAKE_RES,
+                      8, 6, dev, "binned")
+    tlas_against_bake("instanced_grid(side=3)", lambda: scenes.instanced_grid(side=3),
+                      TLAS_BAKE_RES, 8, 6, dev, "hier-packet")
+
+    rows = [dict(name=f"hier_{k}[instanced]", route="cuda", source=HIER_SOURCE,
+                 replaces=HIER_SITE, launches=path_launches[f"hier_{k}_inst"],
+                 max_abs_err=max(err_rnd[k], err_p[k]), ms=ms_h[k],
+                 plain_ms=ms_h[f"{k}_plain"], bound_ms=bound_h[k][0], bound_by=bound_h[k][1],
+                 library_ms=None) for k in ("trace", "occlude")]
+    seg = b_out["seg_instanced"]
+    rows.append(dict(name="binned_seg[instanced]", route="cuda", source=BINNED_SOURCE,
+                     replaces=BINNED_SITES["seg"], launches=path_launches["seg_inst"],
+                     max_abs_err=float(max(b_rnd["seg_instanced"]["max_abs_err"],
+                                           seg["max_abs_err"])),
+                     ms=seg["ms"], plain_ms=seg["plain_ms"], bound_ms=seg["bound_ms"],
+                     bound_by=seg["bound_by"], library_ms=None))
+    return rows
 
 
 def main() -> int:
@@ -1136,28 +1582,9 @@ def main() -> int:
     if summary["accelerator"] != "binned" or summary["integrator"] != "wavefront":
         return fail("the large scene does not dispatch to the binned traversal")
     program = lambda start: _sample_frame(grid, "path", res, 0, start, 1, 6, 2.5)
-
-    def programs():
-        """A warm-up and 8 timed programs: (seconds, warm-up s, first sums, last sums)."""
-        t0 = time.perf_counter()
-        program(0)
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-        secs, first_sum = [], None
-        for i in range(8):
-            t0 = time.perf_counter()
-            out, _ = program(i + 1)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            first_sum = out if first_sum is None else first_sum
-        return secs, warm, first_sum, out
-
-    mk.sample_frame_mega.launches = 0
-    pi.dense_trace.launches = pi.dense_occlude.launches = 0
-    ph.hier_trace.launches = ph.hier_occlude.launches = 0
-    bt.reset_stats()  # the binned kernels' launch counts too
+    zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    seconds, warm_s, first, s_sum = programs()
+    seconds, warm_s, first, s_sum = timed_programs(program)
     hier = dict(trace=ph.hier_trace.launches, occlude=ph.hier_occlude.launches)
     binned = dict(bt.LAUNCHES)
     others = (pi.dense_trace.launches, pi.dense_occlude.launches, mk.sample_frame_mega.launches)
@@ -1185,7 +1612,7 @@ def main() -> int:
     saved = scene_ops._use_binned
     scene_ops._use_binned = lambda scene: False
     try:
-        walk_seconds, _, _, _ = programs()
+        walk_seconds, _, _, _ = timed_programs(program)
     finally:
         scene_ops._use_binned = saved
     log(f"[slice] for comparison, the same programs through the walk alone: "
@@ -1210,7 +1637,11 @@ def main() -> int:
     err_r, ms_h, bound_h = compare_hier(label, hsoa, rec.calls)
     b_out = check.summary(label)
     compare_binned(label, hsoa, rec.binned)
-    del rec, check
+    del rec, check, grid, hsoa
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
+    # --- slice phase: TLAS instancing, counters from zero ---
+    inst_rows = instanced_phase(dev, rs, smi)
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     kernels = [
@@ -1242,7 +1673,7 @@ def main() -> int:
              plain_ms=b_out[k]["plain_ms"], bound_ms=b_out[k]["bound_ms"],
              bound_by=b_out[k]["bound_by"], library_ms=b_out[k]["library_ms"])
         for k in ("setup", "select", "seg")
-    ]
+    ] + inst_rows
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,7 +5,7 @@
 // `_trace_binned_impl`:
 //   setup_kernel  <- `_setup_kernel`  (line 552, via `_setup_rank`)
 //   select_kernel <- `_select_kernel` (line 402, via `_run_select`)
-//   seg_kernel    <- `_seg_kernel`    (line 117, via `_run_rows`; keyed, non-instanced)
+//   seg_kernel    <- `_seg_kernel`    (line 117, via `_run_rows`; keyed, both forms)
 // Each computes what its plain PyTorch version in ops/binned_trace.py computes
 // (`setup_rank_plain`, `select_plain`, `seg_keys_plain`), bit for bit.
 //
@@ -38,6 +38,15 @@
 // reads one chunk's rows and each load is a broadcast through L1. The TPU's
 // segment table and double-buffered DMA are its row machinery and have no
 // counterpart; staging a chunk in shared memory is left for later work.
+// Instanced form (TLAS scenes): the pairs carry global chunks; the kernel
+// maps each to its pack chunk (g2c) and instance (g2i), moves the pair's
+// world ray into the instance's space with the instance's 12 floats (A
+// row-major, then b; each row summed left to right and then + b, as
+// `pallas_hier.to_instance`), so t stays the world parameter and spheres
+// take the full quadratic, and skips the ray's ignored prim only where the
+// record's ign_inst (column 8 of a 9-float record) names this instance. A
+// warp's pairs mostly share one chunk and so one instance: the 12 floats are
+// broadcast loads through the read-only cache.
 //
 // Built with -fmad=false, so every float op rounds as in the plain version.
 // C interface (loaded with ctypes); each function returns cudaGetLastError().
@@ -148,31 +157,63 @@ select_kernel(int* __restrict__ cand, int w, int n, const int* __restrict__ nk,
   mink_out[i] = mink;
 }
 
-template <bool HAS_TRI, bool HAS_SPH>
+template <bool HAS_TRI, bool HAS_SPH, bool INSTANCED>
 __global__ void seg_kernel(const float* __restrict__ rec, const int* __restrict__ chunk_of, int m,
-                           const float* __restrict__ chunks, int n_chunks,
-                           int* __restrict__ out) {
+                           const float* __restrict__ chunks, const int* __restrict__ g2c,
+                           const int* __restrict__ g2i, const float* __restrict__ inst_f32,
+                           int n_chunks, int* __restrict__ out) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= m) return;
-  const float4 a = reinterpret_cast<const float4*>(rec)[2 * (size_t)q];
-  const float4 b = reinterpret_cast<const float4*>(rec)[2 * (size_t)q + 1];
   echo::Ray r;
-  r.ox = a.x;
-  r.oy = a.y;
-  r.oz = a.z;
-  r.dx = a.w;
-  r.dy = b.x;
-  r.dz = b.y;
-  r.tmax = b.z;
-  r.ignore = static_cast<int>(b.w);
-  const int c = chunk_of[q];
+  float ign_inst = -1.0f;
+  if (INSTANCED) {  // 9-float records
+    const float* f = rec + 9 * (size_t)q;
+    r.ox = f[0];
+    r.oy = f[1];
+    r.oz = f[2];
+    r.dx = f[3];
+    r.dy = f[4];
+    r.dz = f[5];
+    r.tmax = f[6];
+    r.ignore = static_cast<int>(f[7]);
+    ign_inst = f[8];
+  } else {
+    const float4 a = reinterpret_cast<const float4*>(rec)[2 * (size_t)q];
+    const float4 b = reinterpret_cast<const float4*>(rec)[2 * (size_t)q + 1];
+    r.ox = a.x;
+    r.oy = a.y;
+    r.oz = a.z;
+    r.dx = a.w;
+    r.dy = b.x;
+    r.dz = b.y;
+    r.tmax = b.z;
+    r.ignore = static_cast<int>(b.w);
+  }
+  int c = chunk_of[q];
   int best = kIntInf;
   if (r.tmax > 0.0f && c >= 0 && c < n_chunks) {  // dead pairs read nothing
+    if (INSTANCED) {  // global chunk -> (pack chunk, instance); the ray into its space
+      const int inst = __ldg(g2i + c);
+      c = __ldg(g2c + c);
+      const float* a = inst_f32 + 12 * (size_t)inst;
+      const float a0 = __ldg(a + 0), a1 = __ldg(a + 1), a2 = __ldg(a + 2);
+      const float a3 = __ldg(a + 3), a4 = __ldg(a + 4), a5 = __ldg(a + 5);
+      const float a6 = __ldg(a + 6), a7 = __ldg(a + 7), a8 = __ldg(a + 8);
+      const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
+      r.ox = a0 * ox + a1 * oy + a2 * oz + __ldg(a + 9);
+      r.oy = a3 * ox + a4 * oy + a5 * oz + __ldg(a + 10);
+      r.oz = a6 * ox + a7 * oy + a8 * oz + __ldg(a + 11);
+      r.dx = a0 * dx + a1 * dy + a2 * dz;
+      r.dy = a3 * dx + a4 * dy + a5 * dz;
+      r.dz = a6 * dx + a7 * dy + a8 * dz;
+      if (ign_inst != static_cast<float>(inst)) r.ignore = -1;
+    }
     const float* rows = chunks + (size_t)c * kRows * kChunk;
     const int base = c * kChunk;
     for (int j = 0; j < kChunk; ++j) {
       float t, u, v;
-      if (!echo::prim_hit<HAS_TRI, HAS_SPH>(rows, kChunk, j, base + j, r, t, u, v)) continue;
+      if (!echo::prim_hit<HAS_TRI, HAS_SPH, !INSTANCED>(rows, kChunk, j, base + j, r, t, u, v))
+        continue;
       if (t < r.tmax && t < kFarT) best = min(best, (__float_as_int(t) & -(1 << kPBits)) | j);
     }
   }
@@ -208,16 +249,30 @@ extern "C" int binned_select(int* cand, int w, int n, const int* nk, const float
   return static_cast<int>(cudaGetLastError());
 }
 
+// g2c, g2i and inst_f32 are null for a non-instanced scene; n_chunks is the
+// count of valid pair chunks (the scene's chunks, or the global chunks)
 extern "C" int binned_seg(const float* rec, const int* chunk, int m, const float* chunks,
-                          int n_chunks, int has_tri, int has_sph, int block, int* out,
-                          void* stream) {
+                          int n_chunks, int has_tri, int has_sph, int block, const int* g2c,
+                          const int* g2i, const float* inst_f32, int* out, void* stream) {
   const dim3 grid((m + block - 1) / block);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (has_tri && has_sph)
-    seg_kernel<true, true><<<grid, block, 0, s>>>(rec, chunk, m, chunks, n_chunks, out);
-  else if (has_tri)
-    seg_kernel<true, false><<<grid, block, 0, s>>>(rec, chunk, m, chunks, n_chunks, out);
-  else
-    seg_kernel<false, true><<<grid, block, 0, s>>>(rec, chunk, m, chunks, n_chunks, out);
+#define ECHO_SEG_LAUNCH(TRI, SPH, INST)                                                     \
+  seg_kernel<TRI, SPH, INST><<<grid, block, 0, s>>>(rec, chunk, m, chunks, g2c, g2i, inst_f32, \
+                                                    n_chunks, out)
+  if (g2c != nullptr) {
+    if (has_tri && has_sph)
+      ECHO_SEG_LAUNCH(true, true, true);
+    else if (has_tri)
+      ECHO_SEG_LAUNCH(true, false, true);
+    else
+      ECHO_SEG_LAUNCH(false, true, true);
+  } else if (has_tri && has_sph) {
+    ECHO_SEG_LAUNCH(true, true, false);
+  } else if (has_tri) {
+    ECHO_SEG_LAUNCH(true, false, false);
+  } else {
+    ECHO_SEG_LAUNCH(false, true, false);
+  }
+#undef ECHO_SEG_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

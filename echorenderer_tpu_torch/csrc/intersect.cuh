@@ -67,8 +67,11 @@ __device__ __forceinline__ bool reaches(float tn, float tf, float limit) {
 
 // Prim k (sorted slot `slot`) of `rows` (row stride `stride`) against one
 // ray; t, u, v are valid only where the return is true. Spheres report
-// u = v = 0.
-template <bool HAS_TRI, bool HAS_SPH>
+// u = v = 0. UNIT_DIR = false is for a ray moved into an instance's space,
+// whose |d| is 1/scale: a sphere then solves the full quadratic
+// a t^2 + 2 b t + c (`_chunk_hits(..., unit_dir=False)`), so t stays the
+// world-space parameter.
+template <bool HAS_TRI, bool HAS_SPH, bool UNIT_DIR = true>
 __device__ __forceinline__ bool prim_hit(const float* rows, int stride, int k, int slot,
                                          const Ray& r, float& t, float& u, float& v) {
   const float ax = rows[0 * stride + k], ay = rows[1 * stride + k], az = rows[2 * stride + k];
@@ -81,10 +84,20 @@ __device__ __forceinline__ bool prim_hit(const float* rows, int stride, int k, i
     float fx = r.ox - ax, fy = r.oy - ay, fz = r.oz - az;
     float bq = fx * r.dx + fy * r.dy + fz * r.dz;
     float cq = fx * fx + fy * fy + fz * fz - bx * bx;
-    float disc = bq * bq - cq;
-    float sq = sqrtf(fmaxf(disc, 0.0f));
-    float t_near = -bq - sq;
-    float t_far = -bq + sq;
+    float disc, t_near, t_far;
+    if (UNIT_DIR) {
+      disc = bq * bq - cq;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      t_near = -bq - sq;
+      t_far = -bq + sq;
+    } else {
+      const float aq = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+      disc = bq * bq - aq * cq;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float inv_a = 1.0f / aq;
+      t_near = (-bq - sq) * inv_a;
+      t_far = (-bq + sq) * inv_a;
+    }
     t = ignored ? t_far : (t_near > kEps ? t_near : t_far);
     return (disc >= 0.0f) && (t > kEps);
   }

@@ -44,25 +44,29 @@ def _offset_origin(point, geo_normal, direction):
 def path_step(scene: PreparedScene, stream: SampleStream, st: dict, live, *,
               bounce_limit: int, survivability: float, coherent: bool = False):
     """One path-tracing iteration for every lane. `st` carries radiance,
-    throughput, o, d, depth, prev_pdf, prev_specular, prev_point, ignore.
+    throughput, o, d, depth, prev_pdf, prev_specular, prev_point, ignore
+    and (optional) ignore_inst, the instance of the ignored prim.
     Returns the updated radiance, the post-bounce throughput (new_tp), the
     continuation mask/ray (continues, cont_o, wi_world), next-iteration MIS
-    state (bs_pdf, bs_specular, contact_point, hit_prim) and an `aux` dict
-    of event masks for the statistics counters. `coherent` marks the
-    wavefront's first wave for the trace and the shadow rays
+    state (bs_pdf, bs_specular, contact_point, hit_prim, hit_inst) and an
+    `aux` dict of event masks for the statistics counters. `coherent` marks
+    the wavefront's first wave for the trace and the shadow rays
     (`scene_ops.trace`)."""
     # --- trace the pending ray ---
     seg_t = torch.where(live, INF, 0.0)
-    hit = scene_ops.trace(scene, st["o"], st["d"], seg_t, st["ignore"], coherent=coherent)
+    hit = scene_ops.trace(scene, st["o"], st["d"], seg_t, st["ignore"], st.get("ignore_inst"),
+                          coherent=coherent)
+    hit_inst = hit.inst if hit.inst is not None else torch.zeros_like(hit.prim)
     found = live & hit.found
     contact = scene_ops.interact(scene, hit, st["o"], st["d"])
 
     # --- emission at the hit, MIS-weighted against NEE ---
     emitted = scene_ops.emission_at(scene, contact, -st["d"])
-    hit_light = scene_ops.hit_light_record(scene, torch.clamp(hit.prim, min=0))
+    hit_light = scene_ops.hit_light_record(scene, torch.clamp(hit.prim, min=0), hit_inst)
     light_pm = scene_ops.light_pmf(scene, hit_light, st["prev_point"])
     fwd_pdf = light_pm * scene_ops.area_light_pdf(
-        scene, hit.prim, st["prev_point"], contact.point, contact.geo_normal, st["d"]
+        scene, hit.prim, st["prev_point"], contact.point, contact.geo_normal, st["d"],
+        inst=hit_inst,
     )
     em_w = torch.where(st["prev_specular"], 1.0, _power_heuristic(st["prev_pdf"], fwd_pdf))
     radiance = st["radiance"] + torch.where(
@@ -115,7 +119,8 @@ def path_step(scene: PreparedScene, stream: SampleStream, st: dict, live, *,
     shadow_t = torch.where(ls.travel >= INF, INF, ls.travel * (1.0 - 1e-3))
     shadow_t = torch.where(candidate, shadow_t, 0.0)
     blocked = scene_ops.occlude(
-        scene, shadow_o, ls.incident, shadow_t, torch.clamp(hit.prim, min=0), coherent=coherent
+        scene, shadow_o, ls.incident, shadow_t, torch.clamp(hit.prim, min=0), hit_inst,
+        coherent=coherent,
     )
     visible = candidate & ~blocked
     scatter_pdf_l = bsdf_mod.pdf(contact.material, wo_local, wi_l)
@@ -144,5 +149,6 @@ def path_step(scene: PreparedScene, stream: SampleStream, st: dict, live, *,
         bs_specular=bs.specular,
         contact_point=contact.point,
         hit_prim=torch.clamp(hit.prim, min=0),
+        hit_inst=hit_inst,
         aux=dict(found=found, candidate=candidate, has_bounce=has_bounce, survived=survived),
     )

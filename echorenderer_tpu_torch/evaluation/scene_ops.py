@@ -9,6 +9,13 @@ least HIER_TRACE_MIN padded prims take the binned traversal
 wavefront's first wave: camera rays in tile-major order and their shadow
 rays), which takes the chunk-tree walk (ops/pallas_hier.py); every other
 scene takes the dense chunk kernels of ops/pallas_intersect.py.
+
+TLAS-instanced scenes (`scene.instances`) keep their packs in pack space,
+so every ray takes the instanced walk or, from HIER_TRACE_MIN unrolled
+prims on (`_use_binned_instanced`) and but for the coherent population,
+the instanced binned traversal; hits carry their instance, and `interact`
+moves the pack-space shading rows into world space with the instance row
+and remaps the material through the instance's swatch.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from ..aggregation import light_tree
 from ..ops import megakernel
 from ..ops.binned_trace import occlude_binned, trace_binned
 from ..ops.intersect import INF, Hit, intersect_linear, occlude_linear, sphere_uv
-from ..ops.pallas_hier import intersect_hier, occlude_hier
+from ..ops.pallas_hier import HCHUNK, intersect_hier, occlude_hier
 from ..ops.pallas_intersect import intersect_pallas, occlude_pallas
 from ..scene.materials import EMISSIVE, INVISIBLE
 from ..scene.prepare import (
@@ -43,7 +50,8 @@ HIER_TRACE_MIN = 65536
 
 
 def _use_hier(scene: PreparedScene) -> bool:
-    return scene.hier_soa is not None and scene.prim_soa.padded >= HIER_TRACE_MIN
+    return (scene.hier_soa is not None and scene.prim_soa is not None
+            and scene.prim_soa.padded >= HIER_TRACE_MIN)
 
 
 def _use_binned(scene: PreparedScene) -> bool:
@@ -53,11 +61,35 @@ def _use_binned(scene: PreparedScene) -> bool:
     return _use_hier(scene)
 
 
+def _use_binned_instanced(scene: PreparedScene) -> bool:
+    """An instanced scene takes the binned traversal (but for the coherent
+    population) when its unrolled extent, global chunks x HCHUNK, reaches
+    HIER_TRACE_MIN, as flat scenes do (tests patch this off to run the walk
+    alone)."""
+    soa = scene.hier_soa
+    return (soa is not None and soa.instanced
+            and soa.binned_g2c.shape[0] * HCHUNK >= HIER_TRACE_MIN)
+
+
 def dispatch_summary(scene: PreparedScene, return_stats: bool = False) -> dict:
     """Which accelerator and integrator this scene's renders take, and why
     (a render that asks for the wavefront's stats bypasses the megakernel)."""
     kind = "CUDA kernel" if scene.device.type == "cuda" else "plain PyTorch version"
-    if scene.geometry.num_primitives < LINEAR_THRESHOLD:
+    if scene.instances is not None:
+        soa = scene.hier_soa
+        unrolled = soa.binned_g2c.shape[0] * HCHUNK
+        if _use_binned_instanced(scene):
+            acc = "binned"
+            why = (f"large TLAS scene: per-ray binned traversal of the instances ({kind}, "
+                   f"{soa.binned_g2c.shape[0]} global chunks, {unrolled} unrolled slots >= "
+                   f"{HIER_TRACE_MIN}, {scene.instances.num_instances} instances); the "
+                   f"coherent first wave takes the instanced chunk-tree walk")
+        else:
+            acc = "hier-packet"
+            why = (f"TLAS scene: instanced chunk-tree walk ({kind}, "
+                   f"{scene.instances.num_instances} instances, {unrolled} unrolled slots "
+                   f"< {HIER_TRACE_MIN} or binned traversal off)")
+    elif scene.geometry.num_primitives < LINEAR_THRESHOLD:
         acc, why = "linear", f"< {LINEAR_THRESHOLD} prims"
     elif _use_binned(scene):
         acc = "binned"
@@ -86,10 +118,17 @@ def dispatch_summary(scene: PreparedScene, return_stats: bool = False) -> dict:
     }
 
 
-def trace(scene: PreparedScene, o, d, t_max, ignore, coherent: bool = False) -> Hit:
+def trace(scene: PreparedScene, o, d, t_max, ignore, ignore_inst=None,
+          coherent: bool = False) -> Hit:
     """`coherent=True` marks a tile-coherent population (the wavefront's
     first wave), which a large scene sends to the chunk-tree walk; every
-    other population of such a scene takes the binned traversal."""
+    other population of such a scene takes the binned traversal.
+    `ignore_inst` is the instance of each ray's ignored prim (TLAS scenes;
+    other scenes ignore it)."""
+    if scene.instances is not None:
+        if _use_binned_instanced(scene) and not coherent:
+            return trace_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore, ignore_inst)
+        return intersect_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore, ignore_inst)
     if scene.geometry.num_primitives < LINEAR_THRESHOLD:
         return intersect_linear(scene.geometry, o, d, t_max, ignore)
     if _use_binned(scene) and not coherent:
@@ -99,8 +138,14 @@ def trace(scene: PreparedScene, o, d, t_max, ignore, coherent: bool = False) -> 
     return intersect_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
 
 
-def occlude(scene: PreparedScene, o, d, t_max, ignore, coherent: bool = False) -> torch.Tensor:
+def occlude(scene: PreparedScene, o, d, t_max, ignore, ignore_inst=None,
+            coherent: bool = False) -> torch.Tensor:
     """See trace()."""
+    if scene.instances is not None:
+        if _use_binned_instanced(scene) and not coherent:
+            return occlude_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore,
+                                  ignore_inst)
+        return occlude_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore, ignore_inst)
     if scene.geometry.num_primitives < LINEAR_THRESHOLD:
         return occlude_linear(scene.geometry, o, d, t_max, ignore)
     if _use_binned(scene) and not coherent:
@@ -124,28 +169,45 @@ class Contact(NamedTuple):
 def interact(scene: PreparedScene, hit: Hit, o, d) -> Contact:
     """Shading contact for each lane's hit (lanes without hits get clamped
     garbage that callers mask): one packed-row gather per prim and one
-    per material."""
+    per material. On a TLAS scene one more gather of the hit's instance row
+    rotates the pack-space normals into world space, places the sphere
+    (centre and radius) and remaps the material through the swatch."""
     prim = torch.clamp(hit.prim, min=0).long()
     row = scene.shade_pack[prim]  # (N, 24)
     is_sph = row[..., 20] > 0.5
 
     point = o + d * hit.t[..., None]
 
+    it = scene.instances
+    if it is not None:
+        inst = torch.clamp(hit.inst, 0, it.num_instances - 1).long()
+        irow = it.rows[inst]  # (N, 16)
+        rot = irow[..., 0:9].reshape(irow.shape[:-1] + (3, 3))
+        rot_w = lambda x: vec.affine(x, rot)  # world = R @ local
+    else:
+        rot_w = lambda x: x
+
     u, v = hit.uv[..., 0], hit.uv[..., 1]
     w = 1.0 - u - v
-    tri_geo = row[..., 0:3]
-    tri_shade = vec.normalize(
+    tri_geo = rot_w(row[..., 0:3])
+    tri_shade = vec.normalize(rot_w(
         w[..., None] * row[..., 3:6] + u[..., None] * row[..., 6:9] + v[..., None] * row[..., 9:12]
-    )
+    ))
     tri_uv = w[..., None] * row[..., 12:14] + u[..., None] * row[..., 14:16] + v[..., None] * row[..., 16:18]
-    sph_center = row[..., 0:3]
-    sph_radius = row[..., 3]
+    if it is not None:
+        sph_center = rot_w(row[..., 0:3]) * irow[..., 12:13] + irow[..., 9:12]
+        sph_radius = row[..., 3] * irow[..., 12]
+    else:
+        sph_center = row[..., 0:3]
+        sph_radius = row[..., 3]
     sph_geo = vec.normalize(point - sph_center)
     geo_n = torch.where(is_sph[..., None], sph_geo, tri_geo)
     shade_n = torch.where(is_sph[..., None], sph_geo, tri_shade)
     sph_uv = sphere_uv(point - sph_center, sph_radius)
     uv_out = torch.where(is_sph[..., None], sph_uv, tri_uv)
     mat_id = row[..., 18].to(torch.int32)
+    if it is not None:
+        mat_id = it.mat_remap[inst * it.num_materials + mat_id.long()]
 
     m = scene.materials
     mrow = scene.mat_pack[mat_id.long()]  # (N, 16)
@@ -190,6 +252,7 @@ class LightSample(NamedTuple):
     travel: torch.Tensor  # (N,) distance to the light (INF for infinite)
     pdf: torch.Tensor  # (N,) solid-angle pdf (1 for delta lights)
     target_prim: torch.Tensor  # (N,) prim to ignore in the shadow ray (-1)
+    target_inst: torch.Tensor  # (N,) int32 instance of target_prim (0 unless TLAS)
     use_mis: torch.Tensor  # (N,) bool — non-delta light, MIS applies
 
 
@@ -292,6 +355,7 @@ def sample_light(scene: PreparedScene, record, x, u2) -> LightSample:
     if lt.emissive_prim.shape[0]:
         ei = torch.clamp(index, 0, lt.emissive_prim.shape[0] - 1)
         prim = lt.emissive_prim[ei]
+        target_inst_e = lt.emissive_inst[ei]
         erow = scene.emissive_pack[ei]  # (N, 20)
         is_sph_e = erow[..., 16] > 0.5
 
@@ -319,6 +383,7 @@ def sample_light(scene: PreparedScene, record, x, u2) -> LightSample:
         rad_e = torch.zeros_like(x)
         pdf_e = torch.ones(n, device=dev)
         target_e = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        target_inst_e = torch.zeros(n, dtype=torch.int32, device=dev)
 
     def sel(point_v, dir_v, amb_v, emi_v):
         out = torch.where(_exp(kind == LIGHT_POINT, point_v), point_v, 0.0)
@@ -335,23 +400,40 @@ def sample_light(scene: PreparedScene, record, x, u2) -> LightSample:
         travel=sel(dist_p, inf, inf, dist_e),
         pdf=sel(one, one, amb_pdf, pdf_e),
         target_prim=torch.where(kind == LIGHT_EMISSIVE_TRI, target_e, -1),
+        target_inst=torch.where(kind == LIGHT_EMISSIVE_TRI, target_inst_e, 0),
         use_mis=(kind == LIGHT_AMBIENT) | (kind == LIGHT_EMISSIVE_TRI),
     )
 
 
-def area_light_pdf(scene: PreparedScene, prim, origin, point, geo_normal, direction):
+def area_light_pdf(scene: PreparedScene, prim, origin, point, geo_normal, direction, inst=None):
     """Solid-angle pdf of NEE having sampled `direction` toward the
-    emissive `prim` hit at `point`."""
+    emissive `prim` hit at `point`; on a TLAS scene the prim's pack-space
+    area times its instance's scale^2."""
     area = scene.shade_pack[torch.clamp(prim, min=0).long(), 19]
+    it = scene.instances
+    if it is not None and inst is not None:
+        area = area * it.rows[torch.clamp(inst, 0, it.num_instances - 1).long(), 13]
     delta = point - origin
     dist2 = torch.clamp(vec.length_squared(delta), min=1e-12)
     cos_l = torch.abs(vec.dot(geo_normal, direction))
     return dist2 / torch.clamp(cos_l * area, min=1e-12)
 
 
-def hit_light_record(scene: PreparedScene, prim) -> torch.Tensor:
-    """Light record id of the emissive prim, or -1."""
-    return scene.lights.prim_light[torch.clamp(prim, min=0).long()]
+def hit_light_record(scene: PreparedScene, prim, inst=None) -> torch.Tensor:
+    """Light record id of the emissive (prim, inst) pair, or -1: the prim's
+    record on a baked scene; on a TLAS scene the instance's first emissive
+    record plus the prim's rank in its profile."""
+    it = scene.instances
+    prim_c = torch.clamp(prim, min=0).long()
+    if it is None:
+        return scene.lights.prim_light[prim_c]
+    inst_c = torch.clamp(inst if inst is not None else torch.zeros_like(prim), 0,
+                         it.num_instances - 1).long()
+    irow = it.rows[inst_c]
+    emi_base = irow[..., 14].to(torch.int32)
+    profile = irow[..., 15].long()
+    ordv = it.emi_ordinal[profile * it.num_storage + prim_c]
+    return torch.where((ordv >= 0) & (emi_base >= 0), emi_base + ordv, -1)
 
 
 def _exp(mask, like):

@@ -138,6 +138,7 @@ def run_wavefront(
         prev_specular=torch.ones(n, dtype=torch.bool, device=dev),  # camera rays: specular
         prev_point=o,
         ignore=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        ignore_inst=torch.zeros(n, dtype=torch.int32, device=dev),
     )
     counters = torch.zeros(6, dtype=torch.int64, device=dev)  # exact past 2^24 events
     iters = 0
@@ -188,6 +189,7 @@ def run_wavefront(
             prev_specular=torch.where(respawn, True, out["bs_specular"]),
             prev_point=torch.where(r3, cam_o, out["contact_point"]),
             ignore=torch.where(respawn, -1, out["hit_prim"]).to(torch.int32),
+            ignore_inst=torch.where(respawn, 0, out["hit_inst"]).to(torch.int32),
         )
 
     def run_until(ln, floor):

@@ -1,11 +1,14 @@
 """Built-in benchmark scenes, the analogue of the reference's ext/Scenes
 (.echo files): a Cornell box, a material ball, a many-lights stress scene,
 the 80-sphere field from the reference performance log
-(misc/performance.txt:4), and the grid of triangulated spheres that
-bench.py's large-scene configuration renders at a million triangles.
+(misc/performance.txt:4), the grid of triangulated spheres that
+bench.py's large-scene configuration renders at a million triangles, and
+four placements of one such grid (the TLAS check of
+benchmarks/instanced_tpu_check.py).
 
-Copied from echorenderer_tpu/models/scenes.py and, for `sphere_grid`, from
-benchmarks/scene_throughput.py; the env-map and mesh-file scenes stay
+Copied from echorenderer_tpu/models/scenes.py and, for `sphere_grid` and
+`instanced_sphere_grids`, from benchmarks/scene_throughput.py and
+benchmarks/instanced_tpu_check.py; the env-map and mesh-file scenes stay
 behind with the texture and model loaders this package does not have yet."""
 
 from __future__ import annotations
@@ -238,5 +241,35 @@ def sphere_grid(n_tris: int) -> Scene:
         position=(extent * 0.5, extent * 0.8, -extent * 0.6),
     )
     cam.look_at((extent * 0.5, 0.0, extent * 0.5))
+    scene.add(cam)
+    return scene
+
+
+def instanced_sphere_grids() -> Scene:
+    """benchmarks/instanced_tpu_check.py's scene: one pack holding
+    sphere_grid_mesh(8, 31) (64 UV spheres, 123,008 triangles) placed 4
+    times, at (0,0,0) s1.0, (25,0,0) s0.8, (0,0,25) s1.2 and (25,0,25) s0.9,
+    rotated 17*i degrees about y; for a render, the ground plane and ambient
+    light of sphere_grid's scene (benchmarks/scene_throughput.build_scene at
+    k = 8) and a camera at (10, 10, -30) looking at the centre of the
+    instances' world box. About 492k triangles unrolled."""
+    from ..scene import EntityPack, PackInstance
+
+    verts, faces = sphere_grid_mesh(8, 31)
+    pack = EntityPack()
+    pack.add(MeshEntity(vertices=verts, faces=faces, material=Diffuse(albedo=(0.7, 0.6, 0.5))))
+    scene = Scene()
+    lo, hi = np.full(3, np.inf), np.full(3, -np.inf)
+    for i, (dx, dz, s) in enumerate([(0, 0, 1.0), (25, 0, 0.8), (0, 25, 1.2), (25, 25, 0.9)]):
+        inst = PackInstance(pack, position=(dx, 0, dz), scale=s, rotation=(0, 17 * i, 0))
+        scene.add(inst)
+        m = inst.transform.matrix()
+        world = verts @ m[:3, :3].T + m[:3, 3]
+        lo, hi = np.minimum(lo, world.min(0)), np.maximum(hi, world.max(0))
+    extent = 8 * 2.5
+    scene.add(PlaneEntity(size=(extent * 4, extent * 4), material=Diffuse(albedo=(0.4, 0.4, 0.4))))
+    scene.add(AmbientLight(intensity=(0.5, 0.6, 0.8)))
+    cam = PerspectiveCamera(position=(10, 10, -30))
+    cam.look_at(tuple(0.5 * (lo + hi)))
     scene.add(cam)
     return scene

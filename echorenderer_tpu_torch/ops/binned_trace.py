@@ -1,5 +1,5 @@
 """Binned traversal for large scenes (counterpart of
-echorenderer_tpu/ops/binned_trace.py, non-instanced).
+echorenderer_tpu/ops/binned_trace.py).
 
 Each ray culls on its own, and the intersection work is what gets batched:
 
@@ -22,6 +22,17 @@ Each ray culls on its own, and the intersection work is what gets batched:
    with `pallas_intersect._chunk_hits`, so t, u and v are those the hier
    walk and the dense kernels report for that prim.
 
+TLAS-instanced scenes traverse the scene unrolled into global chunks
+(`HierSoA.binned_g2c` / `binned_g2i` / `binned_wcb`: each instance's pack
+chunks, padded to SUP, with world boxes): setup, refill and select run on
+the world boxes and global chunk ids, and the pairs sort by global chunk.
+`seg_keys` maps each pair's global chunk to its pack chunk and instance,
+moves the pair's world ray into that instance's space (the affine of
+`pallas_hier.to_instance`; t stays the world parameter, spheres take the
+full quadratic) and skips the ray's ignored prim only inside the ray's
+own instance (`ign_inst`). Recovery does the same for the winner and
+returns its instance.
+
 Keys truncate t, which rounds it down, and every cap fed back is the
 truncation band's upper bound, so no chunk that could hold a closer hit is
 skipped. Two hits whose t fall in one band (2^-15 relative) resolve by key:
@@ -33,7 +44,7 @@ On a CUDA tensor each of the three kernel wrappers launches its
 hand-written kernel in csrc/binned.cu (built with nvcc on first use,
 ops/cuda_build.py); on a CPU tensor it runs the plain PyTorch version
 beside it. They replace the TPU's `_setup_kernel`, `_select_kernel` and
-`_seg_kernel` (keyed, non-instanced) of echorenderer_tpu/ops/binned_trace.py
+`_seg_kernel` (keyed, both forms) of echorenderer_tpu/ops/binned_trace.py
 (:552, :402, :117). The refill, the pair sort and the record gather stay
 PyTorch ops, as they are XLA ops in the JAX package. The engine is the JAX
 package's fused one (a ray's refill decision is the previous round's) at
@@ -49,7 +60,7 @@ import torch
 
 from . import cuda_build
 from .intersect import INF, FlatGeometry, Hit
-from .pallas_hier import HCHUNK, HierSoA, _sorted_ignore
+from .pallas_hier import HCHUNK, HierSoA, _ignore_inst, _sorted_ignore, to_instance
 from .pallas_intersect import _chunk_hits, _safe_inv, ray_columns
 
 _INF = 3.4e38
@@ -78,14 +89,18 @@ PLAIN_SLICE = 2**16  # rays (setup) or pairs (seg) per pass of the plain version
 # rays whose winning prim missed on re-evaluation (a device tensor: reading
 # it syncs, so callers read it when they want it)
 STATS = dict(calls=0, rounds=0, syncs=0, misses=0)
-# kernel launches per wrapper (CUDA tensors only; the plain versions add none)
+# kernel launches per wrapper (CUDA tensors only; the plain versions add
+# none): LAUNCHES on the pairs of a flat scene, LAUNCHES_INSTANCED on those
+# of an instanced scene (setup and select are the same kernels for both)
 LAUNCHES = dict(setup=0, select=0, seg=0)
+LAUNCHES_INSTANCED = dict(seg=0)
 
 
 def reset_stats():
-    """Zero STATS and LAUNCHES."""
+    """Zero STATS, LAUNCHES and LAUNCHES_INSTANCED."""
     STATS.update(calls=0, rounds=0, syncs=0, misses=0)
     LAUNCHES.update(setup=0, select=0, seg=0)
+    LAUNCHES_INSTANCED.update(seg=0)
 
 
 # ----------------------------------------------------------------------------
@@ -200,20 +215,31 @@ def select_plain(cand, new_keys, best_t, do_refill, k, cbits):
     return torch.stack(pops), (c != _INT_INF).sum(0, dtype=torch.int32), c.amin(0)
 
 
-def seg_keys_plain(rec, chunk, prim_chunks, has_tri, has_sph):
+def seg_keys_plain(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
     """Plain PyTorch pair keys: for each pair (ray record, chunk) with
     t_max > 0, the least (bits(t) & ~0xFF) | prim-in-chunk over the
-    chunk's hits with t < t_max; _INT_INF otherwise."""
+    chunk's hits with t < t_max; _INT_INF otherwise. With `inst` = (g2c,
+    g2i, inst_f32) the chunks are global: each pair tests its pack chunk in
+    its instance's space, and rec's column 8 is the ignore's instance."""
     out = torch.full((rec.shape[0],), _INT_INF, dtype=torch.int32, device=rec.device)
-    ok_pair = (rec[:, 6] > 0.0) & (chunk >= 0) & (chunk < prim_chunks.shape[0])
+    n_chunks = prim_chunks.shape[0] if inst is None else inst[0].shape[0]
+    ok_pair = (rec[:, 6] > 0.0) & (chunk >= 0) & (chunk < n_chunks)
     live = torch.nonzero(ok_pair).squeeze(1)
     local = torch.arange(HCHUNK, dtype=torch.int32, device=rec.device)[None]
     for s in range(0, live.numel(), PLAIN_SLICE):
         idx = live[s: s + PLAIN_SLICE]
         c = chunk[idx].long()
-        rows = prim_chunks[c, :10, :].permute(1, 0, 2)  # (10, M, HCHUNK)
         r = rec[idx].T
-        t, _, _, ok = _chunk_hits(rows, c * HCHUNK, r, r[7].to(torch.int32), has_tri, has_sph)
+        ray, ign = r, r[7]
+        if inst is not None:
+            g2c, g2i, inst_f32 = inst
+            ii = g2i[c]
+            c = g2c[c].long()
+            ray = torch.cat(to_instance(inst_f32, ii, r[0:3], r[3:6]))
+            ign = torch.where(r[8] == ii.to(torch.float32), ign, -1.0)
+        rows = prim_chunks[c, :10, :].permute(1, 0, 2)  # (10, M, HCHUNK)
+        t, _, _, ok = _chunk_hits(rows, c * HCHUNK, ray, ign.to(torch.int32), has_tri, has_sph,
+                                  unit_dir=inst is None)
         valid = ok & (t < r[6][:, None]) & (t < _INF)
         key = torch.where(valid, (_bits(t) & -(1 << _PBITS)) | local, _INT_INF)
         out[idx] = key.amin(1)
@@ -234,7 +260,10 @@ def _load():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.binned_setup.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr, ptr]
         lib.binned_select.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr]
-        lib.binned_seg.argtypes = [ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr, ptr]
+        # rec, chunk, m, prim_chunks, valid chunk ids, has_tri, has_sph,
+        # block, g2c, g2i, inst_f32 (null for a flat scene), out, stream
+        lib.binned_seg.argtypes = [ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                                   ptr]
         for fn in (lib.binned_setup, lib.binned_select, lib.binned_seg):
             fn.restype = i32
         _lib = lib
@@ -328,32 +357,45 @@ def select(cand, new_keys, best_t, do_refill, k, cbits):
     return pop, live, mink
 
 
-def seg_keys(rec, chunk, prim_chunks, has_tri, has_sph):
+def seg_keys(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
     """Packed closest-hit key of every (ray, chunk) pair: rec (M, 8) f32
     [o xyz, d xyz, t_max, sorted-slot ignore], chunk (M,) int32 (pairs
     sorted by chunk share its prim rows), prim_chunks (C, 16, HCHUNK) f32.
-    Returns (M,) int32. CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
-    if rec.dtype != torch.float32 or rec.dim() != 2 or rec.shape[1] != 8:
-        raise ValueError(f"rec must be (M, 8) float32, got {tuple(rec.shape)} {rec.dtype}")
+    Instanced scenes pass `inst` = (g2c (G,) int32, g2i (G,) int32,
+    inst_f32 (I*12,) f32): the chunks are global chunks, and rec (M, 9)
+    holds the ignore's instance in column 8. Returns (M,) int32. CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    width = 8 if inst is None else 9
+    if rec.dtype != torch.float32 or rec.dim() != 2 or rec.shape[1] != width:
+        raise ValueError(f"rec must be (M, {width}) float32, got {tuple(rec.shape)} {rec.dtype}")
     if chunk.dtype != torch.int32 or chunk.shape != (rec.shape[0],):
         raise ValueError(f"chunk must be ({rec.shape[0]},) int32")
     if prim_chunks.dtype != torch.float32 or prim_chunks.shape[1:] != (16, HCHUNK):
         raise ValueError(f"prim_chunks must be (C, 16, {HCHUNK}) float32")
     if rec.shape[0] >= 2**31:
         raise ValueError("too many pairs for int32 indexing")
-    if _route("seg_keys", rec, (rec, chunk, prim_chunks)) == "plain":
-        return seg_keys_plain(rec, chunk, prim_chunks, has_tri, has_sph)
-    if rec.data_ptr() % 16:
+    tensors = (rec, chunk, prim_chunks)
+    if inst is not None:
+        g2c, g2i, inst_f32 = inst
+        if g2c.dtype != torch.int32 or g2i.dtype != torch.int32 or g2c.shape != g2i.shape:
+            raise ValueError("g2c and g2i must be int32 of one length")
+        if inst_f32.dtype != torch.float32 or inst_f32.numel() % 12:
+            raise ValueError("inst_f32 must hold 12 floats per instance")
+        tensors += (g2c, g2i, inst_f32)
+    if _route("seg_keys", rec, tensors) == "plain":
+        return seg_keys_plain(rec, chunk, prim_chunks, has_tri, has_sph, inst)
+    if inst is None and rec.data_ptr() % 16:
         raise ValueError("seg_keys reads each record as two float4: rec must be 16-byte aligned")
     m = rec.shape[0]
     out = torch.empty(m, dtype=torch.int32, device=rec.device)
     if m:
+        n_chunks, ptrs = (prim_chunks.shape[0], (None, None, None)) if inst is None else (
+            g2c.shape[0], (g2c.data_ptr(), g2i.data_ptr(), inst_f32.data_ptr()))
         err = _load().binned_seg(rec.data_ptr(), chunk.data_ptr(), m, prim_chunks.data_ptr(),
-                                 prim_chunks.shape[0], int(has_tri), int(has_sph), ROW,
+                                 n_chunks, int(has_tri), int(has_sph), ROW, *ptrs,
                                  out.data_ptr(), _stream(rec))
         _raise_on("seg_keys", err)
-        LAUNCHES["seg"] += 1
+        (LAUNCHES if inst is None else LAUNCHES_INSTANCED)["seg"] += 1
     return out
 
 
@@ -397,15 +439,20 @@ def _any(x) -> bool:
 
 class _Walk:
     """One traversal call: rays (7, N) contiguous with t_max clamped at
-    _INF (`ray_columns`), sorted ignores (N,), the hier pack."""
+    _INF (`ray_columns`), sorted ignores (N,), the hier pack; instanced
+    packs also take each ignore's instance `ign_inst` (N,) (-1: none)."""
 
-    def __init__(self, rays, ign, soa: HierSoA, occlude):
-        _check_soa(soa)
+    def __init__(self, rays, ign, soa: HierSoA, occlude, ign_inst=None):
+        _check_soa(soa, ign_inst)
         STATS["calls"] += 1
         self.rays, self.soa, self.occlude = rays, soa, occlude
         self.ign_f = ign.to(torch.float32)
-        self.tb = _Tables(soa.chunk_bounds)
-        self.c = soa.num_chunks
+        # the chunks are global chunks with world boxes on an instanced pack
+        cb = soa.binned_wcb if soa.instanced else soa.chunk_bounds
+        self.inst = (soa.binned_g2c, soa.binned_g2i, soa.inst_f32) if soa.instanced else None
+        self.ii_f = ign_inst.to(torch.float32) if soa.instanced else None
+        self.tb = _Tables(cb)
+        self.c = cb.shape[0]
         self.kinds = soa.num_tris > 0, soa.num_prims > soa.num_tris
 
     def order(self, rays_lim, cap):
@@ -471,20 +518,22 @@ class _Walk:
         next_sup = torch.where(do_refill, extract(ksup)[0], st["next_sup"])
         return torch.cat(keys).contiguous(), new_cursor, next_sup
 
-    def pairs(self, sel_c, rays, best_t, ign_f):
+    def pairs(self, sel_c, rays, best_t, ign_f, ii_f=None):
         """Keys (k, N) of this round's (ray, chunk) pairs (chunk -1: none):
-        the pairs sorted chunk-major, their ray records gathered, one
-        seg_keys launch, and the results put back in pair order."""
+        the pairs sorted chunk-major, their ray records gathered (with the
+        ignore's instance on an instanced pack), one seg_keys launch, and
+        the results put back in pair order."""
         kk, n = sel_c.shape
         pc = sel_c.reshape(-1)
         key_s, q_s = torch.sort(torch.where(pc >= 0, pc, self.c), stable=True)
-        rec = torch.stack([rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], best_t, ign_f],
-                          dim=1)
-        g = rec[q_s % n]  # (k*N, 8) row gather
+        cols = [rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], best_t, ign_f]
+        rec = torch.stack(cols + ([] if ii_f is None else [ii_f]), dim=1)
+        g = rec[q_s % n]  # (k*N, 8 or 9) row gather
         live = key_s < self.c
         g[:, 6] = torch.where(live, g[:, 6], 0.0)  # dead pairs: t_max 0
-        g[:, 7] = torch.where(live, g[:, 7], -2.0)
-        res = seg_keys(g, key_s.contiguous(), self.soa.prim_chunks, *self.kinds)
+        for col in range(7, g.shape[1]):  # and ignores that match nothing
+            g[:, col] = torch.where(live, g[:, col], -2.0)
+        res = seg_keys(g, key_s.contiguous(), self.soa.prim_chunks, *self.kinds, inst=self.inst)
         out = torch.empty_like(res)
         out[q_s] = res
         return out.view(kk, n)
@@ -498,7 +547,7 @@ class _Walk:
         new_keys, cursor, next_sup = self.refill(st, ksup)
         pop, live, mink = select(st["cand"], new_keys, best_t, st["do_refill"], k, tb.cbits)
         sel_c = torch.where(pop != _INT_INF, pop & ((1 << tb.cbits) - 1), -1)
-        pk = self.pairs(sel_c, st["rays"], best_t, st["ign_f"])
+        pk = self.pairs(sel_c, st["rays"], best_t, st["ign_f"], st["ii_f"])
         out = dict(st, cursor=cursor, next_sup=next_sup)
         if self.occlude:
             new_t = torch.where((pk != _INT_INF).any(0), 0.0, best_t)
@@ -541,6 +590,7 @@ class _Walk:
         sub = self.start(rays, best, stf["best_key"][idxs], stf["best_chunk"][idxs],
                          self.order(rays_lim, None), ksup, ks)
         sub["ign_f"] = self.ign_f[idxs]
+        sub["ii_f"] = None if self.ii_f is None else self.ii_f[idxs]
         done = self.run(sub, ks, ksup, MAX_ROUNDS if bounded is None else bounded)
         out = dict(stf)
         tgt = idxs[:take]
@@ -560,7 +610,7 @@ class _Walk:
                                                   device=rays.device),
                         torch.full((n,), -1, dtype=torch.int32, device=rays.device),
                         self.order(rays, ORD_CAP if nc < n else None), KSUP, K)
-        st["ign_f"] = self.ign_f
+        st["ign_f"], st["ii_f"] = self.ign_f, self.ii_f
         st = self.run(st, K, KSUP, FULL_ROUNDS if nc < n else MAX_ROUNDS)
         if nc < n:
             st["retired"] = torch.zeros(n, dtype=torch.bool, device=rays.device)
@@ -581,43 +631,63 @@ class _Walk:
 
     def recover(self, st):
         """Exact (t, sorted slot, u, v) of each ray's winning prim, tested
-        again with `_chunk_hits`; a winner whose test now misses keeps the
-        hit at its key's band lower bound (counted in STATS["misses"])."""
+        again with `_chunk_hits` (on an instanced pack in the winner's
+        instance space, and its instance as a fifth output); a winner whose
+        test now misses keeps the hit at its key's band lower bound (counted
+        in STATS["misses"])."""
         bk = st["best_key"]
         found = bk != _INT_INF
         win = torch.where(found, st["best_chunk"], 0).long()
         j = torch.where(found, bk & ((1 << _PBITS) - 1), 0).long()
+        ray, ign = self.rays, self.ign_f
+        if self.inst is not None:
+            g2c, g2i, inst_f32 = self.inst
+            win_i = g2i[win]
+            win = g2c[win].long()
+            ray = torch.cat(to_instance(inst_f32, win_i, ray[0:3], ray[3:6]))
+            ign = torch.where(self.ii_f == win_i.to(torch.float32), ign, -1.0)
         slot = (win * HCHUNK + j).to(torch.int32)
         rows = self.soa.prim_chunks[win, :10, j].T[:, :, None]  # (10, N, 1)
-        t, u, v, ok = (x[:, 0] for x in _chunk_hits(rows, slot, self.rays, self.ign_f.to(
-            torch.int32), *self.kinds))
+        t, u, v, ok = (x[:, 0] for x in _chunk_hits(rows, slot, ray, ign.to(torch.int32),
+                                                    *self.kinds, unit_dir=self.inst is None))
         band_lb = _floats(bk & -(1 << _PBITS))
         STATS["misses"] = STATS["misses"] + (found & ~ok).sum()
         hit = found & ok
-        return (torch.where(found, torch.where(ok, t, band_lb), _INF),
-                torch.where(found, slot, -1), torch.where(hit, u, 0.0), torch.where(hit, v, 0.0))
+        out = (torch.where(found, torch.where(ok, t, band_lb), _INF),
+               torch.where(found, slot, -1), torch.where(hit, u, 0.0), torch.where(hit, v, 0.0))
+        if self.inst is not None:
+            out += (torch.where(found, win_i, 0),)
+        return out
 
 
-def _check_soa(soa: HierSoA):
-    if soa.instanced:
-        raise NotImplementedError(
-            "instanced scenes are not in the PyTorch port's binned traversal yet (ROADMAP.md: "
-            "queue 1, instancing)")
+def _check_soa(soa: HierSoA, ign_inst):
+    if soa.instanced and soa.binned_g2c.numel() == 0:
+        raise ValueError("this instanced pack has no binned tables (more than 2**20 global "
+                         "chunks): trace it with the walk")
+    if soa.instanced != (ign_inst is not None):
+        raise ValueError("ign_inst goes with instanced packs, and only with them")
 
 
-def trace_binned(geom: FlatGeometry, soa: HierSoA, o, d, t_max, ignore) -> Hit:
+def trace_binned(geom: FlatGeometry, soa: HierSoA, o, d, t_max, ignore, ignore_inst=None) -> Hit:
     """Closest hit through the binned traversal; the contract of
     `pallas_hier.intersect_hier` (original prim ids, findFar, t = INF and
-    prim = -1 on a miss, `Hit.inst` zeros)."""
-    t, p, u, v = _Walk(ray_columns(o, d, t_max), _sorted_ignore(soa, ignore), soa,
-                       False).traverse()
+    prim = -1 on a miss; `Hit.inst` the hit's instance, zeros without
+    instancing; an instanced pack honours per-instance ignores)."""
+    ignore = torch.as_tensor(ignore, device=o.device)
+    out = _Walk(ray_columns(o, d, t_max), _sorted_ignore(soa, ignore), soa, False,
+                _ignore_inst(soa, ignore, ignore_inst, missing=0)).traverse()
+    t, p, u, v = out[:4]
     prim = torch.where(p >= 0, soa.order[torch.clamp(p, min=0)], -1).to(torch.int32)
     found = prim >= 0
+    inst = torch.where(found, out[4], 0) if soa.instanced else torch.zeros_like(prim)
     return Hit(t=torch.where(found, t, INF), prim=prim, uv=torch.stack([u, v], dim=-1),
-               inst=torch.zeros_like(prim))
+               inst=inst)
 
 
-def occlude_binned(geom: FlatGeometry, soa: HierSoA, o, d, t_max, ignore) -> torch.Tensor:
+def occlude_binned(geom: FlatGeometry, soa: HierSoA, o, d, t_max, ignore,
+                   ignore_inst=None) -> torch.Tensor:
     """Any hit in (EPS, t_max) through the binned traversal; the contract of
     `pallas_hier.occlude_hier`."""
-    return _Walk(ray_columns(o, d, t_max), _sorted_ignore(soa, ignore), soa, True).traverse()
+    ignore = torch.as_tensor(ignore, device=o.device)
+    return _Walk(ray_columns(o, d, t_max), _sorted_ignore(soa, ignore), soa, True,
+                 _ignore_inst(soa, ignore, ignore_inst, missing=0)).traverse()

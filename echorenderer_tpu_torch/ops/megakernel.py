@@ -14,7 +14,8 @@ The kernel replaces the TPU's `_mega_kernel`
 (echorenderer_tpu/ops/megakernel.py:1101). Its envelope is the JAX
 package's: at most MEGA_PRIM_LIMIT padded prims, a light tree no deeper
 than MEGA_TREE_DEPTH, a perspective camera, at most MEGA_LIGHT_LIMIT light
-records and emitters (the port prepares no env map and no texture yet).
+records and emitters (the port prepares no env map and no texture yet), and
+no TLAS instancing (an instanced scene has no `prim_soa`).
 `_build_tables` packs the scene into the JAX kernel's table layouts, value
 for value; the launch hands them to the kernel transposed, one row per
 prim / material / light.
@@ -63,6 +64,8 @@ C_LEN = 26
 def unsupported_reason(scene) -> str | None:
     """Why the megakernel does not take `scene` (None when it does)."""
     tree = scene.lights.tree
+    if scene.prim_soa is None:  # pack-space geometry: only the instanced walks trace it
+        return "TLAS instancing"
     if scene.prim_soa.padded > MEGA_PRIM_LIMIT:
         return f"prims > {MEGA_PRIM_LIMIT}"
     if tree is not None and tree.max_depth > MEGA_TREE_DEPTH:

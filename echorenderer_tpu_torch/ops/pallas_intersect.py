@@ -207,11 +207,14 @@ def _box_reach(table, j, ray, inv, limit):
     return (tn <= tf) & (tf > 0.0) & (tn <= limit * CULL_MARGIN)
 
 
-def _chunk_hits(chunk, base, ray, ignore, has_tri, has_sph):
+def _chunk_hits(chunk, base, ray, ignore, has_tri, has_sph, unit_dir=True):
     """Rays (M,) against prim rows: (t, u, v, ok) as (M, CS), in the
     kernel's float order. `chunk` is one chunk's rows (10, CS) shared by
     every ray, with first sorted slot `base` (an int), or one chunk per
-    ray (10, M, CS) with first slots `base` (M,)."""
+    ray (10, M, CS) with first slots `base` (M,). `unit_dir=False` is for
+    rays moved into an instance's space, whose |d| is 1/scale: spheres then
+    solve the full quadratic a t^2 + 2 b t + c, so t stays the world-space
+    parameter (triangles need no change)."""
     col = lambda r: r[:, None]
     ox, oy, oz, dx, dy, dz = (col(ray[k]) for k in range(6))
     per_ray = chunk.dim() == 3
@@ -243,10 +246,18 @@ def _chunk_hits(chunk, base, ray, ignore, has_tri, has_sph):
         fz = oz - az
         bq = fx * dx + fy * dy + fz * dz
         cq = fx * fx + fy * fy + fz * fz - bx * bx
-        disc = bq * bq - cq
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        t_near = -bq - sq
-        t_far = -bq + sq
+        if unit_dir:
+            disc = bq * bq - cq
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            t_near = -bq - sq
+            t_far = -bq + sq
+        else:
+            aq = dx * dx + dy * dy + dz * dz
+            disc = bq * bq - aq * cq
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            inv_a = 1.0 / aq
+            t_near = (-bq - sq) * inv_a
+            t_far = (-bq + sq) * inv_a
         t_sph = torch.where(ignored, t_far, torch.where(t_near > _EPS, t_near, t_far))
         sph_ok = (disc >= 0.0) & (t_sph > _EPS)
 

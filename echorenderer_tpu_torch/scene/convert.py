@@ -5,7 +5,10 @@ Tables travel as a flat dict of numpy arrays keyed by the JAX
 "lights.cdf", "materials.present", "camera.kind", ...); a light tree
 travels under "lights.tree.nodes", "lights.tree.light_path", ..., the
 chunk-tree tables under "hier_soa.prim_chunks", "hier_soa.root_code", ...
-`to_arrays`
+(with the TLAS tables "hier_soa.inst_f32", "hier_soa.binned_g2c", ... of an
+instanced scene), and an instanced scene's instance table under
+"instances.rows", "instances.num_materials", ...; such a scene has no
+"prim_soa.*". `to_arrays`
 writes a port scene in that form; `from_jax_arrays` builds a port scene
 from it, so both packages can be fed identical tables and a difference in
 preparation cannot hide a difference in the physics.
@@ -28,12 +31,14 @@ _INT_FIELDS = {
     "materials.albedo_tex", "lights.kind", "lights.index", "lights.emissive_prim",
     "lights.emissive_inst", "lights.emissive_light", "lights.prim_light",
     "lights.tree_records", "lights.record_tree", "lights.tree.light_depth",
+    "instances.mat_remap", "instances.emi_ordinal",
     "prim_soa.order", "prim_soa.inv_order", "hier_soa.codes", "hier_soa.order",
     "hier_soa.inv_order", "hier_soa.inst_codes", "hier_soa.binned_g2c", "hier_soa.binned_g2i",
 }
-# HierSoA fields that are Python scalars, with their types
+# HierSoA and InstanceTable fields that are Python scalars, with their types
 _HIER_STATICS = {"root_code": int, "stack_size": int, "num_tris": int, "num_prims": int,
                  "instanced": bool}
+_INSTANCE_STATICS = {"num_materials": int, "num_storage": int}
 
 
 def _np(x) -> np.ndarray:
@@ -54,22 +59,28 @@ def to_arrays(scene: PreparedScene) -> dict[str, np.ndarray]:
             elif value is not None:
                 out[f"{group}.{name}"] = _np(value)
     soa = scene.prim_soa
-    rows = _np(soa.rows)
-    for k, name in enumerate(_ROWS):
-        out[f"prim_soa.{name}"] = rows[k: k + 1]
-    for name in ("chunk_bounds", "super_bounds", "order", "inv_order", "num_tris", "num_prims"):
-        out[f"prim_soa.{name}"] = _np(getattr(soa, name))
+    if soa is not None:
+        rows = _np(soa.rows)
+        for k, name in enumerate(_ROWS):
+            out[f"prim_soa.{name}"] = rows[k: k + 1]
+        for name in ("chunk_bounds", "super_bounds", "order", "inv_order", "num_tris",
+                     "num_prims"):
+            out[f"prim_soa.{name}"] = _np(getattr(soa, name))
     for name in ("shade_pack", "mat_pack", "emissive_pack"):
         out[name] = _np(getattr(scene, name))
-    if scene.hier_soa is not None:
-        for name, value in zip(HierSoA._fields, scene.hier_soa):
-            out[f"hier_soa.{name}"] = _np(value)
+    for prefix, table in (("hier_soa", scene.hier_soa), ("instances", scene.instances)):
+        if table is not None:
+            for name, value in zip(table._fields, table):
+                out[f"{prefix}.{name}"] = _np(value)
     return out
 
 
-def from_jax_arrays(tables: dict[str, np.ndarray], device="cpu") -> PreparedScene:
-    """A port `PreparedScene` on `device` from the JAX scene's flattened
-    tables (extra keys, such as the BVH nodes, are ignored)."""
+def from_jax_arrays(tables: dict[str, np.ndarray], device="cuda") -> PreparedScene:
+    """A port `PreparedScene` on `device` (the card unless the caller asks
+    for another device) from the JAX scene's flattened tables (extra keys,
+    such as the BVH nodes, are ignored)."""
+    from .instancing import InstanceTable
+
     device = torch.device(device)
 
     def put(key):
@@ -100,19 +111,24 @@ def from_jax_arrays(tables: dict[str, np.ndarray], device="cpu") -> PreparedScen
                 vals[name] = put(key)
         return cls(**vals)
 
-    rows = np.concatenate([np.asarray(tables[f"prim_soa.{r}"], np.float32) for r in _ROWS], 0)
-    soa = PrimSoA(
-        rows=torch.as_tensor(np.ascontiguousarray(rows), device=device),
-        chunk_bounds=put("prim_soa.chunk_bounds"),
-        super_bounds=put("prim_soa.super_bounds"),
-        order=put("prim_soa.order"),
-        inv_order=put("prim_soa.inv_order"),
-        num_tris=int(tables["prim_soa.num_tris"]),
-        num_prims=int(tables["prim_soa.num_prims"]),
-    )
+    soa = None
+    if "prim_soa.ax" in tables:
+        rows = np.concatenate([np.asarray(tables[f"prim_soa.{r}"], np.float32) for r in _ROWS], 0)
+        soa = PrimSoA(
+            rows=torch.as_tensor(np.ascontiguousarray(rows), device=device),
+            chunk_bounds=put("prim_soa.chunk_bounds"),
+            super_bounds=put("prim_soa.super_bounds"),
+            order=put("prim_soa.order"),
+            inv_order=put("prim_soa.inv_order"),
+            num_tris=int(tables["prim_soa.num_tris"]),
+            num_prims=int(tables["prim_soa.num_prims"]),
+        )
     hier = None
     if "hier_soa.prim_chunks" in tables:
         hier = group(HierSoA, "hier_soa", _HIER_STATICS)
+    instances = None
+    if "instances.rows" in tables:
+        instances = group(InstanceTable, "instances", _INSTANCE_STATICS)
     return PreparedScene(
         geometry=group(FlatGeometry, "geometry"),
         materials=group(MaterialTable, "materials",
@@ -124,4 +140,5 @@ def from_jax_arrays(tables: dict[str, np.ndarray], device="cpu") -> PreparedScen
         mat_pack=put("mat_pack"),
         emissive_pack=put("emissive_pack"),
         hier_soa=hier,
+        instances=instances,
     )

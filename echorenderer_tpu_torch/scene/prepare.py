@@ -14,9 +14,11 @@ everything downstream follows the scene's device.
 
 From LIGHT_TREE_THRESHOLD finite lights on, the light table carries an
 Estevez-Kulla light tree (aggregation/light_tree.py), built as the JAX
-package builds it. This package prepares non-instanced scenes without
-textures or env maps, of any size. The rest raises NotImplementedError
-naming the ROADMAP.md item that brings it.
+package builds it. Packs placed by PackInstances are baked into the world
+("bake"), or kept once in pack space and traced through a TLAS ("tlas";
+scene/instancing.py), as the JAX package decides (`_shared_packs`). This
+package prepares scenes without textures or env maps, of any size. The
+rest raises NotImplementedError naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -112,44 +114,59 @@ class PreparedScene(NamedTuple):
     materials: MaterialTable
     lights: LightTable
     camera: PackedCamera
-    prim_soa: PrimSoA
+    prim_soa: PrimSoA | None  # None for a TLAS scene (its rays take the instanced walk)
     shade_pack: torch.Tensor  # (P, 24) float32
     mat_pack: torch.Tensor  # (M, 16) float32
     emissive_pack: torch.Tensor  # (Le, 20) float32
-    # chunk-tree walk tables from HIER_BUILD_MIN prims on; None below
+    # chunk-tree walk tables from HIER_BUILD_MIN prims on (and, instanced,
+    # for every TLAS scene); None below
     hier_soa: HierSoA | None = None
+    # TLAS tables (scene/instancing.InstanceTable) when the scene keeps
+    # shared packs; None for a baked scene. Then the geometry and shade
+    # rows of a pack's prims are in pack space.
+    instances: object = None
 
     @property
     def device(self) -> torch.device:
         return self.shade_pack.device
 
 
-def _iter_world(entity: Entity, parent, swatch):
-    """Depth-first walk yielding (entity, world_matrix, swatch), baking
-    every PackInstance."""
+def _iter_world(entity: Entity, parent, swatch, stop_shared=None, inst_specs=None):
+    """Depth-first walk yielding (entity, world_matrix, swatch). A
+    PackInstance of a pack in `stop_shared` (a set of pack ids) is not
+    descended into: its (pack, world, merged swatch) goes to `inst_specs`
+    (the TLAS path). Every other PackInstance is baked."""
     world = parent @ entity.transform.matrix()
     yield entity, world, swatch
     if isinstance(entity, PackInstance):
         merged = {**swatch, **{id(k): v for k, v in entity.material_swatch.items()}}
-        for child in entity.pack.children:
-            yield from _iter_world(child, world, merged)
+        if stop_shared is not None and id(entity.pack) in stop_shared:
+            inst_specs.append((entity.pack, world, merged))
+        else:
+            for child in entity.pack.children:
+                yield from _iter_world(child, world, merged, stop_shared, inst_specs)
     for child in entity.children:
-        yield from _iter_world(child, world, swatch)
+        yield from _iter_world(child, world, swatch, stop_shared, inst_specs)
 
 
 class Collector:
-    """Accumulates flattened entities from one world-space walk."""
+    """Accumulates flattened entities from one walk (the root scene in
+    world space, or one shared pack in pack space)."""
 
     def __init__(self):
         self.tri_v, self.tri_f, self.tri_n, self.tri_uv, self.tri_m = [], [], [], [], []
         self.sph_c, self.sph_r, self.sph_m = [], [], []
         self.cameras: list[tuple[Camera, np.ndarray]] = []
         self.point_lights, self.dir_lights, self.ambient_lights = [], [], []
+        # (entity material, its id, claimed by a swatch of the walk): an
+        # instance's swatch may remap the id unless an inner one claimed it
+        self.mat_pairs: list[tuple[object, int, bool]] = []
 
     def add(self, entity, world, swatch, intern):
         if isinstance(entity, GeometryEntity):
             mat = swatch.get(id(entity.material), entity.material)
             mid = intern(mat)
+            self.mat_pairs.append((entity.material, mid, id(entity.material) in swatch))
             tris = entity.extract_triangles(world)
             if tris is not None and len(tris["faces"]):
                 base = sum(len(v) for v in self.tri_v)
@@ -161,7 +178,10 @@ class Collector:
                 self.tri_uv.append(None if u is None else np.asarray(u, np.float32))
                 if tris.get("face_materials") is not None:
                     fm = np.asarray(tris["face_materials"], np.int32)
-                    sub = [intern(swatch.get(id(m), m)) for m in tris["materials"]]
+                    sub = []
+                    for m in tris["materials"]:
+                        sub.append(intern(swatch.get(id(m), m)))
+                        self.mat_pairs.append((m, sub[-1], id(m) in swatch))
                     table = np.asarray(sub + [mid], np.int32)
                     self.tri_m.append(table[np.where(fm >= 0, fm, len(sub))])
                 else:
@@ -182,7 +202,8 @@ class Collector:
             d = (d / np.linalg.norm(d)).astype(np.float32)
             self.dir_lights.append((d, entity.intensity, entity))
         elif isinstance(entity, AmbientLight):
-            self.ambient_lights.append(entity)
+            rot = world[:3, :3] / max(np.linalg.norm(world[:3, 0]), 1e-20)
+            self.ambient_lights.append((entity, rot.astype(np.float32)))
 
 
 def build_material_arrays(materials):
@@ -261,12 +282,15 @@ def _unrolled_prim_estimate(scene: Scene) -> int | None:
     return None if unknown else n
 
 
-def _check_instancing(scene: Scene, instancing: str) -> None:
-    """The JAX package bakes shared packs in "bake" mode, and in "auto"
-    mode when the unrolled scene is small; every other instanced scene
-    needs TLAS tables, which are not ported."""
+def _shared_packs(scene: Scene, instancing: str) -> set[int]:
+    """ids of the packs that keep one pack-space copy traced through a TLAS
+    instead of being baked: in "tlas" mode every instanced pack, in "auto"
+    mode every pack placed by two or more PackInstances, none in "bake".
+    "auto" bakes a scene whose unrolled prim count is at most
+    AUTO_BAKE_LIMIT (the megakernel's prim limit), as the JAX package
+    does."""
     if instancing == "bake":
-        return
+        return set()
     counts: dict[int, int] = {}
 
     def walk(entity):
@@ -279,20 +303,25 @@ def _check_instancing(scene: Scene, instancing: str) -> None:
 
     walk(scene)
     need = 1 if instancing == "tlas" else 2
-    if not any(c >= need for c in counts.values()):
-        return
-    est = _unrolled_prim_estimate(scene)
-    if instancing == "auto" and est is not None and est <= AUTO_BAKE_LIMIT:
-        return
-    _not_ported("TLAS instancing", "queue 1, instancing")
+    shared = {pid for pid, c in counts.items() if c >= need}
+    if shared and instancing == "auto":
+        est = _unrolled_prim_estimate(scene)
+        if est is not None and est <= AUTO_BAKE_LIMIT:
+            return set()
+    return shared
 
 
 def prepare_scene(scene: Scene, camera_name: str | None = None,
                   instancing: str = "auto", device="cuda") -> PreparedScene:
     """Flatten `scene` into tables on `device` (the card unless the caller
-    asks for another device)."""
+    asks for another device). `instancing` is "auto", "tlas" or "bake"
+    (`_shared_packs`)."""
     device = torch.device(device)
-    _check_instancing(scene, instancing)
+    shared = _shared_packs(scene, instancing)
+    if shared:
+        from .instancing import prepare_scene_instanced
+
+        return prepare_scene_instanced(scene, camera_name, shared, device)
 
     materials: list = []
     mat_index: dict = {}
@@ -352,7 +381,7 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
 
     ambient_all = np.zeros(3, np.float32)
     ambient_camera = np.zeros(3, np.float32)
-    for ent in col.ambient_lights:
+    for ent, _ in col.ambient_lights:
         if ent.texture is not None:
             _not_ported("a directional env map", "queue 1, env maps")
         ambient_all += ent.intensity

@@ -39,6 +39,15 @@ def rotate(v: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     return torch.stack([dot(v, rot[k]) for k in range(3)], dim=-1)
 
 
+def affine(v: torch.Tensor, m: torch.Tensor, offset: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-lane (..., 3, 3) matrices m applied to v (..., 3): row k of m
+    dotted with v, summed left to right, then + offset[..., k] when given."""
+    rows = [dot(v, m[..., k, :]) for k in range(3)]
+    if offset is not None:
+        rows = [r + offset[..., k] for k, r in enumerate(rows)]
+    return torch.stack(rows, dim=-1)
+
+
 def normalize(a: torch.Tensor) -> torch.Tensor:
     """Normalize over the trailing axis; zero vectors map to zero."""
     sq = length_squared(a)[..., None]

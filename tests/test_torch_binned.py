@@ -444,7 +444,8 @@ def test_wrappers_reject_bad_inputs():
                     torch.zeros(5, dtype=torch.int32, device="meta"),
                     torch.zeros((2, 16, 256), device="meta"), True, False)
     soa = ph.build_hier_soa(_geometry_np(600, 0), np.arange(600))
-    with pytest.raises(NotImplementedError, match="instancing"):
+    # instanced packs are ported; they need their binned tables
+    with pytest.raises(ValueError, match="binned tables"):
         bt.trace_binned(None, soa._replace(instanced=True), torch.zeros((4, 3)),
                         torch.ones((4, 3)), float("inf"), torch.full((4,), -1))
 

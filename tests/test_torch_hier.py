@@ -229,7 +229,8 @@ def test_wrapper_rejects_bad_inputs():
         ph.hier_occlude(rays.double(), ig, soa)
     with pytest.raises(ValueError, match="stack"):
         ph.hier_trace(rays, ig, soa._replace(stack_size=ph.MAX_STACK + 1))
-    with pytest.raises(NotImplementedError, match="instancing"):
+    # instanced tables are ported; they need each ignore's instance
+    with pytest.raises(ValueError, match="ign_inst"):
         ph.hier_occlude(rays, ig, soa._replace(instanced=True))
 
 
@@ -329,7 +330,7 @@ def test_slice_matches_jax(grid_pair, monkeypatch):
     jscene, _ = grid_pair
     monkeypatch.setattr(jscene_ops, "_use_hier", lambda scene: True)
     monkeypatch.setattr(jscene_ops, "_use_binned", lambda scene: False)
-    tscene = from_jax_arrays(flatten_jax(jscene))
+    tscene = from_jax_arrays(flatten_jax(jscene), device="cpu")
     n, res = 256, (16, 16)
     pid = np.arange(n, dtype=np.uint32)
     pxy = np.stack([pid % res[0], pid // res[0]], -1).astype(np.int32)

@@ -54,7 +54,7 @@ def same_intersector(monkeypatch):
 @pytest.mark.parametrize("name", ["cornell_box", "sphere_field"])
 def test_wavefront_matches_jax(same_intersector, name):
     jscene = jprepare(getattr(jscenes, name)())
-    tscene = from_jax_arrays(flatten_jax(jscene))
+    tscene = from_jax_arrays(flatten_jax(jscene), device="cpu")
     n, res = 1024, (32, 32)
     pid = np.arange(n, dtype=np.uint32)
     pxy = np.stack([pid % res[0], pid // res[0]], -1).astype(np.int32)

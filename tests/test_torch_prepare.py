@@ -134,8 +134,11 @@ def test_large_scene_raises():
 
 
 def test_tlas_instancing_raises_and_small_auto_bakes():
-    # 4 instances of a two-sphere pack: "auto" bakes it like the JAX package
+    # 4 instances of a two-sphere pack: "auto" bakes it like the JAX package;
+    # "tlas" no longer raises: it keeps one pack-space copy and a TLAS
+    # (tests/test_torch_instancing.py holds its tables to the JAX package's)
     baked = tprepare(tscenes.instanced_grid(side=2), device="cpu")
-    assert baked.geometry.num_spheres == 8
-    with pytest.raises(NotImplementedError, match="instancing"):
-        tprepare(tscenes.instanced_grid(side=2), instancing="tlas", device="cpu")
+    assert baked.geometry.num_spheres == 8 and baked.instances is None
+    tlas = tprepare(tscenes.instanced_grid(side=2), instancing="tlas", device="cpu")
+    assert tlas.geometry.num_spheres == 2 and tlas.instances.num_instances == 5
+    assert tlas.prim_soa is None and tlas.hier_soa.instanced

@@ -6,6 +6,7 @@ on one NVIDIA GPU under torch.profiler.
     python3 tools/torch_profile.py --count 2400 --res 320x180 --spp 8
     python3 tools/torch_profile.py --spp 8 --wavefront   # the wavefront's frame
     python3 tools/torch_profile.py --tris 1000000 --res 1920x1080 --spp 1 --bounce 6
+    python3 tools/torch_profile.py --instanced --res 1920x1080 --spp 1 --bounce 6
 
 The scene is sphere_field(count) (bench.py's scene at the default 80),
 rendered through `render_layer` for one epoch of `spp` samples at bounce
@@ -15,7 +16,10 @@ render that asks for the wavefront's stats runs it. With `--tris N` the
 scene is sphere_grid(N) instead (bench.py's large scene at 1,000,000), and
 an epoch is one program of `_sample_frame`, as bench.py times it (the
 wavefront; from 65,536 padded prims on its first wave takes the chunk-tree
-walk and every later wave the binned traversal).
+walk and every later wave the binned traversal). With `--instanced` the
+scene is instanced_sphere_grids() prepared with instancing="tlas" (4
+placements of a 123,008-triangle pack: the instanced walk, then the
+instanced binned traversal), an epoch one program as with `--tris`.
 Prints the card's name and power limit, the wall time of two unprofiled
 epochs after a warm-up, then for one profiled epoch: its wall time, the
 device's busy time (sum of kernel and copy times) and idle share, device
@@ -43,6 +47,8 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--wavefront", action="store_true")
     ap.add_argument("--tris", type=int, default=0, help="profile sphere_grid(TRIS) instead")
+    ap.add_argument("--instanced", action="store_true",
+                    help="profile the TLAS scene instanced_sphere_grids() instead")
     a = ap.parse_args()
 
     import torch
@@ -61,10 +67,15 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     res = tuple(int(v) for v in a.res.split("x"))
-    name = f"sphere_grid({a.tris})" if a.tris else f"sphere_field({a.count})"
+    program = a.tris or a.instanced  # an epoch is one bench.py program
+    if a.instanced:
+        name, make, mode = "instanced_sphere_grids (TLAS)", scenes.instanced_sphere_grids, "tlas"
+    elif a.tris:
+        name, make, mode = f"sphere_grid({a.tris})", lambda: scenes.sphere_grid(a.tris), "auto"
+    else:
+        name, make, mode = f"sphere_field({a.count})", lambda: scenes.sphere_field(a.count), "auto"
     t0 = time.perf_counter()
-    scene = prepare_scene(scenes.sphere_grid(a.tris) if a.tris else scenes.sphere_field(a.count),
-                          device="cuda")
+    scene = prepare_scene(make(), instancing=mode, device="cuda")
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     prof = EvaluationProfile(samples_per_epoch=a.spp, max_epoch=1, bounce_limit=a.bounce,
@@ -73,7 +84,7 @@ def main() -> int:
     dispatch = info["dispatch"]
 
     def epoch():
-        if a.tris:  # one bench.py program
+        if program:  # one bench.py program
             _sample_frame(scene, "path", res, 0, 1, a.spp, a.bounce, 2.5)
         elif a.wavefront:
             _sample_frame(scene, "path", res, 0, 0, a.spp, a.bounce, 2.5, return_stats=True)
@@ -150,7 +161,7 @@ def main() -> int:
         return sorted(times)[2]
 
     image = torch.zeros((res[1], res[0], 3), device="cuda")
-    tables = "" if a.tris else (
+    tables = "" if program else (
         f", megakernel tables {host_ms(lambda: megakernel._build_tables(scene)):.3f}")
     print(f"[profile] host pieces (ms, median of 5): lane_order at {res[0] * res[1]} keys "
           f"{host_ms(lambda: lane_order(res)):.3f}{tables}"
