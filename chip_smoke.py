@@ -7,7 +7,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions. No CUDA device: exit 1.
   2. build: nvcc builds every csrc/*.cu for sm_90a, all at once; ptxas
-     registers, spills and shared memory per kernel.
+     registers, spills and shared memory per kernel, and the megakernel's
+     two forms (untextured and textured) by name.
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, on the same inputs:
      - dense_trace / dense_occlude on every call the wavefront path makes
@@ -21,6 +22,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        against the wavefront: per-pixel sums to atol/rtol 2e-3 and sums of
        squares to atol 4e-2 / rtol 2e-3 on at least 99.99% of pixels, mean
        image to 1e-4 per channel; k_slots 1 and 4 bitwise equal;
+     - the megakernel's textured form the same way on the showcase
+       (scenes/showcase.echo, transcribed in `showcase_scene`), on
+       tests/test_megakernel.py's cloud-and-gradient scene and sphere-texture
+       scene and on a normal-map and roughness-ramp scene at 320x180, 8 spp,
+       bounce 16, and on the main path's showcase launch (960x540, 64 spp);
+       the showcase with a fifth texture must stay outside the envelope
+       ("more than 4 textures") and render through the wavefront;
      - hier_trace / hier_occlude (the chunk-tree walk) on 2^20 random rays
        against sphere_grid(1_000_000) (bench.py's large scene) and on every
        coherent call (the first wave) of the slice's first timed program
@@ -56,9 +64,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
   5. slice: the main path, counters zeroed first: entry() (Cornell box,
      128x128, 8 spp) and the bench scene sphere_field(80) at 960x540,
      64 spp, bounce 16, through render_layer (the megakernel path: Mspps,
+     peak memory); the showcase, counters zeroed again, at the same traffic
+     through the textured megakernel (Mspps beside the bench's, epoch wall,
      peak memory); then the wavefront path, counters zeroed again:
      sphere_field(2400) (outside the megakernel's envelope) at 320x180,
-     8 spp through render_layer; then the large-scene path, counters zeroed
+     8 spp through render_layer; hdr_environment() (an env map, 5 prims: the
+     plain linear intersector, as in the JAX package) at 960x540, 16 spp,
+     and its sky over sphere_field(80) at 320x180, 8 spp (the dense
+     kernels), both through the wavefront: Mspps, mean luminance, launches;
+     then the large-scene path, counters zeroed
      again: bench.py's large configuration, sphere_grid(1_000_000) at
      1920x1080, 1 spp, bounce 6, survivability 2.5, through _sample_frame:
      a warm-up program, then 8 timed programs (sample_start 1..8): Mspps,
@@ -70,7 +84,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      line reports the dense kernels' ms and bound per launch of the
      wavefront path, the megakernel's for the bench launch, the hier
      kernels' per call of the large-scene program, and the binned kernels'
-     per launch of its binned calls.
+     per launch of its binned calls, and megakernel_textured the textured
+     form's for the showcase launch.
   6. instanced: TLAS instancing, counters zeroed again:
      instanced_sphere_grids() (4 placements of a 123,008-triangle pack,
      ~2,000 global chunks, a ground plane, an ambient light) prepared with
@@ -127,6 +142,7 @@ MEGA_SOURCE = "echorenderer_tpu_torch/csrc/megakernel.cu"
 TRACE_SITE = "echorenderer_tpu/ops/pallas_intersect.py:322"
 OCCLUDE_SITE = "echorenderer_tpu/ops/pallas_intersect.py:400"
 MEGA_SITE = "echorenderer_tpu/ops/megakernel.py:1101"
+MEGA_TEX_SITE = "echorenderer_tpu/ops/megakernel.py:1295"  # _mega_kernel's texture stage
 HIER_SOURCE = "echorenderer_tpu_torch/csrc/hier_walk.cu"
 HIER_SITE = "echorenderer_tpu/ops/pallas_hier.py:498"
 BINNED_SOURCE = "echorenderer_tpu_torch/csrc/binned.cu"
@@ -152,6 +168,92 @@ def log(*args):
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+def showcase_scene(fifth_texture: bool = False):
+    """scenes/showcase.echo built with the port's classes (the port has no
+    .echo loader yet), every value copied from the file; the comments give
+    its lines. Colors as the loader parses them: rgb(...) is 0-255 sRGB,
+    decoded to linear; hdr(...) is linear. A Pure(...) albedo stays a
+    texture, so the atlas holds 4 slices: the cloud, the gradient and the
+    two Pure colors. `fifth_texture` adds a cloud-textured fifth sphere: 5
+    slices, outside the megakernel's envelope."""
+    import numpy as np
+
+    from echorenderer_tpu_torch.scene import (AmbientLight, BoxEntity, CoatedDiffuse, Conductor,
+                                              Dielectric, Diffuse, Emissive, PerspectiveCamera,
+                                              PlaneEntity, Scene, SphereEntity)
+    from echorenderer_tpu_torch.textures import CloudTexture, GradientTexture, Pure
+
+    def rgb(*c):
+        v = np.asarray(c, np.float64) / 255.0
+        lin = np.where(v <= 0.04045, v / 12.92, ((v + 0.055) / 1.055) ** 2.4)
+        return tuple(lin.astype(np.float32))
+
+    scene = Scene()  # :2
+    ground = Diffuse(albedo=CloudTexture(scale=6.0, seed=3))  # :4
+    scene.add(PlaneEntity(material=ground, size=(24.0, 24.0)))  # :6
+    scene.add(SphereEntity(  # :8-12
+        material=Conductor(albedo=rgb(244, 180, 90), edge=rgb(255, 255, 255), roughness=0.12),
+        radius=1.0, position=(-2.4, 1, 0)))
+    scene.add(SphereEntity(material=Dielectric(refractive_index=1.5),  # :13-17
+                           radius=1.0, position=(0, 1, 0)))
+    scene.add(SphereEntity(  # :18-22
+        material=CoatedDiffuse(albedo=Pure((0.55, 0.12, 0.1)), refractive_index=1.5),
+        radius=1.0, position=(2.4, 1, 0)))
+    scene.add(BoxEntity(  # :23-27
+        material=Diffuse(albedo=GradientTexture(start=(0.1, 0.2, 0.7), end=(0.9, 0.85, 0.3),
+                                                axis=1)),
+        size=(1.2, 2.4, 1.2), position=(0, 1.2, 2.8), rotation=(0, 30, 0)))
+    scene.add(PlaneEntity(material=Emissive(albedo=Pure((14.0, 13.0, 11.0))),  # :29-33
+                          size=(3.0, 3.0), position=(0, 7, 0), rotation=(180, 0, 0)))
+    scene.add(AmbientLight(intensity=(0.12, 0.14, 0.2)))  # :34
+    scene.add(PerspectiveCamera(name="main", field_of_view=42.0,  # :36
+                                position=(0, 2.6, -8), rotation=(12, 0, 0)))
+    if fifth_texture:
+        scene.add(SphereEntity(material=Diffuse(albedo=CloudTexture(scale=3.0, seed=9)),
+                               radius=0.5, position=(-1.2, 0.5, -1.5)))
+    return scene
+
+
+def texture_scene(name: str):
+    """A textured scene of tests/test_torch_textures.py, built with the port's
+    classes: "textured" (tests/test_megakernel.py's cloud plane and gradient
+    box), "sphere_texture" (its gradient-textured sphere), "rough_normal"
+    (a normal map and tests/test_rough_texture.py's roughness ramp)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import test_torch_textures
+
+    return test_torch_textures.SCENES[name]("torch")
+
+
+def hdr_sky_over_spheres():
+    """sphere_field(80) under hdr_environment()'s sky as a second ambient
+    light: an env map (the mixture branch) on the dense kernels' path."""
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.scene import AmbientLight
+
+    sky = next(e for e in scenes.hdr_environment().children
+               if getattr(e, "texture", None) is not None)
+    scene = scenes.sphere_field(80)
+    scene.add(AmbientLight(intensity=(0.5, 0.5, 0.5), texture=sky.texture))
+    return scene
+
+
+def ptxas_forms(ptxas: str, kernel: str) -> dict:
+    """{entry name: "N registers, S bytes spill stores, L bytes spill
+    loads"} for every compiled form of `kernel` in an -Xptxas -v report."""
+    forms, entry, spill = {}, None, ""
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if kernel in name else None
+        elif entry and "spill stores" in line:
+            spill = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            forms[entry] = f"{regs} registers, {spill}"
+    return forms
 
 
 def run_ms(fn, runs: int = 10, warm: bool = True) -> list[float]:
@@ -1047,7 +1149,7 @@ def zero_launch_counts():
     from echorenderer_tpu_torch.ops import pallas_hier as ph
     from echorenderer_tpu_torch.ops import pallas_intersect as pi
 
-    mk.sample_frame_mega.launches = 0
+    mk.sample_frame_mega.launches = mk.sample_frame_mega.launches_textured = 0
     pi.dense_trace.launches = pi.dense_occlude.launches = 0
     for fn in (ph.hier_trace, ph.hier_occlude):
         fn.launches = fn.launches_instanced = 0
@@ -1065,7 +1167,8 @@ def launch_counts() -> dict:
                 hier_occlude_inst=ph.hier_occlude.launches_instanced,
                 setup=bt.LAUNCHES["setup"], select=bt.LAUNCHES["select"], seg=bt.LAUNCHES["seg"],
                 seg_inst=bt.LAUNCHES_INSTANCED["seg"], dense_trace=pi.dense_trace.launches,
-                dense_occlude=pi.dense_occlude.launches, mega=mk.sample_frame_mega.launches)
+                dense_occlude=pi.dense_occlude.launches, mega=mk.sample_frame_mega.launches,
+                mega_textured=mk.sample_frame_mega.launches_textured)
 
 
 INSTANCED_PATH = ("hier_trace_inst", "hier_occlude_inst", "setup", "select", "seg_inst")
@@ -1407,6 +1510,12 @@ def main() -> int:
         for line in built.ptxas.splitlines():
             if any(w in line for w in ("registers", "Compiling entry", "spill", "warning")):
                 log(f"[build]   {line.strip()}")
+    forms = ptxas_forms(builds["megakernel"].ptxas, "mega_kernel")
+    for name, report in forms.items():
+        form = "textured" if "ILb1E" in name else "untextured"
+        log(f"[build] megakernel {form} form ({name}): {report}")
+    if len(forms) != 2:
+        return fail(f"expected the megakernel's two forms in the ptxas report, got {forms}")
     pi._load()
     mk._load()
     ph._load()
@@ -1456,11 +1565,11 @@ def main() -> int:
     for label, scene, res in mega_cases:
         if not mk.supported(scene):
             return fail(f"{label} lies outside the megakernel's envelope")
-        err, _, _ = compare_mega(label, scene, res, 8, 16, dev, plain_runs=2)
+        err, _, _ = compare_mega(label, scene, res, 8, 16, dev, plain_runs=1)
         mega_err = max(mega_err, err)
     # the launch of the main path's bench render stands for the kernel
     err, mega_ms, mega_bound = compare_mega("sphere_field(80) 960x540", bench, (960, 540), 64,
-                                            16, dev, plain_runs=2)
+                                            16, dev, plain_runs=1)
     mega_err = max(mega_err, err)
     many = mega_cases[3][1]
     if many.lights.tree is None:
@@ -1473,6 +1582,47 @@ def main() -> int:
         f"{'bitwise equal' if same else 'DIFFERENT'}")
     if not same:
         return fail("megakernel sums depend on k_slots")
+
+    # --- kernel phase: the megakernel's textured form against the wavefront ---
+    showcase = prepare_scene(showcase_scene(), device=dev)
+    tex_cases = [
+        ("showcase 320x180", showcase, (320, 180)),
+        ("textured (cloud, gradient) 320x180",
+         prepare_scene(texture_scene("textured"), device=dev), (320, 180)),
+        ("sphere texture 320x180", prepare_scene(texture_scene("sphere_texture"), device=dev),
+         (320, 180)),
+        ("normal map + roughness ramp 320x180",
+         prepare_scene(texture_scene("rough_normal"), device=dev), (320, 180)),
+    ]
+    tex_err = 0.0
+    for label, scene, res in tex_cases:
+        flags = scene.materials.tex_flags
+        log(f"[kernels] {label}: {scene.tex_atlas.shape[0]} atlas textures, flags (albedo, "
+            f"normal map, roughness) {flags}, {scene.prim_soa.padded} padded prims")
+        if not mk.supported(scene) or scene.tex_atlas.shape[0] == 0:
+            return fail(f"{label} is not a textured scene inside the megakernel's envelope")
+        err, _, _ = compare_mega(label, scene, res, 8, 16, dev, plain_runs=1)
+        tex_err = max(tex_err, err)
+    if not tex_cases[3][1].materials.tex_flags[1:] == (True, True):
+        return fail("the normal-map scene does not run the normal-map and roughness stages")
+    # the launch of the main path's showcase render stands for the textured form
+    err, tex_ms, tex_bound = compare_mega("showcase 960x540", showcase, (960, 540), 64, 16, dev,
+                                          plain_runs=1)
+    tex_err = max(tex_err, err)
+    five = prepare_scene(showcase_scene(fifth_texture=True), device=dev)
+    reason = mk.unsupported_reason(five)
+    zero_launch_counts()
+    five_img, five_info = render_layer(five, prof8, (320, 180))
+    five_mega = mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured
+    log(f"[kernels] showcase + a fifth texture: {five.tex_atlas.shape[0]} atlas textures, "
+        f"unsupported_reason {reason!r}; render_layer 320x180 8 spp via "
+        f"{five_info['dispatch']['integrator']} ({five_info['dispatch']['integrator_reason']}), "
+        f"megakernel launches {five_mega}")
+    if (reason != f"more than {mk.MEGA_TEX_LIMIT} textures (one-hot fetch cost)"
+            or five_info["dispatch"]["integrator"] != "wavefront"
+            or five_mega or not np.isfinite(five_img).all()):
+        return fail("the 5-texture scene did not stay outside the megakernel")
+    del five, five_img
 
     # --- golden phase ---
     golden_phase(dev)
@@ -1559,6 +1709,28 @@ def main() -> int:
     if mega_launches < 1 or max(dense_on_mega) != 0:
         return fail("the bench render did not run on the megakernel alone")
 
+    # --- slice phase: the showcase through the textured megakernel ---
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    image, info = render_layer(showcase, prof, (960, 540))
+    tex_launches = mk.sample_frame_mega.launches_textured
+    dense_on_tex = (pi.dense_trace.launches, pi.dense_occlude.launches,
+                    mk.sample_frame_mega.launches)
+    show_lum = float(luminance(torch.as_tensor(image)).mean())
+    show_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    show_mspps = info["samples_per_second"] / 1e6
+    log(f"[slice] showcase (scenes/showcase.echo, 4 atlas textures) 960x540 64 spp bounce 16 via "
+        f"render_layer ({info['dispatch']['integrator']}: "
+        f"{info['dispatch']['integrator_reason']}): {info['samples']} samples, epoch wall "
+        f"{info['seconds']:.3f} s = {show_mspps:.3f} Mspps (sphere_field(80), the same traffic, "
+        f"in this call: {mspps:.3f} Mspps), peak memory {show_gib:.2f} GiB, mean luminance "
+        f"{show_lum:.4f}; launches megakernel textured {tex_launches}, untextured "
+        f"{dense_on_tex[2]}, dense trace/occlude {dense_on_tex[0]}/{dense_on_tex[1]} | {smi}")
+    if info["dispatch"]["integrator"] != "megakernel" or tex_launches < 1 or max(dense_on_tex):
+        return fail("the showcase did not run on the megakernel's textured form alone")
+    if image.shape != (540, 960, 3) or not np.isfinite(image).all() or not 0.01 < show_lum < 10:
+        return fail(f"showcase render non-finite or mean luminance {show_lum} out of (0.01, 10)")
+
     # --- slice phase: the wavefront path (outside the envelope) ---
     mk.sample_frame_mega.launches = 0
     pi.dense_trace.launches = 0
@@ -1572,6 +1744,42 @@ def main() -> int:
         f"megakernel {mk.sample_frame_mega.launches}")
     if not np.isfinite(image).all() or min(dense.values()) <= 0 or mk.sample_frame_mega.launches:
         return fail("the wavefront path did not run on the dense kernels")
+
+    # --- slice phase: an env map, through the wavefront ---
+    hdr = prepare_scene(scenes.hdr_environment(), device=dev)
+    prof16 = EvaluationProfile(samples_per_epoch=16, max_epoch=1, bounce_limit=16,
+                               survivability=2.5, adaptive=False)
+    zero_launch_counts()
+    image, info = render_layer(hdr, prof16, (960, 540))
+    hdr_mega = mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured
+    hdr_lum = float(luminance(torch.as_tensor(image)).mean())
+    log(f"[slice] hdr_environment (256x128 procedural sky, {hdr.geometry.num_primitives} prims) "
+        f"960x540 16 spp bounce 16 via render_layer ({info['dispatch']['integrator']}: "
+        f"{info['dispatch']['integrator_reason']}; rays: {info['dispatch']['accelerator']}, "
+        f"{info['dispatch']['accelerator_reason']}): {info['samples_per_second'] / 1e6:.3f} "
+        f"Mspps, epoch wall {info['seconds']:.3f} s, {info['wavefront_iterations']} wavefront "
+        f"iterations, mean luminance {hdr_lum:.4f}; launches {launch_counts()} | {smi}")
+    if info["dispatch"]["integrator"] != "wavefront" or hdr_mega:
+        return fail("hdr_environment did not take the wavefront")
+    if image.shape != (540, 960, 3) or not np.isfinite(image).all() or not 0.01 < hdr_lum < 10:
+        return fail(f"hdr_environment render non-finite or mean luminance {hdr_lum} out of "
+                    f"(0.01, 10)")
+    # the same sky over sphere_field(80): an env map on the dense kernels' path
+    sky = prepare_scene(hdr_sky_over_spheres(), device=dev)
+    zero_launch_counts()
+    image, info = render_layer(sky, prof8, (320, 180))
+    sky_lum = float(luminance(torch.as_tensor(image)).mean())
+    dense_sky = (pi.dense_trace.launches, pi.dense_occlude.launches)
+    sky_mega = mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured
+    log(f"[slice] sphere_field(80) under the same sky ({len(sky.env_maps)} env map, "
+        f"{int((sky.lights.kind == 2).sum())} ambient records) 320x180 8 spp via "
+        f"{info['dispatch']['integrator']} ({info['dispatch']['integrator_reason']}): "
+        f"{info['samples_per_second'] / 1e6:.3f} Mspps, mean luminance {sky_lum:.4f}; launches "
+        f"dense trace/occlude {dense_sky[0]}/{dense_sky[1]}, megakernel {sky_mega}")
+    if (min(dense_sky) <= 0 or sky_mega or not np.isfinite(image).all()
+            or not 0.01 < sky_lum < 10):
+        return fail("the env map over sphere_field(80) did not render on the dense kernels")
+    del hdr, sky
 
     # --- slice phase: bench.py's large scene, the first wave on the walk and
     # every later wave through the binned traversal ---
@@ -1587,7 +1795,8 @@ def main() -> int:
     seconds, warm_s, first, s_sum = timed_programs(program)
     hier = dict(trace=ph.hier_trace.launches, occlude=ph.hier_occlude.launches)
     binned = dict(bt.LAUNCHES)
-    others = (pi.dense_trace.launches, pi.dense_occlude.launches, mk.sample_frame_mega.launches)
+    others = (pi.dense_trace.launches, pi.dense_occlude.launches,
+              mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured)
     slice_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     rounds, syncs, calls = bt.STATS["rounds"], bt.STATS["syncs"], bt.STATS["calls"]
     misses = int(bt.STATS["misses"])
@@ -1659,6 +1868,10 @@ def main() -> int:
              launches=mega_launches, max_abs_err=mega_err, ms=mega_ms["ms"],
              plain_ms=mega_ms["plain_ms"], bound_ms=mega_bound[0], bound_by=mega_bound[1],
              library_ms=None),
+        dict(name="megakernel_textured", route="cuda", source=MEGA_SOURCE,
+             replaces=MEGA_TEX_SITE, launches=tex_launches, max_abs_err=tex_err,
+             ms=tex_ms["ms"], plain_ms=tex_ms["plain_ms"], bound_ms=tex_bound[0],
+             bound_by=tex_bound[1], library_ms=None),
     ] + [
         dict(name=f"hier_{k}", route="cuda", source=HIER_SOURCE, replaces=HIER_SITE,
              launches=hier[k], max_abs_err=max(err_h[k], err_r[k]), ms=ms_h[k],

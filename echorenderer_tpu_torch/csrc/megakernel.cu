@@ -8,8 +8,14 @@
 // (camera spawn with thin lens, closest hit, surface interaction, emission
 // with MIS, constant ambient on a miss, BSDF sample, a flat power-CDF or
 // light-tree light pick, NEE with a shadow ray and MIS, Russian roulette)
-// summed into (sum, sum of squares). The texture stage of the TPU kernel is
-// not here: the port prepares no textured scene yet.
+// summed into (sum, sum of squares). Textured scenes (at most 4 atlas
+// textures) take the kernel's textured form, `mega_kernel<true>`: the TPU
+// kernel's texture stage (megakernel.py:1295-1353), which gives each hit a
+// uv (barycentric for a triangle, equirectangular for a sphere) and
+// overrides the albedo, perturbs the shading normal (normal map) and
+// overrides the roughness from repeat-wrapped bilinear samples of the
+// atlas, in scene_ops._sample_atlas's arithmetic. The untextured form
+// compiles none of it and keeps its registers.
 //
 // What bounds it on the H100: float work. Every traced and shadow ray tests
 // every prim of the scene (about 45 flops a triangle, 21 a sphere), and
@@ -32,6 +38,11 @@
 //     load replaces the TPU's one-hot matrix lookup, and is just as exact;
 //   - the sample streams run in native 32-bit words (the counter-hash RNG
 //     of utils/rng.py, bit for bit);
+//   - a texel is an indexed __ldg of the (A, R, R, 4) f32 atlas (bf16
+//     values): four per bilinear sample. The TPU fetched them through
+//     one-hot matrix products over the whole texel table, and hardware
+//     texture filtering would round its weights to 8 bits: neither is
+//     needed or exact here;
 //   - float ops run in the order of the plain PyTorch code (path_step,
 //     bsdf.py, scene_ops.py, light_tree.py, utils/vec.py), built with
 //     -fmad=false, IEEE division/sqrt and the libdevice sinf/cosf/rsqrtf
@@ -66,6 +77,7 @@ constexpr float kOrenNayarK = (float)(kPiD / 2.0 - 2.0 / 3.0);
 constexpr float kBelowOne = (float)(1.0 - 1e-7);
 constexpr float kShadowScale = (float)(1.0 - 1e-3);
 constexpr float kAlphaThreshold = 1e-4f;
+constexpr float kThird = (float)(1.0 / 3.0);
 
 // material types (scene/materials.py) and light kinds (scene/prepare.py)
 constexpr int INVISIBLE = 0, DIFFUSE = 1, DIELECTRIC = 2, CONDUCTOR = 3, EMISSIVE = 4,
@@ -76,8 +88,10 @@ constexpr uint32_t CAMERA_DIMS = 2, BOUNCE_DIM_STRIDE = 8;
 constexpr uint32_t DIM_BSDF = 0, DIM_LOBE = 1, DIM_LIGHT_PICK = 2, DIM_LIGHT_SAMPLE = 3,
                    DIM_RR = 4;
 // table row widths (ops/megakernel.py): shade rows, material rows, light
-// records, emitters, light-tree nodes, tree lights
+// records, emitters, light-tree nodes, tree lights; a textured scene's shade
+// rows add uv0 uv1 uv2 (17:23), its material rows the texture ids (12:16)
 constexpr int SP = 17, MT = 12, LT = 13, EP = 18, TR = 24, TL = 3;
+constexpr int SP_TEX = SP + 6, MT_TEX = MT + 4;
 // camera/scalar row
 constexpr int C_POS = 0, C_ROT = 3, C_FL = 12, C_LENS = 13, C_FOCAL = 14, C_AMB_ALL = 16,
               C_AMB_CAM = 19, C_AMB_PMF = 22, C_TOTAL_POWER = 23, C_P_INF = 24,
@@ -85,8 +99,8 @@ constexpr int C_POS = 0, C_ROT = 3, C_FL = 12, C_LENS = 13, C_FOCAL = 14, C_AMB_
 
 struct Params {
   const float* prims;  // (10, padded) sorted prim rows
-  const float* sp;     // (padded, SP)
-  const float* mat;    // (m_pad, MT)
+  const float* sp;     // (padded, SP or SP_TEX)
+  const float* mat;    // (m_pad, MT or MT_TEX)
   const float* light;  // (l_pad, LT)
   const float* epack;  // (e_pad, EP)
   const float* tree;   // (t_pad, TR) or null
@@ -97,9 +111,11 @@ struct Params {
   const int* s0;       // (n,) first sample index (32-bit words)
   float* s_sum;        // (n, 3)
   float* s_sq;         // (n, 3)
+  const float* atlas;  // (n_tex, tex_res, tex_res, 4) or null
   int n, n_lanes, k_slots, count, bounce_limit, width, height;
   uint32_t seed;
   int padded, has_tri, has_sph, present, n_lights, n_emissive, tree_depth;
+  int n_tex, tex_res, has_ntex, has_rtex;
   float survivability;
 };
 
@@ -113,6 +129,7 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return hi_clamp(lo_clamp(x, lo), hi);
 }
 __device__ __forceinline__ float pmax(float a, float b) { return (a > b || a != a) ? a : b; }
+__device__ __forceinline__ float pmin(float a, float b) { return (a < b || a != a) ? a : b; }
 __device__ __forceinline__ float signf(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
@@ -160,6 +177,84 @@ __device__ __forceinline__ float power_heuristic(float pdf0, float pdf1) {
 __device__ __forceinline__ V3 offset_origin(V3 point, V3 geo_n, V3 dir) {
   float side = signf(dot(geo_n, dir));
   return point + (geo_n * side) * 1e-4f;
+}
+
+// vec.orthonormal_frame (Duff et al. 2017) around a unit normal
+__device__ __forceinline__ void frame(V3 n, V3& tangent, V3& bitangent) {
+  const float sign = n.z >= 0.0f ? 1.0f : -1.0f;
+  const float fa = -1.0f / (sign + n.z);
+  const float fb = n.x * n.y * fa;
+  tangent = mk(1.0f + sign * (n.x * n.x) * fa, sign * fb, -sign * n.x);
+  bitangent = mk(fb, sign + (n.y * n.y) * fa, -n.y);
+}
+
+// ---------------------------------------------------------------------------
+// the texture stage (scene_ops.interact's, ops/intersect.sphere_uv's)
+// ---------------------------------------------------------------------------
+
+// ops/intersect.poly_atan2: octant reduction and an odd minimax polynomial
+// in Horner form; constants are the Python doubles rounded to float, as a
+// tensor op rounds its Python scalar
+__device__ __forceinline__ float poly_atan2(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float hi = pmax(ax, ay);
+  const float t = pmin(ax, ay) / lo_clamp(hi, (float)1e-30);
+  const float z = t * t;
+  float acc = z * (float)-0.01172120;
+  acc = z * (acc + (float)0.05265332);
+  acc = z * (acc + (float)-0.11643287);
+  acc = z * (acc + (float)0.19354346);
+  acc = z * (acc + (float)-0.33262347);
+  float r = t * (acc + (float)0.99997726);
+  if (ay > ax) r = kPiOver2 - r;
+  if (x < 0.0f) r = kPi - r;
+  return y < 0.0f ? -r : r;
+}
+
+// ops/intersect.sphere_uv of a hit at `point` on the sphere (center, radius)
+__device__ __forceinline__ void sphere_uv(V3 point, V3 center, float radius, float& u,
+                                          float& v) {
+  const V3 lp = (point - center) / lo_clamp(radius, (float)1e-20);
+  const float z = clampf(lp.y, -1.0f, 1.0f);
+  const float theta = poly_atan2(sqrtf(lo_clamp(1.0f - z * z, 0.0f)), z);
+  const float phi = poly_atan2(lp.x, lp.z);
+  u = phi * kInvTau + 0.5f;
+  v = 1.0f - theta * kInvPi;
+}
+
+// torch.remainder(a, 1.0): fmod, then + 1 where the result is negative
+__device__ __forceinline__ float rem1(float a) {
+  float m = fmodf(a, 1.0f);
+  if (m != 0.0f && m < 0.0f) m += 1.0f;
+  return m;
+}
+
+// floor-mod into [0, r): C's % keeps the sign of a negative index
+__device__ __forceinline__ int wrap(int i, int r) { return ((i % r) + r) % r; }
+
+// scene_ops._sample_atlas: repeat-wrapped bilinear RGB of texture `tid`
+__device__ V3 tex_sample(const Params& p, int tid, float su, float sv) {
+  const int r = p.tex_res;
+  tid = tid < 0 ? 0 : (tid > p.n_tex - 1 ? p.n_tex - 1 : tid);
+  const float u = rem1(su) * (float)r - 0.5f;
+  const float v = rem1(sv) * (float)r - 0.5f;
+  const int u0 = (int)floorf(u), v0 = (int)floorf(v);
+  const float fu = u - (float)u0, fv = v - (float)v0;
+  const int u0w = wrap(u0, r), u1w = wrap(u0 + 1, r);
+  const int v0w = wrap(v0, r), v1w = wrap(v0 + 1, r);
+  const float* slice = p.atlas + (size_t)tid * r * r * 4;
+  const float* t00 = slice + ((size_t)v0w * r + u0w) * 4;
+  const float* t01 = slice + ((size_t)v0w * r + u1w) * 4;
+  const float* t10 = slice + ((size_t)v1w * r + u0w) * 4;
+  const float* t11 = slice + ((size_t)v1w * r + u1w) * 4;
+  const float gu = 1.0f - fu, gv = 1.0f - fv;
+  float out[3];
+  for (int c = 0; c < 3; ++c) {
+    const float top = ldg(t00 + c) * gu + ldg(t01 + c) * fu;
+    const float bot = ldg(t10 + c) * gu + ldg(t11 + c) * fu;
+    out[c] = top * gv + bot * fv;
+  }
+  return mk(out[0], out[1], out[2]);
 }
 
 // ---------------------------------------------------------------------------
@@ -913,7 +1008,9 @@ __device__ void spawn(const Params& p, const float* cam, const Pixel& q, uint32_
   d = d / lo_clamp(sqrtf(dot(d, d)), 1e-20f);
 }
 
+template <bool TEX>
 __device__ void run_lane(const Params& p, const float* rows, int lane) {
+  constexpr int SPW = TEX ? SP_TEX : SP, MTW = TEX ? MT_TEX : MT;
   const float* cam = p.cam;
   const V3 amb_all = load3(cam + C_AMB_ALL);
   const V3 amb_cam = load3(cam + C_AMB_CAM);
@@ -955,7 +1052,7 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
       radiance = radiance + throughput * (depth == 0 ? amb_cam : amb_all * inf_w);
     } else {
       // --- interaction ---
-      const float* sr = p.sp + (size_t)hit * SP;
+      const float* sr = p.sp + (size_t)hit * SPW;
       point = o + d * hit_t;
       const float w = 1.0f - hit_u - hit_v;
       V3 geo_n = load3(sr), shade_n;
@@ -965,7 +1062,7 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
       } else {
         shade_n = normalize(load3(sr + 3) * w + load3(sr + 6) * hit_u + load3(sr + 9) * hit_v);
       }
-      const float* mr = p.mat + (size_t)(int)ldg(sr + 12) * MT;
+      const float* mr = p.mat + (size_t)(int)ldg(sr + 12) * MTW;
       Mat m;
       m.albedo = load3(mr);
       m.p0 = ldg(mr + 3);
@@ -973,6 +1070,36 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
       m.extra = load3(mr + 7);
       m.type = (int)ldg(mr + 10);
       if (has_invisible && dot(geo_n, -d) < 0.0f && ldg(mr + 11) > 0.5f) m.type = INVISIBLE;
+
+      if constexpr (TEX) {
+        // --- the texture stage: uv, then albedo, normal map, roughness ---
+        float su, sv;
+        if (ldg(sr + 14) > 0.5f) {
+          sphere_uv(point, load3(sr), ldg(sr + 3), su, sv);
+        } else {
+          su = w * ldg(sr + 17) + hit_u * ldg(sr + 19) + hit_v * ldg(sr + 21);
+          sv = w * ldg(sr + 18) + hit_u * ldg(sr + 20) + hit_v * ldg(sr + 22);
+        }
+        const int tid = (int)ldg(mr + 12);
+        if (tid >= 0) m.albedo = tex_sample(p, tid, su, sv);
+        const int ntid = p.has_ntex ? (int)ldg(mr + 13) : -1;
+        if (ntid >= 0) {
+          const V3 s = tex_sample(p, ntid, su, sv);
+          const V3 tn = mk(s.x * 2.0f - 1.0f, s.y * 2.0f - 1.0f, s.z * 2.0f - 1.0f);
+          const float inten = ldg(mr + 14);
+          const float nz = lo_clamp(tn.z, (float)0.1);
+          V3 tg, bt;
+          frame(shade_n, tg, bt);
+          shade_n = normalize(mk(tg.x * tn.x * inten + bt.x * tn.y * inten + shade_n.x * nz,
+                                 tg.y * tn.x * inten + bt.y * tn.y * inten + shade_n.y * nz,
+                                 tg.z * tn.x * inten + bt.z * tn.y * inten + shade_n.z * nz));
+        }
+        const int rtid = p.has_rtex ? (int)ldg(mr + 15) : -1;
+        if (rtid >= 0) {
+          const V3 s = tex_sample(p, rtid, su, sv);
+          m.p0 = (s.x + s.y + s.z) * kThird;
+        }
+      }
 
       // --- emission at the hit, MIS against NEE ---
       const V3 wo = -d;
@@ -998,11 +1125,8 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
       }
 
       // --- shading frame and draws ---
-      const float sign = shade_n.z >= 0.0f ? 1.0f : -1.0f;
-      const float fa = -1.0f / (sign + shade_n.z);
-      const float fb = shade_n.x * shade_n.y * fa;
-      const V3 tangent = mk(1.0f + sign * (shade_n.x * shade_n.x) * fa, sign * fb, -sign * shade_n.x);
-      const V3 bitangent = mk(fb, sign + (shade_n.y * shade_n.y) * fa, -shade_n.y);
+      V3 tangent, bitangent;
+      frame(shade_n, tangent, bitangent);
       const V3 wo_local = mk(dot(wo, tangent), dot(wo, bitangent), dot(wo, shade_n));
       const uint32_t dim = CAMERA_DIMS + BOUNCE_DIM_STRIDE * (uint32_t)depth;
       float ubx, uby, ulx, uly;
@@ -1116,20 +1240,37 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
   }
 }
 
+template <bool TEX>
 __global__ void __launch_bounds__(kBlock) mega_kernel(Params p) {
   extern __shared__ float rows[];
   const int total = 10 * p.padded;
   for (int i = threadIdx.x; i < total; i += kBlock) rows[i] = p.prims[i];
   __syncthreads();
   const int lane = blockIdx.x * kBlock + threadIdx.x;
-  if (lane < p.n_lanes) run_lane(p, rows, lane);
+  if (lane < p.n_lanes) run_lane<TEX>(p, rows, lane);
+}
+
+template <bool TEX>
+int launch(const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 10 * (size_t)p.padded;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(mega_kernel<TEX>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((p.n_lanes + kBlock - 1) / kBlock), block(kBlock);
+  mega_kernel<TEX><<<grid, block, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// ptrs: prims sp mat light epack tree tl cam pid pxy s0 s_sum s_sq
+// ptrs: prims sp mat light epack tree tl cam pid pxy s0 s_sum s_sq atlas
 // ints: n n_lanes k_slots count bounce_limit width height seed padded
-//       has_tri has_sph present n_lights n_emissive tree_depth
+//       has_tri has_sph present n_lights n_emissive tree_depth n_tex tex_res
+//       has_ntex has_rtex
+// A scene with atlas textures (n_tex > 0) runs the textured form.
 extern "C" int megakernel(void* const* ptrs, const int* ints, float survivability,
                           void* stream) {
   Params p;
@@ -1146,6 +1287,7 @@ extern "C" int megakernel(void* const* ptrs, const int* ints, float survivabilit
   p.s0 = static_cast<const int*>(ptrs[10]);
   p.s_sum = static_cast<float*>(ptrs[11]);
   p.s_sq = static_cast<float*>(ptrs[12]);
+  p.atlas = static_cast<const float*>(ptrs[13]);
   p.n = ints[0];
   p.n_lanes = ints[1];
   p.k_slots = ints[2];
@@ -1161,15 +1303,11 @@ extern "C" int megakernel(void* const* ptrs, const int* ints, float survivabilit
   p.n_lights = ints[12];
   p.n_emissive = ints[13];
   p.tree_depth = ints[14];
+  p.n_tex = ints[15];
+  p.tex_res = ints[16];
+  p.has_ntex = ints[17];
+  p.has_rtex = ints[18];
   p.survivability = survivability;
-
-  const size_t smem = sizeof(float) * 10 * (size_t)p.padded;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((p.n_lanes + kBlock - 1) / kBlock), block(kBlock);
-  mega_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p.n_tex > 0 ? launch<true>(p, s) : launch<false>(p, s);
 }

@@ -16,6 +16,12 @@ prims on (`_use_binned_instanced`) and but for the coherent population,
 the instanced binned traversal; hits carry their instance, and `interact`
 moves the pack-space shading rows into world space with the instance row
 and remaps the material through the instance's swatch.
+
+Textured materials sample the scene's atlas at the contact's uv
+(`_sample_atlas`): albedo, a tangent-space normal map and roughness. Env
+maps (textured ambient lights) add their radiance to escaped rays and are
+importance-sampled by NEE, as a power-weighted mixture when there are
+several (`eval_infinite`, `env_pdf`, `sample_light`).
 """
 
 from __future__ import annotations
@@ -155,6 +161,30 @@ def occlude(scene: PreparedScene, o, d, t_max, ignore, ignore_inst=None,
     return occlude_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
 
 
+def _sample_atlas(atlas, tid, uv):
+    """Repeat-wrapped bilinear sample of the (T, R, R, 4) atlas at texture
+    ids `tid` (clamped to >= 0 here: a -1 id must not wrap to the last
+    slice) -> linear RGB (N, 3). csrc/megakernel.cu's texture stage repeats
+    this arithmetic op for op."""
+    r = atlas.shape[1]
+    tid = torch.clamp(tid, min=0).long()
+    u = torch.remainder(uv[..., 0], 1.0) * r - 0.5
+    v = torch.remainder(uv[..., 1], 1.0) * r - 0.5
+    u0 = torch.floor(u).long()
+    v0 = torch.floor(v).long()
+    fu = (u - u0)[..., None]
+    fv = (v - v0)[..., None]
+    u0w, u1w = torch.remainder(u0, r), torch.remainder(u0 + 1, r)
+    v0w, v1w = torch.remainder(v0, r), torch.remainder(v0 + 1, r)
+    t00 = atlas[tid, v0w, u0w]
+    t01 = atlas[tid, v0w, u1w]
+    t10 = atlas[tid, v1w, u0w]
+    t11 = atlas[tid, v1w, u1w]
+    top = t00 * (1 - fu) + t01 * fu
+    bot = t10 * (1 - fu) + t11 * fu
+    return (top * (1 - fv) + bot * fv)[..., :3]
+
+
 class Contact(NamedTuple):
     """Shading contact (reference Contact.cs)."""
 
@@ -211,6 +241,29 @@ def interact(scene: PreparedScene, hit: Hit, o, d) -> Contact:
 
     m = scene.materials
     mrow = scene.mat_pack[mat_id.long()]  # (N, 16)
+    albedo = mrow[..., 0:3]
+    params = mrow[..., 3:7]
+    atlas = scene.tex_atlas
+    if atlas.shape[0]:  # textured materials: albedo, normal map, roughness
+        tid = mrow[..., 11].to(torch.int32)
+        albedo = torch.where((tid >= 0)[..., None], _sample_atlas(atlas, tid, uv_out), albedo)
+        # tangent-space normal map, scaled by the material's intensity
+        ntid = mrow[..., 13].to(torch.int32)
+        tn = _sample_atlas(atlas, ntid, uv_out) * 2.0 - 1.0
+        intensity = mrow[..., 14:15]
+        t_, b_ = vec.orthonormal_frame(shade_n)
+        perturbed = vec.normalize(
+            t_ * tn[..., 0:1] * intensity
+            + b_ * tn[..., 1:2] * intensity
+            + shade_n * torch.clamp(tn[..., 2:3], min=0.1)
+        )
+        shade_n = torch.where((ntid >= 0)[..., None], perturbed, shade_n)
+        # texture-valued roughness: the mean of the sample's RGB
+        rtid = mrow[..., 15].to(torch.int32)
+        rough = vec.component_sum(_sample_atlas(atlas, rtid, uv_out)) * (1.0 / 3.0)
+        params = torch.cat(
+            [torch.where(rtid >= 0, rough, params[..., 0])[..., None], params[..., 1:]], dim=-1
+        )
     mat_type = mrow[..., 10].to(torch.int32)
     if INVISIBLE in (m.present or ()):  # OneSided wrappers: backfaces pass through
         backface = vec.dot(geo_n, -d) < 0.0
@@ -218,8 +271,8 @@ def interact(scene: PreparedScene, hit: Hit, o, d) -> Contact:
         mat_type = torch.where(backface & one_sided, INVISIBLE, mat_type)
     material = GatheredMaterial(
         type=mat_type,
-        albedo=mrow[..., 0:3],
-        params=mrow[..., 3:7],
+        albedo=albedo,
+        params=params,
         extra=mrow[..., 7:10],
         present=m.present if m.present else GatheredMaterial._field_defaults["present"],
     )
@@ -235,15 +288,38 @@ def emission_at(scene: PreparedScene, contact: Contact, wo) -> torch.Tensor:
 
 
 def eval_infinite(scene: PreparedScene, d, directly_visible_only: bool) -> torch.Tensor:
-    """Infinite-light radiance along d: the constant ambient aggregate."""
+    """Total infinite-light radiance along d: the constant ambient aggregate
+    plus every env map, each with its own rotation, intensity and camera
+    visibility."""
     lt = scene.lights
     base = lt.ambient_camera if directly_visible_only else lt.ambient_all
-    return base.expand(d.shape)
+    out = base.expand(d.shape)
+    for e, env in enumerate(scene.env_maps):
+        rad = env.evaluate(vec.rotate(d, lt.env_rotation[e])) * lt.env_scale[e]
+        if directly_visible_only:
+            rad = rad * lt.env_camera[e]
+        out = out + rad
+    return out
 
 
 def env_pdf(scene: PreparedScene, d) -> torch.Tensor:
-    """Solid-angle pdf of ambient direction sampling (uniform sphere)."""
-    return torch.full(d.shape[:-1], 1.0 / (4.0 * math.pi), device=d.device)
+    """Solid-angle pdf of ambient-light direction sampling: the
+    power-weighted mixture over the LIGHT_AMBIENT records (each env map,
+    and the uniform constant record when present). Times the total ambient
+    pick probability it is sum_r pmf_r * pdf_r(d), the forward-MIS density
+    of the two-stage pick and sample."""
+    lt = scene.lights
+    n_env = len(scene.env_maps)
+    if n_env == 0:
+        return torch.full(d.shape[:-1], 1.0 / (4.0 * math.pi), device=d.device)
+    if n_env == 1 and lt.amb_const_power.shape[0] == 0:
+        # one env map alone: its own pdf
+        return scene.env_maps[0].pdf(vec.rotate(d, lt.env_rotation[0]))
+    total = torch.sum(lt.env_power) + torch.sum(lt.amb_const_power)
+    acc = (torch.sum(lt.amb_const_power) * (1.0 / (4.0 * math.pi))).expand(d.shape[:-1])
+    for e, env in enumerate(scene.env_maps):
+        acc = acc + lt.env_power[e] * env.pdf(vec.rotate(d, lt.env_rotation[e]))
+    return acc / torch.clamp(total, min=1e-20)
 
 
 class LightSample(NamedTuple):
@@ -347,10 +423,36 @@ def sample_light(scene: PreparedScene, record, x, u2) -> LightSample:
         wi_d = torch.zeros_like(x)
         rad_d = torch.zeros_like(x)
 
-    # constant ambient: uniform sphere directions
-    wi_a = rng_mod.uniform_sphere(u2)
-    amb_pdf = torch.full((n,), 1.0 / (4.0 * math.pi), device=dev)
-    rad_a = lt.ambient_all.expand(x.shape)
+    # ambient: the picked record (env map e or the constant aggregate)
+    # supplies the direction; the radiance is the total infinite radiance
+    # along it, and the pdf the ambient mixture density rescaled so that
+    # pick pmf * pdf = p_ambient * mixture(d) whichever record was picked:
+    # the NEE density equals the forward-hit one (amb_pmf * env_pdf), so
+    # the power-heuristic pair sums to 1 with several env maps
+    n_env = len(scene.env_maps)
+    if n_env == 1 and lt.amb_const_power.shape[0] == 0:
+        # one env map alone: its own sample and pdf
+        local_dir, amb_pdf = scene.env_maps[0].sample(u2)
+        wi_a = vec.rotate(local_dir, lt.env_rotation[0].T)  # env local -> world
+        rad_a = lt.ambient_all + scene.env_maps[0].evaluate(local_dir) * lt.env_scale[0]
+    elif n_env:
+        wi_a = torch.zeros_like(x)
+        for e, env in enumerate(scene.env_maps):
+            local_dir, _ = env.sample(u2)
+            wi_a = torch.where((index == e)[..., None],
+                               vec.rotate(local_dir, lt.env_rotation[e].T), wi_a)
+        w_amb = torch.cat([lt.env_power, lt.amb_const_power])
+        if lt.amb_const_power.shape[0]:
+            wi_a = torch.where((index >= n_env)[..., None], rng_mod.uniform_sphere(u2), wi_a)
+        # the record's share of the ambient power (index E: the constant)
+        frac = (w_amb / torch.clamp(torch.sum(w_amb), min=1e-20))[
+            torch.clamp(index, 0, w_amb.shape[0] - 1)]
+        amb_pdf = env_pdf(scene, wi_a) / torch.clamp(frac, min=1e-20)
+        rad_a = eval_infinite(scene, wi_a, False)
+    else:
+        wi_a = rng_mod.uniform_sphere(u2)
+        amb_pdf = torch.full((n,), 1.0 / (4.0 * math.pi), device=dev)
+        rad_a = lt.ambient_all.expand(x.shape)
 
     if lt.emissive_prim.shape[0]:
         ei = torch.clamp(index, 0, lt.emissive_prim.shape[0] - 1)

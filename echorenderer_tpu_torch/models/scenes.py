@@ -1,15 +1,16 @@
 """Built-in benchmark scenes, the analogue of the reference's ext/Scenes
 (.echo files): a Cornell box, a material ball, a many-lights stress scene,
 the 80-sphere field from the reference performance log
-(misc/performance.txt:4), the grid of triangulated spheres that
-bench.py's large-scene configuration renders at a million triangles, and
-four placements of one such grid (the TLAS check of
+(misc/performance.txt:4), objects under an importance-sampled sky
+(hdr_environment), the grid of triangulated spheres that bench.py's
+large-scene configuration renders at a million triangles, and four
+placements of one such grid (the TLAS check of
 benchmarks/instanced_tpu_check.py).
 
 Copied from echorenderer_tpu/models/scenes.py and, for `sphere_grid` and
 `instanced_sphere_grids`, from benchmarks/scene_throughput.py and
-benchmarks/instanced_tpu_check.py; the env-map and mesh-file scenes stay
-behind with the texture and model loaders this package does not have yet."""
+benchmarks/instanced_tpu_check.py. Reading a sky or a mesh from a file
+waits for the image and model loaders this package does not have yet."""
 
 from __future__ import annotations
 
@@ -152,6 +153,46 @@ def sphere_field(count: int = 80, seed: int = 3) -> Scene:
     scene.add(AmbientLight(intensity=(0.5, 0.6, 0.75)))
     cam = PerspectiveCamera(field_of_view=60.0, position=(0, 6, -24), lens_radius=0.0)
     cam.look_at((0, 1, 0))
+    scene.add(cam)
+    return scene
+
+
+def hdr_environment(hdr_path=None, resolution=(256, 128), sun_elevation=35.0) -> Scene:
+    """HDR-environment showcase (BASELINE config #4): glossy + diffuse +
+    glass objects under an importance-sampled equirectangular sky, a
+    procedural sun and gradient (reading an .hdr/.exr sky waits for the
+    image loaders)."""
+    from ..textures import CylindricalTexture
+
+    if hdr_path is not None:
+        raise NotImplementedError(
+            "hdr_environment(hdr_path=...) reads an image file, which is not in the "
+            "PyTorch port yet (ROADMAP.md: queue 1, scheduler and frontends: io/images.py)"
+        )
+    h, w = resolution[1], resolution[0]
+    v = (np.arange(h, dtype=np.float32) + 0.5) / h  # 0 = down, 1 = up
+    u = (np.arange(w, dtype=np.float32) + 0.5) / w
+    uu, vv = np.meshgrid(u, v)
+    horizon = np.clip((vv - 0.5) * 2.0, 0.0, 1.0)
+    sky = np.stack(
+        [0.25 + 0.25 * horizon, 0.35 + 0.35 * horizon, 0.55 + 0.45 * horizon], -1
+    ).astype(np.float32)
+    ground = vv < 0.5
+    sky[ground] = [0.18, 0.15, 0.12]
+    # sun disk
+    el = np.radians(sun_elevation)
+    sun_v = 0.5 + el / np.pi
+    d2 = ((uu - 0.72) * 2.0) ** 2 + ((vv - sun_v) * 1.0) ** 2
+    sky += np.where(d2[..., None] < 0.0006, np.asarray([900.0, 820.0, 700.0]), 0.0)
+
+    scene = Scene()
+    scene.add(PlaneEntity(size=(30, 30), material=Diffuse(albedo=(0.5, 0.5, 0.5))))
+    scene.add(SphereEntity(radius=1.0, material=Conductor(albedo=(0.95, 0.75, 0.45), roughness=0.08), position=(-2.2, 1, 0)))
+    scene.add(SphereEntity(radius=1.0, material=Dielectric(albedo=(1, 1, 1), roughness=0.0, refractive_index=1.5), position=(0, 1, 0)))
+    scene.add(SphereEntity(radius=1.0, material=Diffuse(albedo=(0.8, 0.3, 0.25)), position=(2.2, 1, 0)))
+    scene.add(AmbientLight(intensity=(1, 1, 1), texture=CylindricalTexture(sky)))
+    cam = PerspectiveCamera(field_of_view=45.0, position=(0, 2.0, -8.0))
+    cam.look_at((0, 1.0, 0))
     scene.add(cam)
     return scene
 

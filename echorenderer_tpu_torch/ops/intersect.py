@@ -69,13 +69,46 @@ def sphere_pick_root(t_near, t_far, ok, ignored, eps=RAY_EPSILON):
     return t, ok & (t > eps)
 
 
+# odd minimax polynomial of atan on [0, 1] (max error ~1e-6 rad), the JAX
+# megakernel's `_matan2` (echorenderer_tpu/ops/megakernel.py:700)
+_ATAN_COEFFS = (0.99997726, -0.33262347, 0.19354346, -0.11643287, 0.05265332, -0.01172120)
+
+
+def poly_atan2(y, x):
+    """atan2 from an octant reduction and _ATAN_COEFFS in Horner form, one
+    rounding per op. csrc/megakernel.cu repeats it op for op (-fmad=false),
+    so the kernel's sphere uv equals the wavefront's on the card; it lies
+    within ~1e-6 rad of torch.atan2."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    t = torch.minimum(ax, ay) / torch.clamp(hi, min=1e-30)
+    z = t * t
+    acc = z * _ATAN_COEFFS[-1]
+    for c in _ATAN_COEFFS[-2:0:-1]:
+        acc = z * (acc + c)
+    r = t * (acc + _ATAN_COEFFS[0])
+    r = torch.where(ay > ax, math.pi / 2 - r, r)
+    r = torch.where(x < 0.0, math.pi - r, r)
+    return torch.where(y < 0.0, -r, r)
+
+
+def poly_acos(z):
+    """acos(z) = atan2(sqrt(1 - z^2), z) through poly_atan2."""
+    return poly_atan2(torch.sqrt(torch.clamp(1.0 - z * z, min=0.0)), z)
+
+
 def sphere_uv(local_point, radius):
-    """Equirectangular (u, v) of a point on a sphere surface."""
+    """Equirectangular (u, v) of a point on a sphere surface, through
+    poly_atan2 / poly_acos (the megakernel's texture stage computes the
+    same expression), scaled by products with 1/(2 pi) and 1/pi: a float
+    tensor divided by a Python number runs as a product with its
+    reciprocal on the card but as a division on the CPU."""
     p = local_point / torch.clamp(radius[..., None], min=1e-20)
-    theta = torch.arccos(torch.clamp(p[..., 1], -1.0, 1.0))
-    phi = torch.atan2(p[..., 0], p[..., 2])
-    u = phi / (2.0 * math.pi) + 0.5
-    v = 1.0 - theta / math.pi
+    theta = poly_acos(torch.clamp(p[..., 1], -1.0, 1.0))
+    phi = poly_atan2(p[..., 0], p[..., 2])
+    u = phi * (0.5 / math.pi) + 0.5
+    v = 1.0 - theta * (1.0 / math.pi)
     return torch.stack([u, v], dim=-1)
 
 

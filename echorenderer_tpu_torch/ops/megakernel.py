@@ -11,14 +11,18 @@ thread with the path state in registers; on a CPU scene it runs
 physics function `path_step` stays the reference the kernel is held to.
 
 The kernel replaces the TPU's `_mega_kernel`
-(echorenderer_tpu/ops/megakernel.py:1101). Its envelope is the JAX
-package's: at most MEGA_PRIM_LIMIT padded prims, a light tree no deeper
-than MEGA_TREE_DEPTH, a perspective camera, at most MEGA_LIGHT_LIMIT light
-records and emitters (the port prepares no env map and no texture yet), and
-no TLAS instancing (an instanced scene has no `prim_soa`).
-`_build_tables` packs the scene into the JAX kernel's table layouts, value
-for value; the launch hands them to the kernel transposed, one row per
-prim / material / light.
+(echorenderer_tpu/ops/megakernel.py:1101), texture stage included. Its
+envelope is the JAX package's: at most MEGA_PRIM_LIMIT padded prims, a
+light tree no deeper than MEGA_TREE_DEPTH, no env map, at most
+MEGA_TEX_LIMIT atlas textures, a perspective camera, at most
+MEGA_LIGHT_LIMIT light records and emitters, and no TLAS instancing (an
+instanced scene has no `prim_soa`). `_build_tables` packs the scene into
+the JAX kernel's table layouts, value for value; the launch hands them to
+the kernel transposed, one row per prim / material / light. A textured
+scene adds the JAX kernel's uv rows and texture-id rows, and the atlas
+itself as the texel table (the JAX kernel's channel-major (3R, A*R) bf16
+layout exists for the TPU's one-hot matrix fetch; a gather reads
+(A, R, R, 4)); the launch then takes the kernel's textured form.
 """
 
 from __future__ import annotations
@@ -38,13 +42,21 @@ from .pallas_intersect import PRIM_BLOCK
 MEGA_PRIM_LIMIT = 2048  # padded prims: 10 rows of them fit a block's shared memory
 MEGA_LIGHT_LIMIT = 512
 MEGA_TREE_DEPTH = 24  # the leaf-path bitmask stays exact in an f32 table
+# atlas textures, as in the JAX package, whose kernel read the whole texel
+# table per fetch through a one-hot matrix product; a gather's cost does not
+# grow with the count, but the envelope is kept so both packages dispatch alike
+MEGA_TEX_LIMIT = 4
 
 # packed shade rows (sorted prim order): 0:3 geo normal / sphere center,
 # 3:6 n0 (3 = radius), 6:9 n1, 9:12 n2, 12 material, 13 area, 14 is_sphere,
-# 15 light record (-1), 16 light power
+# 15 light record (-1), 16 light power; textured scenes add 17:23 uv0 uv1 uv2
 SP_ROWS = 17
-# material rows: 0:3 albedo, 3:7 params, 7:10 extra, 10 type, 11 one_sided
+SP_TEX_ROWS = 6
+# material rows: 0:3 albedo, 3:7 params, 7:10 extra, 10 type, 11 one_sided;
+# textured scenes add 12 albedo texture, 13 normal map, 14 its intensity,
+# 15 roughness texture (ids -1 where none)
 MT_ROWS = 12
+MT_TEX_ROWS = 4
 # light records: 0 kind, 1 cdf, 2 power, 3:6 pos/dir, 6:9 intensity,
 # 9 emissive index, 10 w_inf, 11 cdf over w_inf (pad 2.0), 12 tree light id
 LT_ROWS = 13
@@ -70,6 +82,10 @@ def unsupported_reason(scene) -> str | None:
         return f"prims > {MEGA_PRIM_LIMIT}"
     if tree is not None and tree.max_depth > MEGA_TREE_DEPTH:
         return f"light tree deeper than {MEGA_TREE_DEPTH}"
+    if scene.env_maps:
+        return "environment map (importance sampling is wavefront-only)"
+    if scene.tex_atlas.shape[0] > MEGA_TEX_LIMIT:
+        return f"more than {MEGA_TEX_LIMIT} textures (one-hot fetch cost)"
     if scene.camera.kind != PERSPECTIVE:
         return "non-perspective camera"
     if (scene.lights.num_lights > MEGA_LIGHT_LIMIT
@@ -96,8 +112,9 @@ def _pad_cols(t, width, fill=0.0):
 
 def _build_tables(scene):
     """The kernel's tables in the JAX kernel's (rows, columns) layouts:
-    (spT, matT, lightT, epackT, treeT, tlT, cam_row), tree tables None
-    without a light tree."""
+    (spT, matT, lightT, epackT, treeT, tlT, texT, cam_row), tree tables
+    None without a light tree; texT is the (A, R, R, 4) atlas of a textured
+    scene, else None."""
     f32 = torch.float32
     soa = scene.prim_soa
     p_pad = soa.padded
@@ -113,10 +130,17 @@ def _build_tables(scene):
     prim_power = torch.where(lt.prim_light >= 0, lt.power[torch.clamp(lt.prim_light, min=0).long()],
                              0.0)
     rows.append(permpad(prim_power))
+    tex_on = scene.tex_atlas.shape[0] > 0
+    if tex_on:  # uv0, uv1, uv2 for the kernel's barycentric texture coordinates
+        rows += [permpad(sp[:, i]) for i in range(12, 18)]
     spT = torch.stack(rows, 0)
 
     mp = scene.mat_pack
-    matT = _pad_cols(torch.cat([mp[:, 0:11], mp[:, 12:13]], dim=1).T, _pad8(mp.shape[0]))
+    cols = [mp[:, 0:11], mp[:, 12:13]]
+    if tex_on:  # albedo texture, normal map, its intensity, roughness texture
+        cols += [mp[:, 11:12], mp[:, 13:16]]
+    matT = _pad_cols(torch.cat(cols, dim=1).T, _pad8(mp.shape[0]))
+    texT = scene.tex_atlas.contiguous() if tex_on else None
 
     n_lights = lt.num_lights
     kind = lt.kind.to(f32)
@@ -180,7 +204,7 @@ def _build_tables(scene):
     cam_row[C_TOTAL_POWER] = total_c
     cam_row[C_P_INF] = torch.sum(w_inf) / total_c
     cam_row[C_SUM_INF] = sum_inf
-    return spT, matT, lightT, epackT, treeT, tlT, cam_row
+    return spT, matT, lightT, epackT, treeT, tlT, texT, cam_row
 
 
 def sample_frame_mega_plain(scene, pixel_id, pixel_xy, resolution, seed, sample_start,
@@ -214,9 +238,10 @@ def _present_mask(present) -> int:
 
 class KernelArgs(NamedTuple):
     tensors: list  # every tensor the pointers refer to (kept alive by the caller)
-    ptrs: list  # prims sp mat light epack tree tl cam pid pxy s0 s_sum s_sq
+    ptrs: list  # prims sp mat light epack tree tl cam pid pxy s0 s_sum s_sq atlas
     ints: list  # n n_lanes k count bounce width height seed padded has_tri
-    #             has_sph present n_lights n_emissive tree_depth
+    #             has_sph present n_lights n_emissive tree_depth n_tex tex_res
+    #             has_ntex has_rtex
     s_sum: torch.Tensor
     s_sq: torch.Tensor
 
@@ -243,7 +268,7 @@ def _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, coun
     s0 = i32(sample_start).expand(n).contiguous()
     if pxy.shape != (n, 2):
         raise ValueError(f"pixel_xy must be ({n}, 2), got {tuple(pxy.shape)}")
-    spT, matT, lightT, epackT, treeT, tlT, cam_row = _build_tables(scene)
+    spT, matT, lightT, epackT, treeT, tlT, texT, cam_row = _build_tables(scene)
     tables = [scene.prim_soa.rows.contiguous()] + [
         None if t is None else t.T.contiguous() for t in (spT, matT, lightT, epackT, treeT, tlT)
     ] + [cam_row]
@@ -252,7 +277,13 @@ def _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, coun
     lt = scene.lights
     soa = scene.prim_soa
     tree = lt.tree
-    ptrs = [0 if t is None else t.data_ptr() for t in tables + [pid, pxy, s0, s_sum, s_sq]]
+    if texT is not None and (texT.dtype != torch.float32 or texT.dim() != 4
+                             or texT.shape[1] != texT.shape[2] or texT.shape[3] != 4):
+        raise ValueError(f"the atlas must be (A, R, R, 4) float32, got {tuple(texT.shape)} "
+                         f"{texT.dtype}")
+    tensors = tables + [pid, pxy, s0, s_sum, s_sq, texT]
+    ptrs = [0 if t is None else t.data_ptr() for t in tensors]
+    flags = scene.materials.tex_flags
     width, height = resolution
     ints = [
         n, n_lanes, k, int(count), int(bounce_limit), int(width), int(height),
@@ -260,8 +291,9 @@ def _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, coun
         soa.padded, int(soa.num_tris > 0), int(soa.num_prims > soa.num_tris),
         _present_mask(scene.materials.present), lt.num_lights,
         int(scene.emissive_pack.shape[0]), 0 if tree is None else int(tree.max_depth),
+        0 if texT is None else int(texT.shape[0]), 0 if texT is None else int(texT.shape[1]),
+        int(texT is not None and flags[1]), int(texT is not None and flags[2]),
     ]
-    tensors = tables + [pid, pxy, s0, s_sum, s_sq]
     return KernelArgs(tensors, ptrs, ints, s_sum, s_sq)
 
 
@@ -301,8 +333,12 @@ def sample_frame_mega(scene, pixel_id, pixel_xy, resolution, seed, sample_start,
                              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"megakernel launch failed: cudaError {err}")
-    sample_frame_mega.launches += 1
+    if args.ints[15]:  # atlas textures: the textured form ran
+        sample_frame_mega.launches_textured += 1
+    else:
+        sample_frame_mega.launches += 1
     return s_sum, s_sq
 
 
-sample_frame_mega.launches = 0
+# launches of the kernel: the untextured and the textured form
+sample_frame_mega.launches = sample_frame_mega.launches_textured = 0

@@ -8,7 +8,9 @@ chunk-tree tables under "hier_soa.prim_chunks", "hier_soa.root_code", ...
 (with the TLAS tables "hier_soa.inst_f32", "hier_soa.binned_g2c", ... of an
 instanced scene), and an instanced scene's instance table under
 "instances.rows", "instances.num_materials", ...; such a scene has no
-"prim_soa.*". `to_arrays`
+"prim_soa.*". The texture atlas travels as "tex_atlas", env map e as
+"env_maps.<e>.grid.texels", "env_maps.<e>.dist.marginal_cdf", ...,
+"env_maps.<e>.mean_lum". `to_arrays`
 writes a port scene in that form; `from_jax_arrays` builds a port scene
 from it, so both packages can be fed identical tables and a difference in
 preparation cannot hide a difference in the physics.
@@ -23,6 +25,9 @@ from ..aggregation.light_tree import FlatLightTree
 from ..ops.intersect import FlatGeometry
 from ..ops.pallas_hier import HierSoA
 from ..ops.pallas_intersect import PrimSoA
+from ..textures.directional import PreparedDirectional
+from ..textures.grids import PreparedGrid
+from ..utils.distributions import Distribution2D
 from .prepare import LightTable, MaterialTable, PackedCamera, PreparedScene
 
 _ROWS = ("ax", "ay", "az", "bx", "by", "bz", "cx", "cy", "cz", "is_sphere")
@@ -66,8 +71,14 @@ def to_arrays(scene: PreparedScene) -> dict[str, np.ndarray]:
         for name in ("chunk_bounds", "super_bounds", "order", "inv_order", "num_tris",
                      "num_prims"):
             out[f"prim_soa.{name}"] = _np(getattr(soa, name))
-    for name in ("shade_pack", "mat_pack", "emissive_pack"):
+    for name in ("shade_pack", "mat_pack", "emissive_pack", "tex_atlas"):
         out[name] = _np(getattr(scene, name))
+    for e, env in enumerate(scene.env_maps):
+        for part in ("grid", "dist"):
+            table = getattr(env, part)
+            for name, value in zip(table._fields, table):
+                out[f"env_maps.{e}.{part}.{name}"] = _np(value)
+        out[f"env_maps.{e}.mean_lum"] = _np(env.mean_lum)
     for prefix, table in (("hier_soa", scene.hier_soa), ("instances", scene.instances)):
         if table is not None:
             for name, value in zip(table._fields, table):
@@ -129,12 +140,24 @@ def from_jax_arrays(tables: dict[str, np.ndarray], device="cuda") -> PreparedSce
     instances = None
     if "instances.rows" in tables:
         instances = group(InstanceTable, "instances", _INSTANCE_STATICS)
+    env_maps = []
+    while f"env_maps.{len(env_maps)}.mean_lum" in tables:
+        e = f"env_maps.{len(env_maps)}"
+        env_maps.append(PreparedDirectional(
+            grid=group(PreparedGrid, f"{e}.grid", {"wrap": int, "filter": int, "wrap_v": int}),
+            dist=group(Distribution2D, f"{e}.dist"),
+            mean_lum=put(f"{e}.mean_lum"),
+        ))
     return PreparedScene(
         geometry=group(FlatGeometry, "geometry"),
-        materials=group(MaterialTable, "materials",
-                        {"present": lambda a: tuple(int(t) for t in np.asarray(a).reshape(-1))}),
+        materials=group(MaterialTable, "materials", {
+            "present": lambda a: tuple(int(t) for t in np.asarray(a).reshape(-1)),
+            "tex_flags": lambda a: tuple(bool(t) for t in np.asarray(a).reshape(-1)),
+        }),
         lights=group(LightTable, "lights"),
         camera=group(PackedCamera, "camera", {"kind": lambda a: int(a)}),
+        env_maps=tuple(env_maps),
+        tex_atlas=put("tex_atlas"),
         prim_soa=soa,
         shade_pack=put("shade_pack"),
         mat_pack=put("mat_pack"),

@@ -39,15 +39,17 @@ from .prepare import (
     LIGHT_POINT,
     LIGHT_TREE_THRESHOLD,
     Collector,
+    EnvCensus,
     LightTable,
     MaterialTable,
     PackedCamera,
     PreparedScene,
     _LUM,
     _iter_world,
-    _not_ported,
     assemble_triangles,
     build_material_arrays,
+    fill_mat_pack,
+    tex_flags,
 )
 
 
@@ -242,7 +244,8 @@ def prepare_scene_instanced(scene: Scene, camera_name: str | None, shared: set[i
         for g, g2 in row.items():
             remap_rows[i, g] = g2
 
-    mtypes, malbedo, mparams, mextra, mone = build_material_arrays(materials)
+    (mtypes, malbedo, mparams, mextra, mone, mtex, mntex, mnint, mrtex,
+     tex_atlas) = build_material_arrays(materials)
     mat_power = np.asarray(
         [m.power if isinstance(m, mat_mod.Emissive) else 0.0 for m, _ in materials], np.float64)
 
@@ -254,8 +257,7 @@ def prepare_scene_instanced(scene: Scene, camera_name: str | None, shared: set[i
     # --- light census: the root block as is, pack lights per instance ---
     kinds, indices, powers = [], [], []
     point_rows, dir_rows = [], []
-    ambient_all = np.zeros(3, np.float32)
-    ambient_camera = np.zeros(3, np.float32)
+    env = EnvCensus(device)
     for i in range(n_inst):
         col = blocks[inst_block[i]]
         R, T, S = inst_R[i], inst_t[i], inst_s[i]
@@ -271,16 +273,17 @@ def prepare_scene_instanced(scene: Scene, camera_name: str | None, shared: set[i
             indices.append(len(dir_rows))
             powers.append(max(float(np.pi * _LUM @ inten), 1e-6))
             dir_rows.append((d_w, np.asarray(inten, np.float32)))
-        for ent, _rot in col.ambient_lights:
-            if ent.texture is not None:
-                _not_ported("a directional env map", "queue 1, env maps")
-            ambient_all += ent.intensity
-            if ent.directly_visible:
-                ambient_camera += ent.intensity
-    if float(ambient_all.sum()) > 0.0:
+        for ent, rot in col.ambient_lights:
+            env.add(ent, (R @ rot).astype(np.float32) if i else rot)
+    # env maps' records after every explicit light, then the constant one
+    for e, p_e in enumerate(env.powers):
         kinds.append(LIGHT_AMBIENT)
-        indices.append(0)  # the constant record (no env maps)
-        powers.append(max(float(4.0 * np.pi * (_LUM @ ambient_all)), 1e-6))
+        indices.append(e)
+        powers.append(p_e)
+    if env.constant_power() is not None:
+        kinds.append(LIGHT_AMBIENT)
+        indices.append(len(env.maps))  # index E = the constant record
+        powers.append(env.constant_power())
 
     # --- emissive census per instance (world-space records); a profile =
     # (block, remap row): instances sharing both share the ordinal table ---
@@ -396,8 +399,7 @@ def prepare_scene_instanced(scene: Scene, camera_name: str | None, shared: set[i
         emissive_light=put([rec for rec, k in enumerate(kinds) if k == LIGHT_EMISSIVE_TRI]
                            if emissive_records else [], np.int32),
         prim_light=put(prim_light),
-        ambient_all=put(ambient_all),
-        ambient_camera=put(ambient_camera),
+        **env.tables(put),
         tree=None if tree_args is None else build_light_tree(*tree_args, device=device),
         tree_records=put(tree_records),
         record_tree=put(record_tree),
@@ -470,9 +472,10 @@ def prepare_scene_instanced(scene: Scene, camera_name: str | None, shared: set[i
         params=put(mparams, np.float32),
         extra=put(mextra, np.float32),
         one_sided=put(mone),
-        albedo_tex=put(np.full(len(materials), -1, np.int32)),
+        albedo_tex=put(mtex),
         present=tuple(sorted({int(t) for t in np.unique(mtypes)}
                              | ({mat_mod.INVISIBLE} if mone.any() else set()))),
+        tex_flags=tex_flags(mtex, mntex, mrtex),
     )
 
     # --- shading rows, in pack space (interact rotates them) ---
@@ -493,15 +496,7 @@ def prepare_scene_instanced(scene: Scene, camera_name: str | None, shared: set[i
         shade[num_tris:, 19] = 4.0 * np.pi * geom_np["sph_radius"] ** 2
         shade[num_tris:, 20] = 1.0
 
-    mat_pack = np.zeros((len(materials), 16), np.float32)
-    mat_pack[:, 0:3] = malbedo
-    mat_pack[:, 3:7] = mparams
-    mat_pack[:, 7:10] = mextra
-    mat_pack[:, 10] = mtypes
-    mat_pack[:, 11] = -1  # albedo texture id
-    mat_pack[:, 12] = mone
-    mat_pack[:, 13] = -1  # normal-map texture id
-    mat_pack[:, 15] = -1  # roughness texture id
+    mat_pack = fill_mat_pack(malbedo, mparams, mextra, mtypes, mone, mtex, mntex, mnint, mrtex)
 
     rows = np.zeros((n_inst, 16), np.float32)
     for i in range(n_inst):
@@ -525,6 +520,8 @@ def prepare_scene_instanced(scene: Scene, camera_name: str | None, shared: set[i
         materials=materials_t,
         lights=lights,
         camera=camera,
+        env_maps=tuple(env.maps),
+        tex_atlas=put(tex_atlas),
         prim_soa=None,
         shade_pack=put(shade),
         mat_pack=put(mat_pack),

@@ -7,6 +7,8 @@ packed row layouts are the JAX package's, table for table:
                       sph: [center(3) radius .. mat area 1]
   mat_pack (M, 16)    [albedo(3) params(4) extra(3) type tex one_sided ntex nint rtex]
   emissive_pack (Le, 20) [v0(3) e1(3) e2(3) n(3) albedo(3) area is_sph]
+  tex_atlas (T, R, R, 4) every albedo, normal-map and roughness texture,
+                      resampled to ATLAS_RES and rounded to bf16 values
 plus the dense kernels' `PrimSoA` and, from HIER_BUILD_MIN prims on, the
 chunk-tree walk's `HierSoA` (ops/pallas_hier.py), both from the same BVH
 leaf order. Every table lives on the `device` given to `prepare_scene`;
@@ -16,9 +18,11 @@ From LIGHT_TREE_THRESHOLD finite lights on, the light table carries an
 Estevez-Kulla light tree (aggregation/light_tree.py), built as the JAX
 package builds it. Packs placed by PackInstances are baked into the world
 ("bake"), or kept once in pack space and traced through a TLAS ("tlas";
-scene/instancing.py), as the JAX package decides (`_shared_packs`). This
-package prepares scenes without textures or env maps, of any size. The
-rest raises NotImplementedError naming the ROADMAP.md item that brings it.
+scene/instancing.py), as the JAX package decides (`_shared_packs`).
+Each textured AmbientLight becomes an env map (`env_maps`) with a light
+record of its own; constant ambients add up into one record after them.
+ImportGrid textures raise NotImplementedError naming the ROADMAP.md item
+that brings them (textures/grids.py).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..aggregation.light_tree import FlatLightTree, build_light_tree
 from ..ops.intersect import FlatGeometry
 from ..ops.pallas_hier import HIER_BUILD_MIN, HierSoA, build_hier_soa
 from ..ops.pallas_intersect import PrimSoA, build_prim_soa, pack_sorted_prims
+from ..textures.grids import rgba
 from . import materials as mat_mod
 from .cameras import Camera, PerspectiveCamera
 from .entities import Entity, PackInstance, Scene
@@ -51,12 +56,8 @@ LIGHT_EMISSIVE_TRI = 3
 LIGHT_TREE_THRESHOLD = 64
 # unrolled prim count up to which "auto" instancing bakes shared packs
 AUTO_BAKE_LIMIT = 2048
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not in the PyTorch port yet (ROADMAP.md: {item})"
-    )
+# side of every atlas slice: one fixed size keeps the shading lookup one gather
+ATLAS_RES = 256
 
 
 class PackedCamera(NamedTuple):
@@ -79,6 +80,9 @@ class MaterialTable(NamedTuple):
     one_sided: torch.Tensor  # (M,) int32
     albedo_tex: torch.Tensor  # (M,) int32 texture id or -1
     present: tuple = ()
+    # (any albedo texture, any normal map, any roughness texture): the
+    # megakernel's launch reads these without a device readback
+    tex_flags: tuple = (False, False, False)
 
 
 class LightTable(NamedTuple):
@@ -98,6 +102,14 @@ class LightTable(NamedTuple):
     prim_light: torch.Tensor  # (P,) int32 prim -> light record or -1
     ambient_all: torch.Tensor  # (3,) constant env radiance (indirect rays)
     ambient_camera: torch.Tensor  # (3,) env radiance visible to camera rays
+    # per env map e (record index e < E): rotation, intensity scale, camera
+    # visibility and selection power. The constant aggregate owns record
+    # index E when present; amb_const_power then has shape (1,), else (0,)
+    env_rotation: torch.Tensor  # (E, 3, 3) world -> env-local rotations
+    env_scale: torch.Tensor  # (E, 3)
+    env_camera: torch.Tensor  # (E,) 1.0 where directly visible to the camera
+    env_power: torch.Tensor  # (E,) selection power (mixture pdf weights)
+    amb_const_power: torch.Tensor  # (0|1,) power of the constant record
     tree: FlatLightTree | None  # tree over the finite lights, or None (few lights)
     tree_records: torch.Tensor  # (F,) int32 tree light id -> light record
     record_tree: torch.Tensor  # (L,) int32 light record -> tree light id or -1
@@ -114,6 +126,8 @@ class PreparedScene(NamedTuple):
     materials: MaterialTable
     lights: LightTable
     camera: PackedCamera
+    env_maps: tuple  # textures/directional.PreparedDirectional per env map
+    tex_atlas: torch.Tensor  # (T, R, R, 4) float32, bf16 values; (0, 1, 1, 4) untextured
     prim_soa: PrimSoA | None  # None for a TLAS scene (its rays take the instanced walk)
     shade_pack: torch.Tensor  # (P, 24) float32
     mat_pack: torch.Tensor  # (M, 16) float32
@@ -206,23 +220,140 @@ class Collector:
             self.ambient_lights.append((entity, rot.astype(np.float32)))
 
 
+def _resample_texture(tex, res: int = ATLAS_RES) -> np.ndarray:
+    """Host bilinear resample of a Texture's data() to (res, res, 4)."""
+    src = rgba(tex.data())
+    h, w = src.shape[:2]
+    v = (np.arange(res, dtype=np.float32) + 0.5) / res * h - 0.5
+    u = (np.arange(res, dtype=np.float32) + 0.5) / res * w - 0.5
+    v0 = np.clip(np.floor(v).astype(np.int64), 0, h - 1)
+    u0 = np.clip(np.floor(u).astype(np.int64), 0, w - 1)
+    v1 = np.minimum(v0 + 1, h - 1)
+    u1 = np.minimum(u0 + 1, w - 1)
+    fv = np.clip(v - v0, 0.0, 1.0)[:, None, None]
+    fu = np.clip(u - u0, 0.0, 1.0)[None, :, None]
+    top = src[v0][:, u0] * (1 - fu) + src[v0][:, u1] * fu
+    bot = src[v1][:, u0] * (1 - fu) + src[v1][:, u1] * fu
+    return top * (1 - fv) + bot * fv
+
+
 def build_material_arrays(materials):
-    """Interned material list -> packed parameter arrays. Textured
-    materials raise: the texture atlas is not ported."""
-    for m, _ in materials:
-        ntex = getattr(m, "normal", None)
-        if (
-            m.albedo_texture() is not None
-            or m.roughness_texture() is not None
-            or (ntex is not None and hasattr(ntex, "data"))
-        ):
-            _not_ported("a textured material", "queue 1, texture atlas")
+    """Interned material list -> packed parameter arrays + texture atlas:
+    albedo, normal-map and roughness textures are interned by identity
+    and resampled to ATLAS_RES (normal maps share the atlas; the ids tell
+    them apart)."""
     mtypes = np.asarray([m.type_id for m, _ in materials], np.int32)
     malbedo = np.stack([m.constant_albedo() for m, _ in materials], 0)
     mparams = np.stack([m.params() for m, _ in materials], 0)
     mextra = np.stack([m.extra_color() for m, _ in materials], 0)
     mone = np.asarray([os for _, os in materials], np.int32)
-    return mtypes, malbedo, mparams, mextra, mone
+
+    mtex = np.full(len(materials), -1, np.int32)
+    mntex = np.full(len(materials), -1, np.int32)
+    mnint = np.zeros(len(materials), np.float32)
+    mrtex = np.full(len(materials), -1, np.int32)
+    atlas_slices: list[np.ndarray] = []
+    tex_ids: dict[int, int] = {}
+
+    def intern_tex(tex) -> int:
+        if id(tex) not in tex_ids:
+            tex_ids[id(tex)] = len(atlas_slices)
+            atlas_slices.append(_resample_texture(tex))
+        return tex_ids[id(tex)]
+
+    for mi, (m, _) in enumerate(materials):
+        tex = m.albedo_texture()
+        if tex is not None:
+            mtex[mi] = intern_tex(tex)
+        ntex = getattr(m, "normal", None)
+        if ntex is not None and hasattr(ntex, "data"):
+            mntex[mi] = intern_tex(ntex)
+            mnint[mi] = float(getattr(m, "normal_intensity", 1.0))
+        rtex = m.roughness_texture()
+        if rtex is not None:
+            mrtex[mi] = intern_tex(rtex)
+    if atlas_slices:
+        # texel values rounded once to bf16 (round to nearest even), so the
+        # plain version and the megakernel read the same values whether a
+        # table is stored in f32 or bf16; at most 2^-9 relative
+        tex_atlas = torch.from_numpy(np.stack(atlas_slices, 0).astype(np.float32))
+        tex_atlas = tex_atlas.to(torch.bfloat16).to(torch.float32).numpy()
+    else:
+        tex_atlas = np.zeros((0, 1, 1, 4), np.float32)
+    return mtypes, malbedo, mparams, mextra, mone, mtex, mntex, mnint, mrtex, tex_atlas
+
+
+def tex_flags(mtex, mntex, mrtex) -> tuple:
+    """(any albedo texture, any normal map, any roughness texture)."""
+    return bool((mtex >= 0).any()), bool((mntex >= 0).any()), bool((mrtex >= 0).any())
+
+
+def fill_mat_pack(malbedo, mparams, mextra, mtypes, mone, mtex, mntex, mnint, mrtex):
+    """The (M, 16) packed material rows."""
+    mat_pack = np.zeros((len(mtypes), 16), np.float32)
+    mat_pack[:, 0:3] = malbedo
+    mat_pack[:, 3:7] = mparams
+    mat_pack[:, 7:10] = mextra
+    mat_pack[:, 10] = mtypes
+    mat_pack[:, 11] = mtex  # albedo texture id or -1
+    mat_pack[:, 12] = mone
+    mat_pack[:, 13] = mntex  # normal-map texture id or -1
+    mat_pack[:, 14] = mnint  # normal-map intensity
+    mat_pack[:, 15] = mrtex  # roughness texture id or -1
+    return mat_pack
+
+
+class EnvCensus:
+    """Ambient lights of one prepare: each textured one becomes an env map
+    with its own light record (index = env map id), rotation, intensity,
+    camera visibility and power; constant ones add up into one record at
+    index E."""
+
+    def __init__(self, device):
+        self.device = device
+        self.maps, self.rotations, self.scales, self.cameras, self.powers = [], [], [], [], []
+        self.ambient_all = np.zeros(3, np.float32)
+        self.ambient_camera = np.zeros(3, np.float32)
+
+    def add(self, ent, rot) -> float | None:
+        """Counts one ambient light; returns an env map's power, None for a
+        constant light."""
+        if ent.texture is None:
+            self.ambient_all += ent.intensity
+            if ent.directly_visible:
+                self.ambient_camera += ent.intensity
+            return None
+        prepared = ent.texture.prepare(self.device)
+        self.maps.append(prepared)
+        self.rotations.append(rot.T)  # world -> env local
+        self.scales.append(np.asarray(ent.intensity, np.float32))
+        self.cameras.append(1.0 if ent.directly_visible else 0.0)
+        power = 4.0 * np.pi * (
+            float(prepared.mean_luminance()) * float(_LUM @ ent.intensity) * 3.0
+        )
+        self.powers.append(max(power, 1e-6))
+        return self.powers[-1]
+
+    def constant_power(self) -> float | None:
+        """The constant record's power, or None without constant ambients."""
+        if float(self.ambient_all.sum()) > 0.0:
+            return max(float(4.0 * np.pi * (_LUM @ self.ambient_all)), 1e-6)
+        return None
+
+    def tables(self, put) -> dict:
+        """The LightTable fields of the ambient lights."""
+        p_c = self.constant_power()
+        return dict(
+            ambient_all=put(self.ambient_all),
+            ambient_camera=put(self.ambient_camera),
+            env_rotation=put(np.stack(self.rotations, 0) if self.rotations
+                             else np.zeros((0, 3, 3), np.float32), np.float32),
+            env_scale=put(np.stack(self.scales, 0) if self.scales
+                          else np.zeros((0, 3), np.float32), np.float32),
+            env_camera=put(self.cameras, np.float32),
+            env_power=put(self.powers, np.float32),
+            amb_const_power=put([] if p_c is None else [p_c], np.float32),
+        )
 
 
 def assemble_triangles(tri_v, tri_f, tri_n, tri_uv, tri_m):
@@ -366,7 +497,8 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
     num_tris = geom_np["tri_v0"].shape[0]
     num_prims = num_tris + geom_np["sph_center"].shape[0]
 
-    mtypes, malbedo, mparams, mextra, mone = build_material_arrays(materials)
+    (mtypes, malbedo, mparams, mextra, mone, mtex, mntex, mnint, mrtex,
+     tex_atlas) = build_material_arrays(materials)
 
     # --- light census ---
     kinds, indices, powers = [], [], []
@@ -379,18 +511,17 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
         indices.append(i)
         powers.append(max(float(np.pi * _LUM @ inten), 1e-6))
 
-    ambient_all = np.zeros(3, np.float32)
-    ambient_camera = np.zeros(3, np.float32)
-    for ent, _ in col.ambient_lights:
-        if ent.texture is not None:
-            _not_ported("a directional env map", "queue 1, env maps")
-        ambient_all += ent.intensity
-        if ent.directly_visible:
-            ambient_camera += ent.intensity
-    if float(ambient_all.sum()) > 0.0:
+    env = EnvCensus(device)
+    for ent, rot in col.ambient_lights:
+        power = env.add(ent, rot)
+        if power is not None:  # an env map: its own record, index = its id
+            kinds.append(LIGHT_AMBIENT)
+            indices.append(len(env.maps) - 1)
+            powers.append(power)
+    if env.constant_power() is not None:
         kinds.append(LIGHT_AMBIENT)
-        indices.append(0)  # the constant record (no env maps)
-        powers.append(max(float(4.0 * np.pi * (_LUM @ ambient_all)), 1e-6))
+        indices.append(len(env.maps))  # index E = the constant record
+        powers.append(env.constant_power())
 
     # emissive geometry census
     emissive_prims = []
@@ -484,8 +615,7 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
         emissive_inst=put(np.zeros(len(emissive_prims), np.int32)),
         emissive_light=put(emissive_light, np.int32),
         prim_light=put(prim_light),
-        ambient_all=put(ambient_all),
-        ambient_camera=put(ambient_camera),
+        **env.tables(put),
         tree=None if tree_args is None else build_light_tree(*tree_args, device=device),
         tree_records=put(tree_records),
         record_tree=put(record_tree),
@@ -523,13 +653,14 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
         params=put(mparams, np.float32),
         extra=put(mextra, np.float32),
         one_sided=put(mone),
-        albedo_tex=put(np.full(len(materials), -1, np.int32)),
+        albedo_tex=put(mtex),
         present=tuple(
             sorted(
                 {int(t) for t in np.unique(mtypes)}
                 | ({mat_mod.INVISIBLE} if mone.any() else set())
             )
         ),
+        tex_flags=tex_flags(mtex, mntex, mrtex),
     )
 
     # --- packed shading rows ---
@@ -551,15 +682,7 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
         shade[num_tris:, 19] = 4.0 * np.pi * r * r
         shade[num_tris:, 20] = 1.0
 
-    mat_pack = np.zeros((len(materials), 16), np.float32)
-    mat_pack[:, 0:3] = malbedo
-    mat_pack[:, 3:7] = mparams
-    mat_pack[:, 7:10] = mextra
-    mat_pack[:, 10] = mtypes
-    mat_pack[:, 11] = -1  # albedo texture id
-    mat_pack[:, 12] = mone
-    mat_pack[:, 13] = -1  # normal-map texture id
-    mat_pack[:, 15] = -1  # roughness texture id
+    mat_pack = fill_mat_pack(malbedo, mparams, mextra, mtypes, mone, mtex, mntex, mnint, mrtex)
 
     epack = np.zeros((len(emissive_prims), 20), np.float32)
     for i, (p, _) in enumerate(emissive_prims):
@@ -583,6 +706,8 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
         materials=materials_t,
         lights=lights,
         camera=camera,
+        env_maps=tuple(env.maps),
+        tex_atlas=put(tex_atlas),
         prim_soa=prim_soa,
         shade_pack=put(shade),
         mat_pack=put(mat_pack),

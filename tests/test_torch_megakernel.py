@@ -9,7 +9,8 @@ tolerances: per-sample sums atol/rtol 2e-3, sums of squares atol 4e-2,
 mean images 1e-5 (float reduction order is the only difference). The
 envelope (`supported`, `unsupported_reason`) and the packed tables
 (`_build_tables`, bit for bit but for the four sums over light powers in
-the camera row, two ulps apart) match the JAX package's. The CUDA kernel is
+the camera row, two ulps apart) match the JAX package's, textured scenes
+included (their texture tables: tests/test_torch_textures.py). The CUDA kernel is
 held to its plain version on the card (these tests skip without one):
 
     python -m pytest --noconftest tests/test_torch_megakernel.py -k cuda
@@ -37,7 +38,24 @@ ENVELOPE = {
     "material_ball": lambda m: m.material_ball(),
     "many_lights(96)": lambda m: m.many_lights(96),
     "sphere_field(2200)": lambda m: m.sphere_field(2200),
+    # textured scenes (tests/test_torch_textures.py), inside the envelope
+    # and, with a fifth texture, outside; an env map, outside
+    "textured": lambda m: _textured("textured", m),
+    "textured showcase": lambda m: _textured("showcase", m),
+    "textured sphere_texture": lambda m: _textured("sphere_texture", m),
+    "textured rough_normal": lambda m: _textured("rough_normal", m),
+    "textured five_textures": lambda m: _textured("five_textures", m),
+    "hdr_environment": lambda m: m.hdr_environment(resolution=(16, 8)),
 }
+
+
+def _textured(name, m):
+    """A test_torch_textures scene, built with the package of the scenes
+    module `m`."""
+    import test_torch_textures
+
+    pkg = "torch" if m.__name__.startswith("echorenderer_tpu_torch") else "jax"
+    return test_torch_textures.SCENES[name](pkg)
 
 
 def _jax():
@@ -78,7 +96,9 @@ def test_non_perspective_camera_is_outside():
 
 
 @pytest.mark.parametrize("name", ["cornell", "sphere_field(80)", "sphere_field(300)",
-                                  "material_ball", "many_lights(96)"])
+                                  "material_ball", "many_lights(96)", "textured",
+                                  "textured showcase", "textured sphere_texture",
+                                  "textured rough_normal"])
 def test_tables_match_jax(name):
     _, jmk, _ = _jax()
     jscene, tscene = _carried(name)
@@ -90,9 +110,25 @@ def test_tables_match_jax(name):
             assert t is None, label
             continue
         np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=label)
+    # the texel table, None untextured (the JAX kernel's is (0, 0)), value
+    # for value: the JAX kernel's channel-major (3R, A*R) bf16 rows
+    # (c * R + x, a * R + y) against the port's (A, R, R, 4) atlas
+    tex = np.asarray(jt[6]).astype(np.float32)
+    assert (tt[6] is None) == (tex.size == 0)
+    if tt[6] is not None:
+        a_count, res = tscene.tex_atlas.shape[:2]
+        assert tt[0].shape[0] == tmk.SP_ROWS + tmk.SP_TEX_ROWS
+        assert tt[1].shape[0] == tmk.MT_ROWS + tmk.MT_TEX_ROWS
+        np.testing.assert_array_equal(
+            tt[6][..., :3].numpy(), tex.reshape(3, res, a_count, res).transpose(2, 3, 1, 0))
+        args = tmk._kernel_args(tscene, torch.arange(64), torch.zeros((64, 2), dtype=torch.int32),
+                                (8, 8), 0, 0, 1, 4, None)
+        static = jt[8]
+        assert args.ints[15:] == [a_count, res, int(static["has_ntex"]), int(static["has_rtex"])]
+        assert args.ptrs[13] == tscene.tex_atlas.data_ptr()
     # the camera row bit for bit, except its four sums over the light
     # powers, which each framework reduces in its own order: two ulps
-    cam, jcam = tt[6].numpy(), np.asarray(jt[7])
+    cam, jcam = tt[7].numpy(), np.asarray(jt[7])
     sums = [tmk.C_AMB_PMF, tmk.C_TOTAL_POWER, tmk.C_P_INF, tmk.C_SUM_INF]
     rest = np.setdiff1d(np.arange(tmk.C_LEN), sums)
     np.testing.assert_array_equal(cam[rest], jcam[rest], err_msg="cam_row")
@@ -163,20 +199,32 @@ def test_kernel_args_layout():
     pid = torch.arange(n) + 2 ** 32 - 500  # wraps past 2^32
     pxy = torch.stack([pid % 40, (pid // 40) % 25], -1)
     args = tmk._kernel_args(scene, pid, pxy, (40, 25), 2 ** 32 - 1, 2 ** 32 - 3, 8, 16, 3)
-    assert len(args.ptrs) == 13 and len(args.ints) == 15
+    assert len(args.ptrs) == 14 and len(args.ints) == 19
     n_, n_lanes, k, count, bounce, width, height, seed = args.ints[:8]
     assert (n_, n_lanes, k, count, bounce, width, height, seed) == (n, 334, 3, 8, 16, 40, 25, -1)
     pid32, pxy32, s0 = args.tensors[8:11]
     assert pid32.dtype == torch.int32 and int(pid32[0]) == -500 and int(pid32[-1]) == 499
     assert s0.shape == (n,) and int(s0[0]) == -3
     assert torch.equal(pxy32, pxy.to(torch.int32))
-    padded, has_tri, has_sph, present, n_lights, n_e, depth = args.ints[8:]
+    padded, has_tri, has_sph, present, n_lights, n_e, depth = args.ints[8:15]
+    assert args.ints[15:] == [0, 0, 0, 0] and args.ptrs[13] == 0  # untextured
     assert padded == scene.prim_soa.padded and (has_tri, has_sph) == (1, 1)
     assert present == sum(1 << t for t in scene.materials.present)
     assert (n_lights, n_e, depth) == (96, 96, scene.lights.tree.max_depth)
     sp = args.tensors[1]
     assert sp.shape == (scene.prim_soa.padded, tmk.SP_ROWS) and sp.is_contiguous()
     assert args.s_sum.shape == (n, 3)
+
+
+def test_kernel_args_check_the_atlas():
+    """A launch takes the atlas as (A, R, R, 4) float32 and refuses other."""
+    scene = tprepare(_textured("textured", tscenes), device="cpu")
+    pid = torch.arange(16)
+    pxy = torch.stack([pid % 4, pid // 4], -1)
+    assert tmk._kernel_args(scene, pid, pxy, (4, 4), 0, 0, 1, 4, None).ints[15] == 2
+    bad = scene._replace(tex_atlas=scene.tex_atlas.double())
+    with pytest.raises(ValueError, match="atlas"):
+        tmk._kernel_args(bad, pid, pxy, (4, 4), 0, 0, 1, 4, None)
 
 
 @pytest.fixture
@@ -192,17 +240,20 @@ def _card_lanes(dev, n=1024, res=(32, 32)):
 
 
 @pytest.mark.parametrize("name", ["cornell", "sphere_field(80)", "sphere_field(300)",
-                                  "material_ball", "many_lights(96)"])
+                                  "material_ball", "many_lights(96)", "textured",
+                                  "textured rough_normal"])
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(cuda, name):
     scene = tprepare(ENVELOPE[name](tscenes), device=cuda)
     pid, pxy, res = _card_lanes(cuda)
     kw = dict(bounce_limit=3, survivability=2.5)
-    before = tmk.sample_frame_mega.launches
+    counts = lambda: (tmk.sample_frame_mega.launches, tmk.sample_frame_mega.launches_textured)
+    before = counts()
     a, a2 = tmk.sample_frame_mega(scene, pid, pxy, res, 11, 0, 2, **kw)
     b, b2 = tmk.sample_frame_mega_plain(scene, pid, pxy, res, 11, 0, 2, **kw)
     torch.cuda.synchronize()
-    assert tmk.sample_frame_mega.launches == before + 1
+    textured = scene.tex_atlas.shape[0] > 0
+    assert counts() == (before[0] + (not textured), before[1] + textured)
     a, a2, b, b2 = (x.cpu().numpy() for x in (a, a2, b, b2))
     assert np.isfinite(a).all() and a.sum() > 0
     np.testing.assert_allclose(a, b, atol=2e-3, rtol=2e-3)

@@ -69,11 +69,26 @@ def _thin_lens():
     return scene
 
 
+def _showcase():
+    import test_torch_textures
+
+    return test_torch_textures.showcase("torch")
+
+
+def _rough_normal():
+    import test_torch_textures
+
+    return test_torch_textures.rough_normal("torch")
+
+
 SCENES = {
     "cornell": scenes.cornell_box,  # dense chunk intersector
     "material_ball": scenes.material_ball,  # linear intersector, every rough lobe
     "many_lights(96)": lambda: scenes.many_lights(96),  # light tree
     "thin lens": _thin_lens,
+    "showcase": _showcase,  # the atlas: albedo textures, sphere uv
+    "rough_normal": _rough_normal,  # normal map, roughness texture
+    "hdr_environment": lambda: scenes.hdr_environment(resolution=(32, 16)),  # an env map
 }
 
 

@@ -2,8 +2,8 @@
 `prepare_scene` on the three golden scenes and on many-light scenes with
 a light tree (integers exact, floats to rtol/atol 1e-6), the
 `from_jax_arrays` round trip, a scene large enough for the chunk-tree
-tables, and the scenes the port does not prepare yet, which must raise
-NotImplementedError."""
+tables, a procedural albedo texture and an env map (tests/test_torch_textures.py
+holds the rest of the texture system)."""
 
 import numpy as np
 import pytest
@@ -36,6 +36,13 @@ def flatten_jax(prepared) -> dict:
                         out[f"{name}.{sub}.{leaf}"] = np.asarray(w)
                 elif v is not None:
                     out[f"{name}.{sub}"] = np.asarray(v)
+        elif name == "env_maps":
+            for e, env in enumerate(value):
+                for part in ("grid", "dist"):
+                    table = getattr(env, part)
+                    for sub, v in zip(table._fields, table):
+                        out[f"env_maps.{e}.{part}.{sub}"] = np.asarray(v)
+                out[f"env_maps.{e}.mean_lum"] = np.asarray(env.mean_lum)
         elif value is not None and not isinstance(value, tuple):
             out[name] = np.asarray(value)
     return out
@@ -78,21 +85,42 @@ def test_from_jax_arrays_round_trips(name):
 
 
 def test_procedural_albedo_texture_raises():
-    from echorenderer_tpu.textures import CloudTexture
+    """A procedural albedo texture no longer raises: the material ball in a
+    CloudTexture prepares with the JAX package's atlas (bitwise) and
+    mat_pack texture ids."""
+    from echorenderer_tpu.scene.materials import Diffuse as JDiffuse
+    from echorenderer_tpu.textures import CloudTexture as JCloud
+    from echorenderer_tpu_torch.textures import CloudTexture
 
-    scene = tscenes.material_ball(material=Diffuse(albedo=CloudTexture()))
-    with pytest.raises(NotImplementedError, match="texture atlas"):
-        tprepare(scene, device="cpu")
+    jscene = jprepare(jscenes.material_ball(material=JDiffuse(albedo=JCloud(seed=2))))
+    tscene = tprepare(tscenes.material_ball(material=Diffuse(albedo=CloudTexture(seed=2))),
+                      device="cpu")
+    ref, got = flatten_jax(jscene), to_arrays(tscene)
+    _assert_tables_equal(got, ref)
+    assert tscene.tex_atlas.shape[0] == 1 and tscene.materials.tex_flags == (True, False, False)
+    np.testing.assert_array_equal(got["tex_atlas"], ref["tex_atlas"])
+    np.testing.assert_array_equal(got["mat_pack"][:, 11], ref["mat_pack"][:, 11])
 
 
 def test_env_map_raises():
-    """hdr_environment()'s sky is a directional texture: env maps wait."""
-    sky = next(e for e in jscenes.hdr_environment().children
-               if getattr(e, "texture", None) is not None).texture
-    scene = tscenes.material_ball()
-    scene.add(AmbientLight(intensity=(1, 1, 1), texture=sky))
-    with pytest.raises(NotImplementedError, match="env maps"):
-        tprepare(scene, device="cpu")
+    """An env map no longer raises: hdr_environment()'s sky on the material
+    ball prepares with the JAX package's env-map record, rotation, scale,
+    power and importance tables."""
+    def sky(m):
+        return next(e for e in m.hdr_environment(resolution=(32, 16)).children
+                    if getattr(e, "texture", None) is not None).texture
+
+    from echorenderer_tpu.scene import AmbientLight as JAmbient
+
+    jball = jscenes.material_ball()
+    jball.add(JAmbient(intensity=(1, 1, 1), texture=sky(jscenes)))
+    tball = tscenes.material_ball()
+    tball.add(AmbientLight(intensity=(1, 1, 1), texture=sky(tscenes)))
+    jscene, tscene = jprepare(jball), tprepare(tball, device="cpu")
+    got = to_arrays(tscene)
+    assert len(tscene.env_maps) == 1 and "env_maps.0.dist.conditional_cdf" in got
+    assert tscene.lights.env_power.shape == (1,)
+    _assert_tables_equal(got, flatten_jax(jscene))
 
 
 @pytest.mark.parametrize("count", [96, 128])
