@@ -7,8 +7,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions. No CUDA device: exit 1.
   2. build: nvcc builds every csrc/*.cu for sm_90a, all at once; ptxas
-     registers, spills and shared memory per kernel, and the megakernel's
-     two forms (untextured and textured) by name.
+     registers, spills and shared memory per kernel, the megakernel's
+     three forms (untextured, textured, chunk-tree) by name with their
+     registers, spills and stack frame (the chunk-tree form's holds the
+     walk's stack), and hier_kernel's forms.
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, on the same inputs:
      - dense_trace / dense_occlude on every call the wavefront path makes
@@ -47,10 +49,19 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        launches, rounds and host reads per call, and torch.sort of setup's
        key matrix as its yardstick (the ranking step only);
      - sphere_grid(250_000) at 320x180, 8 spp, bounce 6 rendered through
-       the hier kernels alone (binned patched off), through the main
+       the hier kernels alone (`scene_ops.walk_only`), through the main
        dispatch (first wave on the walk, the rest binned) and through the
        dense kernels: hier = dense bitwise; binned vs dense: pixels not
-       bitwise equal counted, sums within the megakernel's tolerance;
+       bitwise equal counted, sums within the megakernel's tolerance; and
+       through the megakernel's chunk-tree form against its plain version
+       (the wavefront on the walk alone, the same lanes): bitwise;
+     - the chunk-tree form on many_lights(256) (emitters, the light tree,
+       MIS on emissive hits; chunk-tree tables built directly) at 320x180,
+       8 spp, bounce 16 against its plain version: pixels not bitwise equal
+       counted, MEGA_TOL; its ms, plain ms and bound;
+     - under ECHO_MEGA_HIER, render_layer at 320x180, 8 spp: sphere_grid(
+       20_000) under a textured plane and instanced_grid(side=3) (TLAS)
+       take the wavefront, sphere_grid(20_000) the chunk-tree form;
      - median ms of each kernel (10 runs after a warm-up) and its plain
        version, and the bound: the larger of the float work over 67 TFLOP/s
        and the bytes over 3.35 TB/s. The float work is that of the prim
@@ -79,13 +90,21 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      program seconds, prepare seconds, peak memory, dispatch ("binned"), the
      liveness cascade's widths, launches (binned kernels and hier > 0, dense
      and megakernel 0), rounds and host reads, mean luminance; then the same
-     8 programs with the binned traversal patched off (every wave on the
-     walk, the dispatch before the binned port) for comparison. The kernels
+     8 programs with the binned traversal off (`scene_ops.walk_only`: every
+     wave on the walk, the dispatch before the binned port) for comparison;
+     then the same 8 programs under ECHO_MEGA_HIER through the megakernel's
+     chunk-tree form (dispatch "megakernel-hier"): Mspps, program seconds,
+     peak memory, mean luminance, launches (9 chunk-tree launches and no
+     other), the first timed program's sums against the walk-only first
+     program's (pixels not bitwise equal, MEGA_TOL), and its launch against
+     its plain version: median ms of 3 launches, the plain ms, the bound
+     (the least prim-test work of the plain run's walk calls). The kernels
      line reports the dense kernels' ms and bound per launch of the
      wavefront path, the megakernel's for the bench launch, the hier
      kernels' per call of the large-scene program, and the binned kernels'
-     per launch of its binned calls, and megakernel_textured the textured
-     form's for the showcase launch.
+     per launch of its binned calls, megakernel_textured the textured
+     form's for the showcase launch, and megakernel_hier the chunk-tree
+     form's for the large scene's launch.
   6. instanced: TLAS instancing, counters zeroed again:
      instanced_sphere_grids() (4 placements of a 123,008-triangle pack,
      ~2,000 global chunks, a ground plane, an ambient light) prepared with
@@ -143,6 +162,9 @@ TRACE_SITE = "echorenderer_tpu/ops/pallas_intersect.py:322"
 OCCLUDE_SITE = "echorenderer_tpu/ops/pallas_intersect.py:400"
 MEGA_SITE = "echorenderer_tpu/ops/megakernel.py:1101"
 MEGA_TEX_SITE = "echorenderer_tpu/ops/megakernel.py:1295"  # _mega_kernel's texture stage
+MEGA_HIER_SITE = "echorenderer_tpu/ops/megakernel.py:909"  # _hier_walk: the fat-chunk variant
+# the megakernel's three compiled forms: mega_kernel<TEX, HIER>
+MEGA_FORMS = {"ILb0ELb0E": "untextured", "ILb1ELb0E": "textured", "ILb0ELb1E": "chunk-tree"}
 HIER_SOURCE = "echorenderer_tpu_torch/csrc/hier_walk.cu"
 HIER_SITE = "echorenderer_tpu/ops/pallas_hier.py:498"
 BINNED_SOURCE = "echorenderer_tpu_torch/csrc/binned.cu"
@@ -937,13 +959,15 @@ def compare_hier(label, soa, calls):
 
 def renders_against_dense(scene, res, spp, bounce):
     """One frame through the main dispatch (the first wave on the walk, the
-    rest binned), through the hier kernels alone (binned patched off) and
+    rest binned), through the hier kernels alone (`scene_ops.walk_only`) and
     through the dense kernels: hier = dense bitwise. Binned vs dense: the
     mean image within MEGA_TOL, and every pixel outside MEGA_TOL's per-pixel
     tolerance must own a ray on which binned kept another prim than the
     walk in the same band (its path diverges from there). The frame must
     stay under the liveness cascade's threshold, so that a call's ray i is
-    lane i."""
+    lane i. Fourth, the same frame through the megakernel's chunk-tree form
+    against its plain version, the wavefront on the walk alone, on the same
+    lanes: bitwise. Returns compare_mega_hier's result."""
     import torch
 
     from echorenderer_tpu_torch.evaluation import scene_ops
@@ -957,23 +981,24 @@ def renders_against_dense(scene, res, spp, bounce):
     counts = lambda: (bt.LAUNCHES["seg"], ph.hier_trace.launches + ph.hier_occlude.launches,
                       pi.dense_trace.launches + pi.dense_occlude.launches)
     sums, grew = [], []
-    saved = scene_ops.HIER_TRACE_MIN, scene_ops._use_binned
+    saved = scene_ops.HIER_TRACE_MIN
     try:
-        for threshold, binned in ((saved[0], True), (saved[0], False), (2 ** 31, False)):
-            scene_ops.HIER_TRACE_MIN = threshold
-            scene_ops._use_binned = saved[1] if binned else (lambda scene: False)
+        for dispatch in ("binned", "walk", "dense"):
+            scene_ops.HIER_TRACE_MIN = 2 ** 31 if dispatch == "dense" else saved
             before = counts()
             t0 = time.perf_counter()
             # only the binned render's calls are recorded (RayWork would also
             # count the dense render's least work, which nothing reads here)
-            with RayWork(cull=True, record=True) if binned else contextlib.nullcontext() as rec:
+            with (RayWork(cull=True, record=True) if dispatch == "binned"
+                  else contextlib.nullcontext()) as rec, (
+                    scene_ops.walk_only() if dispatch == "walk" else contextlib.nullcontext()):
                 sums.append(_sample_frame(scene, "path", res, 0, 0, spp, bounce, 2.5))
             torch.cuda.synchronize()
             grew.append([a - b for a, b in zip(counts(), before)] + [time.perf_counter() - t0])
-            if binned:
+            if dispatch == "binned":
                 calls = rec.binned
     finally:
-        scene_ops.HIER_TRACE_MIN, scene_ops._use_binned = saved
+        scene_ops.HIER_TRACE_MIN = saved
     (bs, bq), (hs, hq), (ds, dq) = sums
     n = bs.shape[0]
     differ = int(((hs != ds) | (hq != dq)).any(dim=-1).sum())
@@ -1012,6 +1037,147 @@ def renders_against_dense(scene, res, spp, bounce):
         raise AssertionError("the binned render disagrees with the dense render")
     if grew[0][0] == 0 or grew[0][1] == 0 or grew[0][2]:
         raise AssertionError("the main dispatch's render did not take the binned and hier kernels")
+    return compare_mega_hier(f"sphere_grid(250k) {res[0]}x{res[1]}", scene, res, spp, bounce,
+                             bitwise=True)
+
+
+def hier_path_work(soa, calls) -> float:
+    """The least float work of the prim tests of recorded walk calls
+    ({"trace": [(rays, ignore)], "occlude": [...]}): `least_flops_hier` up
+    to each ray's hit, nearest blocker or t_max (found with the hier trace
+    kernel, whose launches here are not the main path's)."""
+    import torch
+
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+
+    total = 0.0
+    for kind in ("trace", "occlude"):
+        for rays, ig in calls[kind]:
+            t, prim = ph.hier_trace(rays, ig, soa)[:2]
+            total += least_flops_hier(soa, rays, torch.where(prim >= 0, t, rays[6]))
+    return total
+
+
+def compare_mega_hier(label, scene, res, spp, bounce, bitwise, start=0, kernel_runs=10):
+    """The megakernel's chunk-tree form against its plain version (the
+    wavefront with every wave on the walk) on the same tile-major lanes,
+    seed 0, first sample `start`: pixels not bitwise equal (with `bitwise`
+    they must be 0) and MEGA_TOL; the kernel's median ms over
+    `kernel_runs` launches, the plain version's ms (1 run), and the bound:
+    the least prim-test work of the plain run's recorded walk calls
+    (`hier_path_work`: the kernel traces the same rays) over 67 TFLOP/s, or
+    the bytes (lanes in, sums out, the tables once) over 3.35 TB/s. Returns
+    (max_abs_err, {ms, plain_ms}, bound, (kernel sums, sums of squares))."""
+    import torch
+
+    from echorenderer_tpu_torch.evaluation import scene_ops
+    from echorenderer_tpu_torch.evaluation.wavefront import run_wavefront
+    from echorenderer_tpu_torch.ops import megakernel as mk
+
+    dev = scene.device
+    pid, pxy = tile_lanes(res, dev)
+    n = pid.shape[0]
+    kw = dict(bounce_limit=bounce, survivability=2.5)
+    soa = scene.hier_soa
+    kernel = lambda: mk.sample_frame_mega(scene, pid, pxy, res, 0, start, spp, hier=True, **kw)
+    t0 = time.perf_counter()
+    ks, kq = kernel()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (ps, pq), plain_ms = timed(lambda: mk.sample_frame_mega_plain(scene, pid, pxy, res, 0, start,
+                                                                  spp, hier=True, **kw))
+    with scene_ops.walk_only(), RayWork(cull=True, record=True) as rec:
+        _, _, stats = run_wavefront(scene, pid, pxy, res, 0, start, spp, return_stats=True, **kw)
+    if rec.binned["trace"] or rec.binned["occlude"]:
+        raise AssertionError(f"{label}: the plain version took the binned traversal")
+    flops = hier_path_work(soa, rec.calls)
+    n_calls = len(rec.calls["trace"]) + len(rec.calls["occlude"])
+    del rec
+    if not bool(torch.isfinite(ks).all()) or float(ks.sum()) <= 0.0:
+        raise AssertionError(f"{label}: chunk-tree megakernel sums non-finite or black")
+    t = MEGA_TOL
+    close = ((ks - ps).abs() <= t["sum_atol"] + t["sum_rtol"] * ps.abs()) & (
+        (kq - pq).abs() <= t["sq_atol"] + t["sq_rtol"] * pq.abs())
+    ok_px = close.all(dim=-1)
+    differ = int((~((ks == ps) & (kq == pq)).all(dim=-1)).sum())
+    share = float(ok_px.float().mean())
+    mean_diff = float(((ks - ps) / spp).mean(dim=0).abs().max())
+    err = float((ks - ps).abs().max())
+    ms = median_ms(kernel, kernel_runs)
+    tables = [x for x in mk._build_tables(scene, hier=True) if isinstance(x, torch.Tensor)]
+    bound = bound_ms(flops, n * (16 + 24) + soa.padded * 10 * 4
+                     + table_bytes(soa.bounds, soa.codes, *tables))
+    log(f"[kernels] megakernel chunk-tree form, {label}: {n} pixels {spp} spp bounce {bounce}: "
+        f"{differ} pixels not bitwise equal to its plain version (the wavefront on the walk, "
+        f"{n_calls} walk calls, {stats['Ray/Traced']:.0f} traced + {stats['Ray/Shadow']:.0f} "
+        f"shadow rays), {n - int(ok_px.sum())} outside tolerance (share within {share:.6f}, "
+        f"need >= {t['share']}), mean image |diff| {mean_diff:.3g} (< {t['mean']}), max |sum "
+        f"diff| {err:.3g}; first launch {first_s:.3f} s incl. table build")
+    log(f"[kernels] megakernel chunk-tree form, {label}: median ms over {kernel_runs} launches "
+        f"{ms:.4f}, plain {plain_ms:.4f} (1 run, {plain_ms / ms:.2f}x); least prim-test work "
+        f"{flops:.6g} flops; bound {bound[0]:.6f} ms ({bound[1]}); "
+        f"{n * spp / ms / 1e3:.4f} Mspps in the kernel alone")
+    if (bitwise and differ) or share < t["share"] or not mean_diff < t["mean"]:
+        raise AssertionError(f"the chunk-tree megakernel disagrees with its plain version on "
+                             f"{label}")
+    return err, dict(ms=ms, plain_ms=plain_ms), bound, (ks, kq)
+
+
+def with_hier_tables(scene):
+    """`scene` with its chunk-tree tables built directly, as
+    tests/test_megakernel.py builds them (prepare builds them from 16,384
+    prims on; a chunk tree needs more than one 256-prim chunk)."""
+    from echorenderer_tpu_torch.aggregation.bvh import build_bvh, geometry_bounds
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+
+    geom = {k: v.cpu().numpy() for k, v in scene.geometry._asdict().items()}
+    order = build_bvh(*geometry_bounds(geom)).prim_order
+    return scene._replace(hier_soa=ph.build_hier_soa(geom, order, device=scene.device))
+
+
+def gate_keeps_wavefront(dev, prof):
+    """Under ECHO_MEGA_HIER, scenes outside the chunk-tree form's envelope
+    take the wavefront: sphere_grid(20_000) (chunk-tree tables, outside the
+    dense envelope) under a cloud-textured plane, and the TLAS scene
+    instanced_grid(side=3), each rendered at 320x180, 8 spp; then the same
+    sphere_grid(20_000) untextured must take the chunk-tree form."""
+    import os
+
+    import numpy as np
+
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.ops import megakernel as mk
+    from echorenderer_tpu_torch.processes.render import render_layer
+    from echorenderer_tpu_torch.scene import Diffuse, PlaneEntity
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+    from echorenderer_tpu_torch.textures import CloudTexture
+
+    textured = scenes.sphere_grid(20_000)
+    textured.add(PlaneEntity(size=(4, 4), position=(0, 6, 0),
+                             material=Diffuse(albedo=CloudTexture(scale=4.0, seed=5))))
+    cases = [("sphere_grid(20_000) + a textured plane", prepare_scene(textured, device=dev),
+              "wavefront"),
+             ("instanced_grid(side=3), TLAS",
+              prepare_scene(scenes.instanced_grid(side=3), instancing="tlas", device=dev),
+              "wavefront"),
+             ("sphere_grid(20_000)", prepare_scene(scenes.sphere_grid(20_000), device=dev),
+              "megakernel-hier")]
+    os.environ["ECHO_MEGA_HIER"] = "1"
+    try:
+        for label, scene, want in cases:
+            zero_launch_counts()
+            image, info = render_layer(scene, prof, (320, 180))
+            hier = mk.sample_frame_mega.launches_hier
+            d = info["dispatch"]
+            log(f"[kernels] under ECHO_MEGA_HIER: {label} ({scene.tex_atlas.shape[0]} atlas "
+                f"textures) 320x180 8 spp via {d['integrator']} ({d['integrator_reason']}), "
+                f"chunk-tree form's reason {mk.unsupported_hier_reason(scene)!r}; launches "
+                f"{launch_counts()}")
+            if (d["integrator"] != want or (hier > 0) != (want == "megakernel-hier")
+                    or not np.isfinite(image).all()):
+                raise AssertionError(f"{label} under ECHO_MEGA_HIER did not take the {want}")
+    finally:
+        del os.environ["ECHO_MEGA_HIER"]
 
 
 def tile_lanes(res, dev):
@@ -1150,6 +1316,7 @@ def zero_launch_counts():
     from echorenderer_tpu_torch.ops import pallas_intersect as pi
 
     mk.sample_frame_mega.launches = mk.sample_frame_mega.launches_textured = 0
+    mk.sample_frame_mega.launches_hier = 0
     pi.dense_trace.launches = pi.dense_occlude.launches = 0
     for fn in (ph.hier_trace, ph.hier_occlude):
         fn.launches = fn.launches_instanced = 0
@@ -1168,7 +1335,8 @@ def launch_counts() -> dict:
                 setup=bt.LAUNCHES["setup"], select=bt.LAUNCHES["select"], seg=bt.LAUNCHES["seg"],
                 seg_inst=bt.LAUNCHES_INSTANCED["seg"], dense_trace=pi.dense_trace.launches,
                 dense_occlude=pi.dense_occlude.launches, mega=mk.sample_frame_mega.launches,
-                mega_textured=mk.sample_frame_mega.launches_textured)
+                mega_textured=mk.sample_frame_mega.launches_textured,
+                mega_hier=mk.sample_frame_mega.launches_hier)
 
 
 INSTANCED_PATH = ("hier_trace_inst", "hier_occlude_inst", "setup", "select", "seg_inst")
@@ -1463,6 +1631,68 @@ def instanced_phase(dev, rs, smi):
     return rows
 
 
+def mega_hier_slice(grid, res, program, walk_first, walk_mspps, main_mspps, smi) -> dict:
+    """bench.py's large configuration through the megakernel's chunk-tree
+    form: ECHO_MEGA_HIER set, counters zeroed, a warm-up and 8 timed
+    `program`s through _sample_frame (one launch each, nothing else). The
+    first timed program's sums against the walk-only first program's
+    (`walk_first`): pixels not bitwise equal, MEGA_TOL. Then the launch
+    against its plain version (compare_mega_hier, 3 timed launches). Returns
+    the kernels line's megakernel_hier entry."""
+    import os
+
+    import torch
+
+    from echorenderer_tpu_torch.evaluation.scene_ops import dispatch_summary
+    from echorenderer_tpu_torch.ops import megakernel as mk
+    from echorenderer_tpu_torch.utils.colors import luminance
+
+    n_px = res[0] * res[1]
+    os.environ["ECHO_MEGA_HIER"] = "1"
+    try:
+        summary = dispatch_summary(grid)
+        log(f"[slice] under ECHO_MEGA_HIER: dispatch {summary}")
+        if summary["integrator"] != "megakernel-hier":
+            raise AssertionError("the large scene does not dispatch to the chunk-tree form")
+        zero_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, warm_s, first, s_sum = timed_programs(program)
+        counts = launch_counts()
+        gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        del os.environ["ECHO_MEGA_HIER"]
+    mspps = n_px * 8 / sum(seconds) / 1e6
+    lum = float(luminance((s_sum / 1.0).reshape(res[1], res[0], 3)).mean())
+    t = MEGA_TOL
+    close = (first - walk_first).abs() <= t["sum_atol"] + t["sum_rtol"] * walk_first.abs()
+    differ = int((first != walk_first).any(dim=-1).sum())
+    outside = int((~close.all(dim=-1)).sum())
+    mean_diff = float((first - walk_first).mean(dim=0).abs().max())
+    log(f"[slice] chunk-tree megakernel: {mspps:.4f} Mspps over 8 programs ({n_px:,} x 8 "
+        f"samples / {sum(seconds):.4f} s; in this call the main dispatch {main_mspps:.4f}, the "
+        f"walk alone {walk_mspps:.4f}); program seconds "
+        + ", ".join(f"{x:.4f}" for x in seconds)
+        + f"; warm-up {warm_s:.3f} s; peak memory {gib:.2f} GiB; mean luminance {lum:.4f}; "
+          f"launches {counts} | {smi}")
+    log(f"[slice] chunk-tree megakernel, first timed program against the walk-only first "
+        f"program: {differ} of {n_px} pixels not bitwise equal, {outside} outside tolerance, "
+        f"mean image |diff| {mean_diff:.3g} (< {t['mean']})")
+    others = {k: v for k, v in counts.items() if k != "mega_hier"}
+    if counts["mega_hier"] != 9 or any(others.values()):
+        raise AssertionError("the chunk-tree megakernel's programs did not take its launch alone")
+    if not bool(torch.isfinite(s_sum).all()) or not 0.01 < lum < 10.0:
+        raise AssertionError(f"chunk-tree megakernel frame non-finite or mean luminance {lum}")
+    if outside > (1 - t["share"]) * n_px or not mean_diff < t["mean"]:
+        raise AssertionError("the chunk-tree megakernel disagrees with the walk-only program")
+    label = f"sphere_grid(1M) {res[0]}x{res[1]} 1 spp, the first timed program's launch"
+    err, ms, bound, _ = compare_mega_hier(label, grid, res, 1, 6, bitwise=True, start=1,
+                                          kernel_runs=3)
+    return dict(name="megakernel_hier", route="cuda", source=MEGA_SOURCE,
+                replaces=MEGA_HIER_SITE, launches=counts["mega_hier"],
+                max_abs_err=max(err, float((first - walk_first).abs().max())), ms=ms["ms"],
+                plain_ms=ms["plain_ms"], bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
 def main() -> int:
     try:
         import torch
@@ -1511,11 +1741,15 @@ def main() -> int:
             if any(w in line for w in ("registers", "Compiling entry", "spill", "warning")):
                 log(f"[build]   {line.strip()}")
     forms = ptxas_forms(builds["megakernel"].ptxas, "mega_kernel")
+    named = {}
     for name, report in forms.items():
-        form = "textured" if "ILb1E" in name else "untextured"
+        form = next((f for key, f in MEGA_FORMS.items() if key in name), None)
+        named[form] = report
         log(f"[build] megakernel {form} form ({name}): {report}")
-    if len(forms) != 2:
-        return fail(f"expected the megakernel's two forms in the ptxas report, got {forms}")
+    if set(named) != set(MEGA_FORMS.values()):
+        return fail(f"expected the megakernel's three forms in the ptxas report, got {forms}")
+    for name, report in ptxas_forms(builds["hier_walk"].ptxas, "hier_kernel").items():
+        log(f"[build] hier_kernel form ({name}): {report}")
     pi._load()
     mk._load()
     ph._load()
@@ -1661,8 +1895,18 @@ def main() -> int:
     compare_binned("sphere_grid(1M) random rays", hsoa, dict(trace=[call], occlude=[call]))
     del call, o, d, t_max, ignore
     mid = prepare_scene(scenes.sphere_grid(250_000), device=dev)
-    renders_against_dense(mid, (320, 180), 8, 6)
+    err_m, _, _, _ = renders_against_dense(mid, (320, 180), 8, 6)
     del mid
+    # the chunk-tree form with emitters, the light tree and MIS on emissive
+    # hits: many_lights(256) (many_lights(96) has 122 prims, one chunk, and
+    # a chunk tree needs two) with its tables built directly
+    lights = with_hier_tables(prepare_scene(scenes.many_lights(256), device=dev))
+    if lights.lights.tree is None or not mk.supported_hier(lights):
+        return fail("many_lights(256) has no light tree or lies outside the chunk-tree form")
+    err_l, _, _, _ = compare_mega_hier("many_lights(256) 320x180", lights, (320, 180), 8, 16,
+                                       bitwise=False)
+    del lights
+    gate_keeps_wavefront(dev, prof8)
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     # --- slice phase: the megakernel path, counters from zero ---
@@ -1796,7 +2040,8 @@ def main() -> int:
     hier = dict(trace=ph.hier_trace.launches, occlude=ph.hier_occlude.launches)
     binned = dict(bt.LAUNCHES)
     others = (pi.dense_trace.launches, pi.dense_occlude.launches,
-              mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured)
+              mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured
+              + mk.sample_frame_mega.launches_hier)
     slice_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     rounds, syncs, calls = bt.STATS["rounds"], bt.STATS["syncs"], bt.STATS["calls"]
     misses = int(bt.STATS["misses"])
@@ -1818,15 +2063,17 @@ def main() -> int:
         return fail("the large scene did not run on the binned and hier kernels alone")
     # the same programs through the walk alone (the dispatch before the
     # binned traversal), for comparison
-    saved = scene_ops._use_binned
-    scene_ops._use_binned = lambda scene: False
-    try:
-        walk_seconds, _, _, _ = timed_programs(program)
-    finally:
-        scene_ops._use_binned = saved
+    with scene_ops.walk_only():
+        walk_seconds, _, walk_first, _ = timed_programs(program)
+    walk_mspps = n_px * 8 / sum(walk_seconds) / 1e6
     log(f"[slice] for comparison, the same programs through the walk alone: "
-        f"{n_px * 8 / sum(walk_seconds) / 1e6:.4f} Mspps; program seconds "
+        f"{walk_mspps:.4f} Mspps; program seconds "
         + ", ".join(f"{t:.4f}" for t in walk_seconds) + f" | {smi}")
+    # the same programs through the megakernel's chunk-tree form, under the
+    # JAX package's gate
+    hier_row = mega_hier_slice(grid, res, program, walk_first, walk_mspps, big_mspps, smi)
+    hier_row["max_abs_err"] = max(hier_row["max_abs_err"], err_m, err_l)
+    del walk_first
     # the first timed program once more, its kernel calls recorded and every
     # binned launch checked against its plain version
     bt.reset_stats()
@@ -1872,6 +2119,7 @@ def main() -> int:
              replaces=MEGA_TEX_SITE, launches=tex_launches, max_abs_err=tex_err,
              ms=tex_ms["ms"], plain_ms=tex_ms["plain_ms"], bound_ms=tex_bound[0],
              bound_by=tex_bound[1], library_ms=None),
+        hier_row,
     ] + [
         dict(name=f"hier_{k}", route="cuda", source=HIER_SOURCE, replaces=HIER_SITE,
              launches=hier[k], max_abs_err=max(err_h[k], err_r[k]), ms=ms_h[k],

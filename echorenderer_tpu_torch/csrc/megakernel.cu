@@ -17,8 +17,22 @@
 // atlas, in scene_ops._sample_atlas's arithmetic. The untextured form
 // compiles none of it and keeps its registers.
 //
+// Large scenes take the kernel's chunk-tree form, `mega_kernel<false,
+// true>`: the TPU kernel's fat-chunk variant (`_hier_walk`,
+// megakernel.py:909, run when `hier=True`). Every traced and shadow ray
+// walks the scene's chunk tree (`echo::hier_walk` of hier_walk.cuh, the one
+// walk the chunk-tree kernels of hier_walk.cu run too) over the (C, 16, 256)
+// chunk tensor in device memory, instead of testing every prim staged in
+// shared memory; hits, ignores, shading rows and emitters' prim ids are
+// sorted slots of the chunk tree. The TPU kernel carried the shading rows
+// inside each chunk ("fat chunks", (C, 40, 256)) so that its hit merge could
+// capture them without an O(P) one-hot gather; here the winning slot's rows
+// are one indexed load from the per-slot shading table, the same values. The
+// JAX package leaves textures out of that variant, and so does this form.
+//
 // What bounds it on the H100: float work. Every traced and shadow ray tests
-// every prim of the scene (about 45 flops a triangle, 21 a sphere), and
+// every prim of the scene (the chunk-tree form: the prims of every chunk
+// the walk enters) (about 45 flops a triangle, 21 a sphere), and
 // every bounce runs the shading (BSDF, light sample, RNG hashes); the only
 // device-memory traffic is the pixel identities in and the sums out, plus
 // table rows that stay in L1/L2. Design, against that:
@@ -51,13 +65,16 @@
 //
 // C interface (loaded with ctypes): `megakernel(ptrs, ints, survivability,
 // stream)`, with the table pointers and integer settings in the order of
-// `Params` below; returns cudaGetLastError() after the launch.
+// `Params` below, and `megakernel_hier(ptrs, ints, hier_ptrs, root_code,
+// survivability, stream)` for the chunk-tree form (hier_ptrs: chunks,
+// node bounds, node codes); each returns cudaGetLastError() after the
+// launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "intersect.cuh"
+#include "hier_walk.cuh"
 
 namespace {
 
@@ -117,6 +134,7 @@ struct Params {
   int padded, has_tri, has_sph, present, n_lights, n_emissive, tree_depth;
   int n_tex, tex_res, has_ntex, has_rtex;
   float survivability;
+  echo::HierTables hier;  // the chunk tree (the chunk-tree form only)
 };
 
 // ---------------------------------------------------------------------------
@@ -922,17 +940,47 @@ __device__ __forceinline__ bool occlude_rows(const float* rows, int padded, cons
   return false;
 }
 
-__device__ int trace(const Params& p, const float* rows, const Ray& r, float& t, float& u,
-                     float& v) {
-  if (p.has_tri && p.has_sph) return trace_rows<true, true>(rows, p.padded, r, t, u, v);
-  if (p.has_tri) return trace_rows<true, false>(rows, p.padded, r, t, u, v);
-  return trace_rows<false, true>(rows, p.padded, r, t, u, v);
+// closest hit and any hit over the chunk tree (the chunk-tree form)
+template <bool HAS_TRI, bool HAS_SPH>
+__device__ __forceinline__ int trace_tree(const Params& p, const Ray& r, float& best_t,
+                                          float& best_u, float& best_v) {
+  const echo::HierHit h = echo::hier_walk<HAS_TRI, HAS_SPH, false, false>(p.hier, r, -1);
+  best_t = h.t;
+  best_u = h.u;
+  best_v = h.v;
+  return h.prim;
 }
 
+template <bool HAS_TRI, bool HAS_SPH>
+__device__ __forceinline__ bool occlude_tree(const Params& p, const Ray& r) {
+  return echo::hier_walk<HAS_TRI, HAS_SPH, true, false>(p.hier, r, -1).blocked;
+}
+
+template <bool HIER>
+__device__ int trace(const Params& p, const float* rows, const Ray& r, float& t, float& u,
+                     float& v) {
+  if constexpr (HIER) {
+    if (p.has_tri && p.has_sph) return trace_tree<true, true>(p, r, t, u, v);
+    if (p.has_tri) return trace_tree<true, false>(p, r, t, u, v);
+    return trace_tree<false, true>(p, r, t, u, v);
+  } else {
+    if (p.has_tri && p.has_sph) return trace_rows<true, true>(rows, p.padded, r, t, u, v);
+    if (p.has_tri) return trace_rows<true, false>(rows, p.padded, r, t, u, v);
+    return trace_rows<false, true>(rows, p.padded, r, t, u, v);
+  }
+}
+
+template <bool HIER>
 __device__ bool occlude(const Params& p, const float* rows, const Ray& r) {
-  if (p.has_tri && p.has_sph) return occlude_rows<true, true>(rows, p.padded, r);
-  if (p.has_tri) return occlude_rows<true, false>(rows, p.padded, r);
-  return occlude_rows<false, true>(rows, p.padded, r);
+  if constexpr (HIER) {
+    if (p.has_tri && p.has_sph) return occlude_tree<true, true>(p, r);
+    if (p.has_tri) return occlude_tree<true, false>(p, r);
+    return occlude_tree<false, true>(p, r);
+  } else {
+    if (p.has_tri && p.has_sph) return occlude_rows<true, true>(rows, p.padded, r);
+    if (p.has_tri) return occlude_rows<true, false>(rows, p.padded, r);
+    return occlude_rows<false, true>(rows, p.padded, r);
+  }
 }
 
 __device__ __forceinline__ Ray make_ray(V3 o, V3 d, float tmax, int ignore) {
@@ -1008,7 +1056,7 @@ __device__ void spawn(const Params& p, const float* cam, const Pixel& q, uint32_
   d = d / lo_clamp(sqrtf(dot(d, d)), 1e-20f);
 }
 
-template <bool TEX>
+template <bool TEX, bool HIER>
 __device__ void run_lane(const Params& p, const float* rows, int lane) {
   constexpr int SPW = TEX ? SP_TEX : SP, MTW = TEX ? MT_TEX : MT;
   const float* cam = p.cam;
@@ -1040,7 +1088,7 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
   for (;;) {
     const uint32_t sid = q.s0 + sample;
     float hit_t, hit_u, hit_v;
-    const int hit = trace(p, rows, make_ray(o, d, kInf, ignore), hit_t, hit_u, hit_v);
+    const int hit = trace<HIER>(p, rows, make_ray(o, d, kInf, ignore), hit_t, hit_u, hit_v);
     bool continues = false;
     V3 new_tp, cont_o, wi_world, point;
     float bs_pdf = 0.0f;
@@ -1171,7 +1219,7 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
         if (candidate) {
           const V3 shadow_o = offset_origin(point, geo_n, ls.incident);
           const float shadow_t = ls.travel >= kInf ? kInf : ls.travel * kShadowScale;
-          if (!occlude(p, rows, make_ray(shadow_o, ls.incident, shadow_t, hit))) {
+          if (!occlude<HIER>(p, rows, make_ray(shadow_o, ls.incident, shadow_t, hit))) {
             float mis_w = ls.use_mis ? power_heuristic(nee_pdf, scatter_pdf) : 1.0f;
             V3 nee = ls.radiant * f_l * (mis_w / lo_clamp(nee_pdf, 1e-20f));
             radiance = radiance + throughput * nee;
@@ -1240,39 +1288,39 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
   }
 }
 
-template <bool TEX>
+// TEX: the texture stage; HIER: the chunk-tree form, which stages no prims
+// (used with TEX = false only)
+template <bool TEX, bool HIER>
 __global__ void __launch_bounds__(kBlock) mega_kernel(Params p) {
   extern __shared__ float rows[];
-  const int total = 10 * p.padded;
-  for (int i = threadIdx.x; i < total; i += kBlock) rows[i] = p.prims[i];
-  __syncthreads();
+  if constexpr (!HIER) {
+    const int total = 10 * p.padded;
+    for (int i = threadIdx.x; i < total; i += kBlock) rows[i] = p.prims[i];
+    __syncthreads();
+  }
   const int lane = blockIdx.x * kBlock + threadIdx.x;
-  if (lane < p.n_lanes) run_lane<TEX>(p, rows, lane);
+  if (lane < p.n_lanes) run_lane<TEX, HIER>(p, rows, lane);
 }
 
-template <bool TEX>
+template <bool TEX, bool HIER>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 10 * (size_t)p.padded;
+  const size_t smem = HIER ? 0 : sizeof(float) * 10 * (size_t)p.padded;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(mega_kernel<TEX>,
+    cudaError_t err = cudaFuncSetAttribute(mega_kernel<TEX, HIER>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((p.n_lanes + kBlock - 1) / kBlock), block(kBlock);
-  mega_kernel<TEX><<<grid, block, smem, stream>>>(p);
+  mega_kernel<TEX, HIER><<<grid, block, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
-
-}  // namespace
 
 // ptrs: prims sp mat light epack tree tl cam pid pxy s0 s_sum s_sq atlas
 // ints: n n_lanes k_slots count bounce_limit width height seed padded
 //       has_tri has_sph present n_lights n_emissive tree_depth n_tex tex_res
 //       has_ntex has_rtex
-// A scene with atlas textures (n_tex > 0) runs the textured form.
-extern "C" int megakernel(void* const* ptrs, const int* ints, float survivability,
-                          void* stream) {
+Params params(void* const* ptrs, const int* ints, float survivability) {
   Params p;
   p.prims = static_cast<const float*>(ptrs[0]);
   p.sp = static_cast<const float*>(ptrs[1]);
@@ -1308,6 +1356,29 @@ extern "C" int megakernel(void* const* ptrs, const int* ints, float survivabilit
   p.has_ntex = ints[17];
   p.has_rtex = ints[18];
   p.survivability = survivability;
+  p.hier = echo::HierTables{nullptr, nullptr, nullptr, 0, nullptr, nullptr};
+  return p;
+}
+
+}  // namespace
+
+// A scene with atlas textures (n_tex > 0) runs the textured form.
+extern "C" int megakernel(void* const* ptrs, const int* ints, float survivability,
+                          void* stream) {
+  const Params p = params(ptrs, ints, survivability);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return p.n_tex > 0 ? launch<true>(p, s) : launch<false>(p, s);
+  return p.n_tex > 0 ? launch<true, false>(p, s) : launch<false, false>(p, s);
+}
+
+// The chunk-tree form: ptrs and ints as megakernel's (prims and atlas
+// unused, the shading rows and emitters' prim ids in the tree's sorted
+// slots), hier_ptrs the tree's chunks (C, 16, 256), node bounds and node
+// codes. The wrapper checks the tree's stack size against echo::kHierStack.
+extern "C" int megakernel_hier(void* const* ptrs, const int* ints, void* const* hier_ptrs,
+                               int root_code, float survivability, void* stream) {
+  Params p = params(ptrs, ints, survivability);
+  p.hier = echo::HierTables{static_cast<const float*>(hier_ptrs[0]),
+                            static_cast<const float*>(hier_ptrs[1]),
+                            static_cast<const int*>(hier_ptrs[2]), root_code, nullptr, nullptr};
+  return launch<false, true>(p, static_cast<cudaStream_t>(stream));
 }

@@ -8,7 +8,16 @@ least HIER_TRACE_MIN padded prims take the binned traversal
 (ops/binned_trace.py), except for a population marked `coherent` (the
 wavefront's first wave: camera rays in tile-major order and their shadow
 rays), which takes the chunk-tree walk (ops/pallas_hier.py); every other
-scene takes the dense chunk kernels of ops/pallas_intersect.py.
+scene takes the dense chunk kernels of ops/pallas_intersect.py. Inside
+`walk_only()` every population of a flat scene with chunk-tree tables
+takes the walk, whatever its size (the plain version of the megakernel's
+chunk-tree form, and the dispatch before the binned traversal).
+
+Integrator rule (`dispatch_summary`): a CUDA scene inside the
+megakernel's envelope takes the fused kernel; with `ECHO_MEGA_HIER` set
+in the environment, a CUDA scene outside it but inside the chunk-tree
+form's envelope takes that form (`_use_mega_hier`, the JAX package's
+gate); every other frame runs the wavefront.
 
 TLAS-instanced scenes (`scene.instances`) keep their packs in pack space,
 so every ray takes the instanced walk or, from HIER_TRACE_MIN unrolled
@@ -26,7 +35,9 @@ several (`eval_infinite`, `env_pdf`, `sample_light`).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -55,16 +66,42 @@ LINEAR_THRESHOLD = 32
 HIER_TRACE_MIN = 65536
 
 
+# set by walk_only()
+_WALK_ONLY = False
+
+
 def _use_hier(scene: PreparedScene) -> bool:
     return (scene.hier_soa is not None and scene.prim_soa is not None
-            and scene.prim_soa.padded >= HIER_TRACE_MIN)
+            and (_WALK_ONLY or scene.prim_soa.padded >= HIER_TRACE_MIN))
 
 
 def _use_binned(scene: PreparedScene) -> bool:
     """The binned traversal takes every population but the coherent one
-    wherever the chunk tree would (tests patch this off to run the walk
-    alone, as the JAX package's ECHO_NO_BINNED does)."""
-    return _use_hier(scene)
+    wherever the chunk tree would, outside `walk_only()`."""
+    return not _WALK_ONLY and _use_hier(scene)
+
+
+@contextlib.contextmanager
+def walk_only():
+    """While open, every trace and occlude of a flat scene with chunk-tree
+    tables goes to the walk, whatever the scene's size: no population is
+    binned, as under the JAX package's ECHO_NO_BINNED. The plain version of
+    the megakernel's chunk-tree form runs the wavefront so; so does the
+    comparison of the binned dispatch with the walk."""
+    global _WALK_ONLY
+    saved, _WALK_ONLY = _WALK_ONLY, True
+    try:
+        yield
+    finally:
+        _WALK_ONLY = saved
+
+
+def _use_mega_hier(scene: PreparedScene) -> bool:
+    """The JAX package's gate of the megakernel's chunk-tree form: a CUDA
+    scene outside the megakernel's envelope but inside the chunk-tree
+    form's, with ECHO_MEGA_HIER set. Off by default."""
+    return (scene.device.type == "cuda" and not megakernel.supported(scene)
+            and megakernel.supported_hier(scene) and bool(os.environ.get("ECHO_MEGA_HIER")))
 
 
 def _use_binned_instanced(scene: PreparedScene) -> bool:
@@ -115,6 +152,8 @@ def dispatch_summary(scene: PreparedScene, return_stats: bool = False) -> dict:
         integ, iwhy = "wavefront", "stats render (megakernel bypassed)"
     elif megakernel.supported(scene):
         integ, iwhy = "megakernel", "fully fused trace+shade"
+    elif _use_mega_hier(scene):
+        integ, iwhy = "megakernel-hier", "ECHO_MEGA_HIER fat-chunk kernel"
     else:
         integ = "wavefront"
         iwhy = megakernel.unsupported_reason(scene) or "outside megakernel envelope"

@@ -11,8 +11,10 @@ streams; all physics is `integrators.path_step`.
 `sample_frame_wavefront` is the dispatch: a CUDA scene inside the
 megakernel's envelope, rendered without stats, goes to the fused kernel
 (ops/megakernel.py), which computes the same draws and physics in one
-launch; every other frame runs the wavefront loop, `run_wavefront`, which
-narrows its waves as lanes finish their samples (the liveness cascade).
+launch, and under ECHO_MEGA_HIER a larger one inside the chunk-tree
+form's envelope to that form (`scene_ops._use_mega_hier`); every other
+frame runs the wavefront loop, `run_wavefront`, which narrows its waves as
+lanes finish their samples (the liveness cascade).
 """
 
 from __future__ import annotations
@@ -55,10 +57,12 @@ def sample_frame_wavefront(
     of shape (N, 3); with return_stats also a dict of event counters and
     the iteration count (the wavefront's own, so such a frame never takes
     the megakernel)."""
-    if dispatch_summary(scene, return_stats)["integrator"] == "megakernel":
+    integrator = dispatch_summary(scene, return_stats)["integrator"]
+    if integrator in ("megakernel", "megakernel-hier"):
         return megakernel.sample_frame_mega(
             scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
             bounce_limit=bounce_limit, survivability=survivability,
+            hier=integrator == "megakernel-hier",
         )
     return run_wavefront(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
                          bounce_limit=bounce_limit, survivability=survivability,

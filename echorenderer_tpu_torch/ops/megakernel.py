@@ -23,10 +23,23 @@ scene adds the JAX kernel's uv rows and texture-id rows, and the atlas
 itself as the texel table (the JAX kernel's channel-major (3R, A*R) bf16
 layout exists for the TPU's one-hot matrix fetch; a gather reads
 (A, R, R, 4)); the launch then takes the kernel's textured form.
+
+`hier=True` runs the kernel's chunk-tree form, the TPU kernel's fat-chunk
+variant (`_hier_walk`, echorenderer_tpu/ops/megakernel.py:909): every ray
+walks the scene's chunk tree (`hier_soa`) instead of testing every prim,
+so a scene of any size fits. Its envelope is the JAX package's
+`supported_hier`: chunk-tree tables, no instancing, no textures, no env
+map, the same light, tree and camera limits. The shading table is built
+in the tree's sorted slots (the JAX kernel's fat-chunk rows 16-32, without
+the chunks); hits, ignores and emitters' prim ids are those slots. Its
+plain version is the wavefront with every wave on the chunk-tree walk
+(`scene_ops.walk_only`). The render path takes it only behind the JAX
+package's gate, `ECHO_MEGA_HIER` (`scene_ops._use_mega_hier`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -37,6 +50,7 @@ from ..scene.cameras import PERSPECTIVE
 from ..scene.prepare import LIGHT_AMBIENT, LIGHT_DIRECTIONAL, LIGHT_POINT
 from ..utils.rng import as_u32
 from . import cuda_build
+from .pallas_hier import check_tables
 from .pallas_intersect import PRIM_BLOCK
 
 MEGA_PRIM_LIMIT = 2048  # padded prims: 10 rows of them fit a block's shared memory
@@ -99,6 +113,34 @@ def supported(scene) -> bool:
     return unsupported_reason(scene) is None
 
 
+def unsupported_hier_reason(scene) -> str | None:
+    """Why the chunk-tree form does not take `scene` (None when it does):
+    the JAX package's `supported_hier`, a reason for each refusal."""
+    tree = scene.lights.tree
+    soa = scene.hier_soa
+    if soa is None:
+        return "no chunk-tree tables"
+    if soa.instanced or scene.instances is not None:
+        return "TLAS instancing"
+    if tree is not None and tree.max_depth > MEGA_TREE_DEPTH:
+        return f"light tree deeper than {MEGA_TREE_DEPTH}"
+    if scene.env_maps:
+        return "environment map (importance sampling is wavefront-only)"
+    if scene.tex_atlas.shape[0]:
+        return "textures (the chunk-tree form has no texture stage)"
+    if scene.camera.kind != PERSPECTIVE:
+        return "non-perspective camera"
+    if (scene.lights.num_lights > MEGA_LIGHT_LIMIT
+            or scene.emissive_pack.shape[0] > MEGA_LIGHT_LIMIT):
+        return f"more than {MEGA_LIGHT_LIMIT} lights"
+    return None
+
+
+def supported_hier(scene) -> bool:
+    """Whether the scene lies inside the chunk-tree form's envelope."""
+    return unsupported_hier_reason(scene) is None
+
+
 def _pad8(n: int) -> int:
     return -(-max(n, 1) // 8) * 8
 
@@ -110,13 +152,15 @@ def _pad_cols(t, width, fill=0.0):
     return torch.cat([t, pad], dim=-1)
 
 
-def _build_tables(scene):
+def _build_tables(scene, hier: bool = False):
     """The kernel's tables in the JAX kernel's (rows, columns) layouts:
     (spT, matT, lightT, epackT, treeT, tlT, texT, cam_row), tree tables
     None without a light tree; texT is the (A, R, R, 4) atlas of a textured
-    scene, else None."""
+    scene, else None. `hier`: shading rows and emitters' prim ids in the
+    chunk tree's sorted slots, spT padded to its chunks (the JAX kernel's
+    fat-chunk rows 16-32, slot by slot)."""
     f32 = torch.float32
-    soa = scene.prim_soa
+    soa = scene.hier_soa if hier else scene.prim_soa
     p_pad = soa.padded
     order = soa.order.long()
 
@@ -182,7 +226,7 @@ def _build_tables(scene):
     e_pad = _pad8(n_e)
     if n_e:
         eprim = lt.emissive_prim.long()
-        sprim = soa.inv_order.long()[eprim] if p_pad > PRIM_BLOCK else eprim
+        sprim = soa.inv_order.long()[eprim] if hier or p_pad > PRIM_BLOCK else eprim
         epackT = _pad_cols(torch.cat([ep[:, 0:17].T, sprim.to(f32)[None, :]], 0), e_pad)
     else:
         epackT = torch.zeros((EP_ROWS, e_pad), dtype=f32, device=sp.device)
@@ -209,13 +253,17 @@ def _build_tables(scene):
 
 def sample_frame_mega_plain(scene, pixel_id, pixel_xy, resolution, seed, sample_start,
                             count: int, *, bounce_limit: int = 128,
-                            survivability: float = 2.5, k_slots: int | None = None):
+                            survivability: float = 2.5, hier: bool = False,
+                            k_slots: int | None = None):
     """The plain PyTorch version: the port's wavefront on the same lanes
-    (NEE and MIS on, no stats). `k_slots` changes no sum and is ignored."""
+    (NEE and MIS on, no stats); with `hier`, every wave of it on the
+    chunk-tree walk. `k_slots` changes no sum and is ignored."""
+    from ..evaluation.scene_ops import walk_only
     from ..evaluation.wavefront import run_wavefront
 
-    return run_wavefront(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
-                         bounce_limit=bounce_limit, survivability=survivability)
+    with walk_only() if hier else contextlib.nullcontext():
+        return run_wavefront(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
+                             bounce_limit=bounce_limit, survivability=survivability)
 
 
 _lib = None
@@ -228,6 +276,9 @@ def _load():
         lib.megakernel.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                                    ctypes.c_void_p]
         lib.megakernel.restype = ctypes.c_int
+        lib.megakernel_hier.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.megakernel_hier.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -244,12 +295,14 @@ class KernelArgs(NamedTuple):
     #             has_ntex has_rtex
     s_sum: torch.Tensor
     s_sq: torch.Tensor
+    hier_ptrs: list | None = None  # the chunk-tree form: chunks, node bounds, node codes
 
 
 def _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
-                 bounce_limit, k_slots) -> KernelArgs:
+                 bounce_limit, k_slots, hier: bool = False) -> KernelArgs:
     """Tables, lanes, outputs and integer settings of one launch, in the
-    order of the C interface of csrc/megakernel.cu."""
+    order of the C interface of csrc/megakernel.cu; `hier` for its
+    chunk-tree form (no prim rows: ptrs[0] is 0)."""
     dev = scene.device
     n = int(pixel_id.shape[0])
     k = 1 if k_slots is None else int(k_slots)
@@ -268,14 +321,16 @@ def _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, coun
     s0 = i32(sample_start).expand(n).contiguous()
     if pxy.shape != (n, 2):
         raise ValueError(f"pixel_xy must be ({n}, 2), got {tuple(pxy.shape)}")
-    spT, matT, lightT, epackT, treeT, tlT, texT, cam_row = _build_tables(scene)
-    tables = [scene.prim_soa.rows.contiguous()] + [
+    soa = scene.hier_soa if hier else scene.prim_soa
+    if hier:
+        check_tables(soa)
+    spT, matT, lightT, epackT, treeT, tlT, texT, cam_row = _build_tables(scene, hier)
+    tables = [None if hier else soa.rows.contiguous()] + [
         None if t is None else t.T.contiguous() for t in (spT, matT, lightT, epackT, treeT, tlT)
     ] + [cam_row]
     s_sum = torch.empty((n, 3), dtype=torch.float32, device=dev)
     s_sq = torch.empty_like(s_sum)
     lt = scene.lights
-    soa = scene.prim_soa
     tree = lt.tree
     if texT is not None and (texT.dtype != torch.float32 or texT.dim() != 4
                              or texT.shape[1] != texT.shape[2] or texT.shape[3] != 4):
@@ -294,12 +349,14 @@ def _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, coun
         0 if texT is None else int(texT.shape[0]), 0 if texT is None else int(texT.shape[1]),
         int(texT is not None and flags[1]), int(texT is not None and flags[2]),
     ]
-    return KernelArgs(tensors, ptrs, ints, s_sum, s_sq)
+    hier_ptrs = [soa.prim_chunks.data_ptr(), soa.bounds.data_ptr(),
+                 soa.codes.data_ptr()] if hier else None
+    return KernelArgs(tensors, ptrs, ints, s_sum, s_sq, hier_ptrs)
 
 
 def sample_frame_mega(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count: int,
                       *, bounce_limit: int = 128, survivability: float = 2.5,
-                      k_slots: int | None = None):
+                      hier: bool = False, k_slots: int | None = None):
     """Accumulate `count` path samples for each of the N lanes (pixel ids
     (N,), pixel coordinates (N, 2), first sample index scalar or (N,),
     wrapping as a 32-bit word). Returns (sum, sum_sq), each (N, 3).
@@ -309,36 +366,48 @@ def sample_frame_mega(scene, pixel_id, pixel_xy, resolution, seed, sample_start,
     warp scheduler balances the per-thread tail that K slots averaged on
     the TPU. Per-pixel sums are bitwise the same for every K.
 
+    `hier`: the kernel's chunk-tree form (the JAX package's fat-chunk
+    variant), for scenes inside `supported_hier`.
+
     A CPU scene runs the plain version; a CUDA scene launches the kernel
     or raises."""
     dev = scene.device
     if dev.type == "cpu":
         return sample_frame_mega_plain(scene, pixel_id, pixel_xy, resolution, seed,
                                        sample_start, count, bounce_limit=bounce_limit,
-                                       survivability=survivability)
+                                       survivability=survivability, hier=hier)
     if dev.type != "cuda":
         raise ValueError(f"sample_frame_mega runs on CUDA or CPU scenes, not {dev}")
-    reason = unsupported_reason(scene)
+    reason = unsupported_hier_reason(scene) if hier else unsupported_reason(scene)
     if reason is not None:
-        raise ValueError(f"scene outside the megakernel's envelope: {reason}")
+        form = "chunk-tree form's" if hier else "megakernel's"
+        raise ValueError(f"scene outside the {form} envelope: {reason}")
     args = _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
-                        bounce_limit, k_slots)
+                        bounce_limit, k_slots, hier)
     s_sum, s_sq = args.s_sum, args.s_sq
     if s_sum.shape[0] == 0:
         return s_sum, s_sq
     ptrs, ints = args.ptrs, args.ints
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
-    err = _load().megakernel(c_ptrs, c_ints, float(survivability),
-                             torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if hier:
+        c_hier = (ctypes.c_void_p * 3)(*args.hier_ptrs)
+        err = _load().megakernel_hier(c_ptrs, c_ints, c_hier, scene.hier_soa.root_code,
+                                      float(survivability), stream)
+    else:
+        err = _load().megakernel(c_ptrs, c_ints, float(survivability), stream)
     if err:
         raise RuntimeError(f"megakernel launch failed: cudaError {err}")
-    if args.ints[15]:  # atlas textures: the textured form ran
+    if hier:
+        sample_frame_mega.launches_hier += 1
+    elif args.ints[15]:  # atlas textures: the textured form ran
         sample_frame_mega.launches_textured += 1
     else:
         sample_frame_mega.launches += 1
     return s_sum, s_sq
 
 
-# launches of the kernel: the untextured and the textured form
+# launches of the kernel: the untextured, the textured and the chunk-tree form
 sample_frame_mega.launches = sample_frame_mega.launches_textured = 0
+sample_frame_mega.launches_hier = 0

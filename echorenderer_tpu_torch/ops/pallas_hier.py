@@ -72,7 +72,7 @@ BINNED_SUP = 16
 # global chunk count above which the binned tables stay empty (the chunk id
 # field of a candidate key holds 20 bits)
 BINNED_MAX_CHUNKS = 1 << 20
-MAX_STACK = 64  # per-thread stack entries of csrc/hier_walk.cu (kStack)
+MAX_STACK = 64  # per-thread stack entries of csrc/hier_walk.cuh (kHierStack)
 SLOT_LIMIT = 2 ** 24  # the TPU kernel carries sorted slots as f32: exact below
 PLAIN_SLICE = 2 ** 16  # rays per pass of the plain version
 
@@ -546,6 +546,24 @@ def _load():
     return _lib
 
 
+def check_tables(soa: HierSoA):
+    """Raise unless the walk of csrc/hier_walk.cuh takes these tables as
+    they are (the walk kernels and the megakernel's chunk-tree form)."""
+    if not all(x.is_contiguous() for x in (soa.prim_chunks, soa.bounds, soa.codes)):
+        raise ValueError("the hier kernels need contiguous inputs")
+    if soa.prim_chunks.dtype != torch.float32 or soa.prim_chunks.shape[1:] != (16, HCHUNK):
+        raise ValueError(f"prim_chunks must be (C, 16, {HCHUNK}) float32")
+    if soa.bounds.dtype != torch.float32 or soa.codes.dtype != torch.int32:
+        raise ValueError("node bounds must be float32 and codes int32")
+    if soa.root_code < 0 and not soa.instanced:
+        raise ValueError("the chunk tree's root must be an interior node")
+    if soa.stack_size > MAX_STACK:
+        raise ValueError(f"the chunk tree needs a stack of {soa.stack_size} entries; the "
+                         f"kernel holds {MAX_STACK}")
+    if soa.padded >= SLOT_LIMIT:
+        raise ValueError(f"{soa.padded} padded prims: sorted slots must stay below 2**24")
+
+
 def _check_inputs(rays, ignore, soa: HierSoA, ign_inst):
     if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7:
         raise ValueError(f"rays must be (7, N) float32, got {tuple(rays.shape)} {rays.dtype}")
@@ -566,17 +584,7 @@ def _check_inputs(rays, ignore, soa: HierSoA, ign_inst):
         raise ValueError("rays, ignore and the hier tables must share one device")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("the hier kernels need contiguous inputs")
-    if soa.prim_chunks.dtype != torch.float32 or soa.prim_chunks.shape[1:] != (16, HCHUNK):
-        raise ValueError(f"prim_chunks must be (C, 16, {HCHUNK}) float32")
-    if soa.bounds.dtype != torch.float32 or soa.codes.dtype != torch.int32:
-        raise ValueError("node bounds must be float32 and codes int32")
-    if soa.root_code < 0 and not soa.instanced:
-        raise ValueError("the chunk tree's root must be an interior node")
-    if soa.stack_size > MAX_STACK:
-        raise ValueError(f"the chunk tree needs a stack of {soa.stack_size} entries; the "
-                         f"kernel holds {MAX_STACK}")
-    if soa.padded >= SLOT_LIMIT:
-        raise ValueError(f"{soa.padded} padded prims: sorted slots must stay below 2**24")
+    check_tables(soa)
     if rays.shape[1] >= 2 ** 31:
         raise ValueError("too many rays for int32 indexing")
 

@@ -3,7 +3,8 @@ profiles, the path-traced frame sampler and the epoch loop with per-pixel
 Welford accumulation.
 
 This package runs the "path" evaluator, full-frame epochs only: through
-the fused megakernel for CUDA scenes inside its envelope, otherwise
+the fused megakernel for CUDA scenes inside its envelope (and, under
+ECHO_MEGA_HIER, larger ones inside its chunk-tree form's), otherwise
 through the regenerating wavefront. Adaptive per-pixel epochs and the
 composition stack raise NotImplementedError until they are ported.
 """
@@ -74,7 +75,8 @@ def _sample_frame(scene: PreparedScene, evaluator: str, resolution, seed, sample
     # megakernel has no per-iteration cost to spread, and chains would only
     # shorten each thread's run of samples: one chain when it takes the frame
     chains = 1
-    mega = dispatch_summary(scene, return_stats)["integrator"] == "megakernel"
+    integrator = dispatch_summary(scene, return_stats)["integrator"]
+    mega = integrator in ("megakernel", "megakernel-hier")
     for k in () if mega else (4, 2):
         if count % k == 0 and n * k <= MAX_LANES:
             chains = k

@@ -361,9 +361,9 @@ def test_slice_matches_jax(grid_pair, monkeypatch):
     assert calls["hier"] == 2 and bt.STATS["calls"] > 0  # the first wave, then binned
     close_to_jax(s.numpy(), s2.numpy())
 
-    monkeypatch.setattr(tscene_ops, "_use_binned", lambda scene: False)
-    assert tscene_ops.dispatch_summary(tscene)["accelerator"] == "hier-packet"
-    b, b2 = twave.sample_frame_wavefront(tscene, *args, **kw)
+    with tscene_ops.walk_only():
+        assert tscene_ops.dispatch_summary(tscene)["accelerator"] == "hier-packet"
+        b, b2 = twave.sample_frame_wavefront(tscene, *args, **kw)
     assert calls["hier"] > 2
     assert (ph.hier_trace.launches, ph.hier_occlude.launches) == launches  # CPU: no kernel
     b, b2 = b.numpy(), b2.numpy()

@@ -7,6 +7,7 @@ on one NVIDIA GPU under torch.profiler.
     python3 tools/torch_profile.py --spp 8 --wavefront   # the wavefront's frame
     python3 tools/torch_profile.py --tris 1000000 --res 1920x1080 --spp 1 --bounce 6
     python3 tools/torch_profile.py --instanced --res 1920x1080 --spp 1 --bounce 6
+    ECHO_MEGA_HIER=1 python3 tools/torch_profile.py --tris 1000000 --res 1920x1080 --spp 1 --bounce 6
 
 The scene is sphere_field(count) (bench.py's scene at the default 80),
 rendered through `render_layer` for one epoch of `spp` samples at bounce
@@ -19,7 +20,9 @@ wavefront; from 65,536 padded prims on its first wave takes the chunk-tree
 walk and every later wave the binned traversal). With `--instanced` the
 scene is instanced_sphere_grids() prepared with instancing="tlas" (4
 placements of a 123,008-triangle pack: the instanced walk, then the
-instanced binned traversal), an epoch one program as with `--tris`.
+instanced binned traversal), an epoch one program as with `--tris`. Under
+ECHO_MEGA_HIER, `--tris` programs take the megakernel's chunk-tree form
+(one launch each) instead of the wavefront.
 Prints the card's name and power limit, the wall time of two unprofiled
 epochs after a warm-up, then for one profiled epoch: its wall time, the
 device's busy time (sum of kernel and copy times) and idle share, device
