@@ -47,7 +47,12 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        the bytes each launch needs: the records of live pairs, the new keys
        of refilling rays) and the median per call, the plain version's,
        launches, rounds and host reads per call, and torch.sort of setup's
-       key matrix as its yardstick (the ranking step only);
+       key matrix as its yardstick (the ranking step only); every seg
+       launch also runs the seg kernel's exact form (seg_hits: t, prim, u, v
+       per pair, the JAX package's `_seg_kernel(keyed=False)`, which no
+       render path calls) on the same pairs, bitwise against its plain
+       version and against the keyed result (the same hit or miss, the
+       key's band on every found pair, prim ties within one band counted);
      - sphere_grid(250_000) at 320x180, 8 spp, bounce 6 rendered through
        the hier kernels alone (`scene_ops.walk_only`), through the main
        dispatch (first wave on the walk, the rest binned) and through the
@@ -125,10 +130,27 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      TLAS render against the baked one (mean |tlas - bake| / mean(bake) <
      0.02, tests/test_instancing.py's bound) of 1,001 instances of a
      two-sphere pack (binned) and of instanced_grid(side=3) (the walk),
-     320x180, 8 spp, bounce 6. The kernels line adds hier_trace[instanced],
-     hier_occlude[instanced] and binned_seg[instanced] (the instanced forms
-     of hier_kernel and seg_kernel) from this program.
-  7. summary: a JSON line of the kernels, then the last line
+     320x180, 8 spp, bounce 6. The instanced seg launches are held to the
+     exact form as in the kernel phase. The kernels line adds
+     hier_trace[instanced], hier_occlude[instanced], binned_seg[instanced]
+     (the instanced forms of hier_kernel and seg_kernel) and
+     binned_seg_exact_instanced from this program.
+  7. plucker: the Plücker micro-benchmark's kernels
+     (echorenderer_tpu_torch.benchmarks.plucker_micro, csrc/plucker.cu) at
+     2^20 rays against its 256-triangle soup, counters zeroed: its numerics
+     as its main() drives them (1 MT launch, 2 each of the Plücker form at
+     HIGHEST and DEFAULT), every key array bitwise against its plain
+     version, the agreement of each Plücker form with MT (key agreement,
+     prim flips, hit/miss flips, largest relative t gap) in the scene frame
+     and the chunk-local frame; per kernel the median ms on the chunk-local
+     inputs, the plain ms, the bound (MT: 45 flops a (ray, triangle);
+     Plücker: 45 a pair at 67 TFLOP/s, or at DEFAULT its 44 product flops
+     at the bf16 tensor-core rate and the division at 67 TFLOP/s) and, for
+     the Plücker form, torch.matmul of its two products alone as a
+     yardstick. The kernels line adds plucker_mt, plucker_plk_highest and
+     plucker_plk_default; binned_seg_exact counts the exact launches of
+     the large-scene program's check above.
+  8. summary: a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -171,6 +193,9 @@ BINNED_SOURCE = "echorenderer_tpu_torch/csrc/binned.cu"
 BINNED_SITES = dict(setup="echorenderer_tpu/ops/binned_trace.py:552",
                     select="echorenderer_tpu/ops/binned_trace.py:402",
                     seg="echorenderer_tpu/ops/binned_trace.py:117")
+# what BinnedCheck records: the three kernels, the seg kernel's instanced
+# form, and its exact form (seg_hits) flat and instanced
+BINNED_KINDS = ("setup", "select", "seg", "seg_instanced", "seg_exact", "seg_exact_instanced")
 # float ops of one ray-box slab test (6 subtractions, 6 products, 10 mins
 # and maxes; compares not counted), counted from csrc/intersect.cuh
 FLOPS_SLAB = 22
@@ -179,6 +204,15 @@ FLOPS_SLAB = 22
 # of the origin and the direction), and of the instanced sphere test's
 # extra quadratic terms (not counted)
 FLOPS_XFORM = 18
+PEAK_BF16 = 989e12  # H100 SXM bf16 on the tensor cores, dense (data sheet)
+PLUCKER_SOURCE = "echorenderer_tpu_torch/csrc/plucker.cu"
+PLUCKER_SITES = dict(mt="benchmarks/plucker_micro.py:79", plk="benchmarks/plucker_micro.py:142")
+# the Plücker form's least float work for one (ray, triangle) pair, counted
+# from csrc/plucker.cu without its products by structural zeros: three edge
+# volumes of 6 products and 5 sums, n.d of 3 and 2, nv0 - n.o of 3 and 3,
+# the division (the kernel's 8- and 4-term sums do 58); per ray m = o x d, 9
+PLUCKER_PRODUCT_FLOPS = 44
+PLUCKER_RAY_FLOPS = 9
 INSTANCED_RES = (1920, 1080)  # bench.py's large-scene frame, for the TLAS slice
 TLAS_BAKE_RES = (320, 180)  # the TLAS-against-bake renders
 
@@ -531,7 +565,12 @@ class BinnedCheck:
     (ops/binned_trace.setup_rank / select / seg_keys) first runs the plain
     version on the same inputs (on a copy of select's in-place buffer), then
     the kernel, and the integer outputs must be identical; `max_err` keeps
-    the largest |kernel - plain| seen per kernel. Records per launch: the
+    the largest |kernel - plain| seen per kernel. Every seg_keys launch also
+    runs the seg kernel's exact form (`seg_hits`, kind "seg_exact") on the
+    same pairs, after its plain version: (t, prim, u, v) bitwise equal to
+    it, and held to the keyed result: the same hit or miss on every pair,
+    bits(t) & ~0xFF equal to the key's band on every found pair, the prim
+    equal but for ties within one band (counted). Records per launch: the
     traversal call it belongs to, kernel and plain ms (CUDA events), the
     least float work and the bytes the launch must move, the bound; with
     `library`, for setup also the ms of torch.sort over the same (N, S) key
@@ -540,14 +579,15 @@ class BinnedCheck:
 
     def __init__(self, soa, library: bool = False):
         self.library = library
-        self.rows = dict(setup=[], select=[], seg=[], seg_instanced=[])
-        self.max_err = dict(setup=0, select=0, seg=0, seg_instanced=0)
+        self.rows = {kind: [] for kind in BINNED_KINDS}
+        self.max_err = dict.fromkeys(BINNED_KINDS, 0)
         self.chunk_flops = chunk_flops(soa)
 
     def __enter__(self):
         import torch
 
         from echorenderer_tpu_torch.ops import binned_trace as bt
+        from echorenderer_tpu_torch.ops import pallas_hier as ph
 
         self._saved = setup_k, select_k, seg_k = bt.setup_rank, bt.select, bt.seg_keys
 
@@ -613,13 +653,36 @@ class BinnedCheck:
                 extra_flops = FLOPS_XFORM * n_live
                 extra_bytes = distinct_g * 8 + inst[2].numel() * 4
             distinct = int(torch.unique(used).numel())
+            flops = float(self.chunk_flops[used].sum()) + extra_flops
+            rows_bytes = distinct * 10 * prim_chunks.shape[2] * 4 + extra_bytes
             # a live pair reads its record and chunk id (4 B a column, 4 B)
             # and writes its key; a dead one needs only its chunk id and its
             # key (8 B); each distinct pack chunk's 10 used rows once
-            record(kind, k_ms, p_ms, float(self.chunk_flops[used].sum()) + extra_flops,
-                   n_live * (4 * rec.shape[1] + 4 + 4) + (rec.shape[0] - n_live) * 8
-                   + distinct * 10 * prim_chunks.shape[2] * 4 + extra_bytes,
+            record(kind, k_ms, p_ms, flops,
+                   n_live * (4 * rec.shape[1] + 4 + 4) + (rec.shape[0] - n_live) * 8 + rows_bytes,
                    pairs=rec.shape[0], live=n_live)
+            # the exact form on the same pairs: bitwise to its plain version,
+            # and to the keyed result's hits and bands
+            ekind = "seg_exact" if inst is None else "seg_exact_instanced"
+            want_e, pe_ms = timed(lambda: bt.seg_hits_plain(rec, chunk, prim_chunks, has_tri,
+                                                            has_sph, inst))
+            got_e, ke_ms = timed(lambda: bt.seg_hits(rec, chunk, prim_chunks, has_tri, has_sph,
+                                                     inst=inst))
+            differ(ekind, tuple(x.view(torch.int32) for x in got_e),
+                   tuple(x.view(torch.int32) for x in want_e))
+            found = got != bt._INT_INF
+            if not torch.equal(got_e[1] >= 0, found):
+                raise AssertionError(f"binned {ekind}: hit or miss differs from the keyed "
+                                     f"kernel on {int(((got_e[1] >= 0) != found).sum())} pairs")
+            if not torch.equal(bt._bits(got_e[0])[found] & -256, got[found] & -256):
+                raise AssertionError(f"binned {ekind}: a found pair's t is outside its key's band")
+            ties = int(((got_e[1][found].long() % ph.HCHUNK) != (got[found] & 0xFF).long()).sum())
+            # a live pair reads its record and chunk id and writes 4 floats; a
+            # dead one reads its t_max and chunk id and writes 4 floats
+            record(ekind, ke_ms, pe_ms, flops,
+                   n_live * (4 * rec.shape[1] + 4 + 16) + (rec.shape[0] - n_live) * 24
+                   + rows_bytes, pairs=rec.shape[0], live=n_live, ties=ties,
+                   found=int(found.sum()))
             return got
 
         bt.setup_rank, bt.select, bt.seg_keys = setup, select, seg
@@ -630,7 +693,7 @@ class BinnedCheck:
 
         bt.setup_rank, bt.select, bt.seg_keys = self._saved
 
-    def summary(self, label, kinds=("setup", "select", "seg")):
+    def summary(self, label, kinds=("setup", "select", "seg", "seg_exact")):
         """Log per kernel of `kinds`: launches checked, the mean kernel,
         plain and bound ms per launch (each a sum over the launches over
         their count, so the bound share is sum(bound) / sum(ms)), the median
@@ -668,7 +731,9 @@ class BinnedCheck:
             o = out[kind]
             shares = {name: (sum(r[part] for r in rows), sum(r[whole] for r in rows))
                       for name, part, whole in (("live pairs", "live", "pairs"),
-                                                ("refilling rays", "refills", "rays"))
+                                                ("refilling rays", "refills", "rays"),
+                                                ("found pairs whose prim differs from the keyed "
+                                                 "kernel's within one band", "ties", "found"))
                       if part in rows[0]}
             log(f"[kernels] {label}: binned {kind}: {o['launches']} launches over "
                 f"{len(per_call)} calls, each bitwise equal to its plain version (max |diff| "
@@ -1333,7 +1398,9 @@ def launch_counts() -> dict:
                 hier_trace_inst=ph.hier_trace.launches_instanced,
                 hier_occlude_inst=ph.hier_occlude.launches_instanced,
                 setup=bt.LAUNCHES["setup"], select=bt.LAUNCHES["select"], seg=bt.LAUNCHES["seg"],
-                seg_inst=bt.LAUNCHES_INSTANCED["seg"], dense_trace=pi.dense_trace.launches,
+                seg_inst=bt.LAUNCHES_INSTANCED["seg"], seg_exact=bt.LAUNCHES["seg_exact"],
+                seg_exact_inst=bt.LAUNCHES_INSTANCED["seg_exact"],
+                dense_trace=pi.dense_trace.launches,
                 dense_occlude=pi.dense_occlude.launches, mega=mk.sample_frame_mega.launches,
                 mega_textured=mk.sample_frame_mega.launches_textured,
                 mega_hier=mk.sample_frame_mega.launches_hier)
@@ -1531,7 +1598,8 @@ def instanced_phase(dev, rs, smi):
         bt._Walk(*call[:2], soa, True, call[2]).traverse()
     log(f"[instanced] random rays, binned: {bt.STATS['rounds']} rounds, {bt.STATS['syncs']} "
         f"host reads over 2 calls")
-    b_rnd = check_rnd.summary("instanced random rays", kinds=("setup", "select", "seg_instanced"))
+    b_rnd = check_rnd.summary("instanced random rays",
+                              kinds=("setup", "select", "seg_instanced", "seg_exact_instanced"))
     compare_binned("instanced random rays", soa, calls)
     misses = int(bt.STATS["misses"])
     del call, calls, o, d, t_max, ignore, inst, check_rnd
@@ -1594,6 +1662,7 @@ def instanced_phase(dev, rs, smi):
     bt.reset_stats()
     with RayWork(cull=True, record=True) as rec, BinnedCheck(soa) as check:
         again, _, stats = _sample_frame(tlas, "path", res, 0, 1, 1, 6, 2.5, return_stats=True)
+    exact_launches = bt.LAUNCHES_INSTANCED["seg_exact"]  # no render path launches it
     log(f"[instanced] the first program again, recorded: {stats['Loop/Iterations']} wavefront "
         f"iterations, {stats['Ray/Traced']} traced and {stats['Ray/Shadow']} shadow rays, sums "
         f"{'bitwise equal' if torch.equal(again, first) else 'DIFFERENT'}")
@@ -1602,7 +1671,8 @@ def instanced_phase(dev, rs, smi):
     del again, first
     label = "instanced slice 1920x1080 1 spp, the first timed program's calls"
     err_p, ms_h, bound_h = compare_hier(label, soa, rec.calls)
-    b_out = check.summary(label, kinds=("setup", "select", "seg_instanced"))
+    b_out = check.summary(label, kinds=("setup", "select", "seg_instanced",
+                                        "seg_exact_instanced"))
     compare_binned(label, soa, rec.binned)
     misses += int(bt.STATS["misses"])
     log(f"[instanced] recovery misses over the random rays and the programs: {misses} (need 0)")
@@ -1621,13 +1691,16 @@ def instanced_phase(dev, rs, smi):
                  max_abs_err=max(err_rnd[k], err_p[k]), ms=ms_h[k],
                  plain_ms=ms_h[f"{k}_plain"], bound_ms=bound_h[k][0], bound_by=bound_h[k][1],
                  library_ms=None) for k in ("trace", "occlude")]
-    seg = b_out["seg_instanced"]
-    rows.append(dict(name="binned_seg[instanced]", route="cuda", source=BINNED_SOURCE,
-                     replaces=BINNED_SITES["seg"], launches=path_launches["seg_inst"],
-                     max_abs_err=float(max(b_rnd["seg_instanced"]["max_abs_err"],
-                                           seg["max_abs_err"])),
-                     ms=seg["ms"], plain_ms=seg["plain_ms"], bound_ms=seg["bound_ms"],
-                     bound_by=seg["bound_by"], library_ms=None))
+    for name, kind, launches in (("binned_seg[instanced]", "seg_instanced",
+                                  path_launches["seg_inst"]),
+                                 ("binned_seg_exact_instanced", "seg_exact_instanced",
+                                  exact_launches)):
+        seg = b_out[kind]
+        rows.append(dict(name=name, route="cuda", source=BINNED_SOURCE,
+                         replaces=BINNED_SITES["seg"], launches=launches,
+                         max_abs_err=float(max(b_rnd[kind]["max_abs_err"], seg["max_abs_err"])),
+                         ms=seg["ms"], plain_ms=seg["plain_ms"], bound_ms=seg["bound_ms"],
+                         bound_by=seg["bound_by"], library_ms=None))
     return rows
 
 
@@ -1693,6 +1766,119 @@ def mega_hier_slice(grid, res, program, walk_first, walk_mspps, main_mspps, smi)
                 plain_ms=ms["plain_ms"], bound_ms=bound[0], bound_by=bound[1], library_ms=None)
 
 
+def plucker_phase(dev, smi) -> list:
+    """The Plücker micro-benchmark (echorenderer_tpu_torch.benchmarks.
+    plucker_micro) at 2^20 rays against its 256-triangle soup: its numerics
+    as its main() drives them (counts from zero: one MT launch, two of each
+    Plücker precision), every key array bitwise against its plain version,
+    the MT/Plücker agreement statistics, then each kernel's ms on the
+    chunk-local inputs (as the script times them), plain ms, bound and the
+    library yardstick (kernel 9: torch.matmul of its two products alone).
+    Returns the kernels-line rows."""
+    import torch
+
+    from echorenderer_tpu_torch.benchmarks import plucker_micro as pm
+
+    n = N_RAYS
+    prims, cols = pm.micro_scene(n, device=dev)
+    pm.reset_launches()
+    keys, inputs = pm.run_keys(prims, cols)
+    torch.cuda.synchronize()
+    launches = dict(pm.LAUNCHES)
+    log(f"[plucker] {n} rays against {pm.H} triangles through run_keys: launches {launches}")
+    if launches != dict(mt=1, plk_highest=2, plk_default=2):
+        raise AssertionError(f"the micro-benchmark did not run on its kernels: {launches}")
+    plain = {"mt": lambda: pm.keys_mt_plain(prims, cols)}
+    for frame, (plk, cc) in inputs.items():
+        for prec in pm.PRECISIONS:
+            plain[f"{frame} {prec}"] = lambda plk=plk, cc=cc, prec=prec: pm.keys_plk_plain(
+                plk, cc, prec)
+    err = {}  # the largest |kernel key - plain key| per kernel
+    for name, fn in plain.items():
+        want = fn()
+        kernel = "mt" if name == "mt" else f"plk_{name.split()[1]}"
+        err[kernel] = max(err.get(kernel, 0), int((keys[name].long() - want.long()).abs().max()))
+        if not torch.equal(keys[name], want):
+            raise AssertionError(f"plucker {name}: the kernel differs from its plain version on "
+                                 f"{int((keys[name] != want).sum())} of {n} rays")
+    log(f"[plucker] every key array ({', '.join(plain)}) bitwise equal to its plain version")
+    for frame in pm.FRAMES:
+        for prec in pm.PRECISIONS:
+            a = pm.agreement(keys["mt"].cpu(), keys[f"{frame} {prec}"].cpu())
+            log(f"[plucker] {frame} {prec.upper()} against MT: key agree {a['key_agree']:.7f}, "
+                f"prim flips {a['prim_flips']:.3e}, hit/miss flips {a['hit_flips']:.3e}, t rel max "
+                f"{a['t_rel_max']:.3e} ({a['hits']} of {n} rays hit)")
+
+    plk, local = inputs["chunk-local"]
+    pairs = n * pm.H
+    io_bytes = cols.numel() * 4 + n * 4  # the 8 columns read, the keys written
+    ray_s = PLUCKER_RAY_FLOPS * n / PEAK_FLOPS * 1e3
+    # kernel 9's products as one library call each: lhs (8, 3H) and (8, 2H)
+    # laid out as the JAX kernel's lhsA and lhsBC, against the per-ray
+    # [d, m, 0, 0] and [d, o, 1, 0] columns
+    H = pm.H
+    ox, oy, oz, dx, dy, dz = local[0:6]
+    zero, one = torch.zeros_like(ox), torch.ones_like(ox)
+    rhs_a = torch.stack([dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx,
+                         zero, zero])
+    rhs_b = torch.stack([dx, dy, dz, ox, oy, oz, one, zero])
+    lhs_a = plk[0:8, 0:3 * H]
+    lhs_bc = torch.zeros((8, 2 * H), device=dev)
+    lhs_bc[0:3, 0:H] = plk[0:3, 3 * H:4 * H]
+    lhs_bc[3:7, H:2 * H] = plk[6:10, 4 * H:5 * H]
+
+    def products(dtype):
+        a, b, c, d = (x.to(dtype) for x in (lhs_a.T, rhs_a, lhs_bc.T, rhs_b))
+        return lambda: (torch.matmul(a, b), torch.matmul(c, d))
+
+    cases = [
+        ("plucker_mt", PLUCKER_SITES["mt"], lambda: pm.keys_mt(prims, local),
+         lambda: pm.keys_mt_plain(prims, local),
+         (FLOPS_TRI * pairs / PEAK_FLOPS * 1e3, io_bytes + prims.numel() * 4,
+          f"{FLOPS_TRI} flops a (ray, triangle) at 67 TFLOP/s"), None),
+        ("plucker_plk_highest", PLUCKER_SITES["plk"],
+         lambda: pm.keys_plk(plk, local, "highest"),
+         lambda: pm.keys_plk_plain(plk, local, "highest"),
+         ((PLUCKER_PRODUCT_FLOPS + 1) * pairs / PEAK_FLOPS * 1e3 + ray_s,
+          io_bytes + (8 * 3 + 3 + 4) * H * 4,
+          f"{PLUCKER_PRODUCT_FLOPS + 1} flops a pair and {PLUCKER_RAY_FLOPS} a ray at 67 TFLOP/s"),
+         products(torch.float32)),
+        ("plucker_plk_default", PLUCKER_SITES["plk"],
+         lambda: pm.keys_plk(plk, local, "default"),
+         lambda: pm.keys_plk_plain(plk, local, "default"),
+         (PLUCKER_PRODUCT_FLOPS * pairs / PEAK_BF16 * 1e3 + (pairs / PEAK_FLOPS * 1e3 + ray_s),
+          io_bytes + (8 * 3 + 3 + 4) * H * 4,
+          f"{PLUCKER_PRODUCT_FLOPS} product flops a pair at the bf16 tensor-core 989 TFLOP/s, "
+          f"the division and {PLUCKER_RAY_FLOPS} flops a ray at 67 TFLOP/s"),
+         products(torch.bfloat16)),
+    ]
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products for the HIGHEST yardstick
+    rows = []
+    try:
+        for name, site, kernel, plain_fn, (ops_ms, nbytes, reckoning), library in cases:
+            ms = median_ms(kernel)
+            plain_ms = median_ms(plain_fn, runs=3)
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            bound, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+            lib_ms = median_ms(library, runs=5) if library else None
+            torch.cuda.empty_cache()
+            log(f"[plucker] {name}: {ms:.4f} ms ({ms * 1e6 / n:.3f} ns a ray, "
+                f"{ms * 1e6 / pairs:.5f} ns a (ray, triangle)), plain {plain_ms:.4f} ms; bound "
+                f"{bound:.6f} ms by {by} ({reckoning}: {ops_ms:.6f} ms; {nbytes} bytes at "
+                f"3.35 TB/s: {bytes_ms:.6f} ms), {100 * bound / ms:.2f}% of the kernel's time"
+                + (f"; torch.matmul of its two products alone (not the keys) {lib_ms:.4f} ms"
+                   if library else "") + f" | {smi}")
+            kernel = name.split("plucker_")[1]
+            rows.append(dict(name=name, route="cuda", source=PLUCKER_SOURCE, replaces=site,
+                             launches=launches[kernel], max_abs_err=float(err[kernel]),
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             library_ms=lib_ms))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1706,6 +1892,7 @@ def main() -> int:
     import numpy as np
 
     from echorenderer_tpu_torch.aggregation.bvh import build_bvh, geometry_bounds
+    from echorenderer_tpu_torch.benchmarks import plucker_micro as pm
     from echorenderer_tpu_torch.entry import entry
     from echorenderer_tpu_torch.evaluation.scene_ops import dispatch_summary
     from echorenderer_tpu_torch.evaluation.wavefront import cascade_widths
@@ -1754,6 +1941,7 @@ def main() -> int:
     mk._load()
     ph._load()
     bt._load()
+    pm._load()
     t_run = time.perf_counter()
 
     # --- kernel phase: dense kernels ---
@@ -2038,7 +2226,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     seconds, warm_s, first, s_sum = timed_programs(program)
     hier = dict(trace=ph.hier_trace.launches, occlude=ph.hier_occlude.launches)
-    binned = dict(bt.LAUNCHES)
+    binned = {k: bt.LAUNCHES[k] for k in ("setup", "select", "seg")}
+    exact_on_path = bt.LAUNCHES["seg_exact"]  # the exact form: no render path launches it
     others = (pi.dense_trace.launches, pi.dense_occlude.launches,
               mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured
               + mk.sample_frame_mega.launches_hier)
@@ -2053,13 +2242,14 @@ def main() -> int:
         + ", ".join(f"{t:.4f}" for t in seconds)
         + f"; warm-up {warm_s:.3f} s; prepare {t_prep:.2f} s; peak memory {slice_gib:.2f} GiB "
           f"(prepare {prep_gib:.2f} GiB); mean luminance {big_lum:.4f} | {smi}")
-    log(f"[slice] launches: binned {binned}, hier {hier}, dense trace/occlude "
+    log(f"[slice] launches: binned {binned} (exact seg form {exact_on_path}), hier {hier}, "
+        f"dense trace/occlude "
         f"{others[0]}/{others[1]}, megakernel {others[2]}; {calls} binned calls, {rounds} "
         f"rounds, {syncs} host reads, {misses} recovery misses over 9 programs; cascade widths "
         f"{cascade_widths(n_px)}")
     if not bool(torch.isfinite(s_sum).all()) or not 0.01 < big_lum < 10.0:
         return fail(f"large-scene frame non-finite or mean luminance {big_lum} out of (0.01, 10)")
-    if min(binned.values()) <= 0 or min(hier.values()) <= 0 or max(others) != 0:
+    if min(binned.values()) <= 0 or min(hier.values()) <= 0 or max(others) or exact_on_path:
         return fail("the large scene did not run on the binned and hier kernels alone")
     # the same programs through the walk alone (the dispatch before the
     # binned traversal), for comparison
@@ -2079,6 +2269,7 @@ def main() -> int:
     bt.reset_stats()
     with RayWork(cull=True, record=True) as rec, BinnedCheck(hsoa, library=True) as check:
         again, _, stats = _sample_frame(grid, "path", res, 0, 1, 1, 6, 2.5, return_stats=True)
+    exact_launches = bt.LAUNCHES["seg_exact"]  # no render path launches it
     log(f"[slice] the first program again, recorded: {stats['Loop/Iterations']} wavefront "
         f"iterations, {stats['Ray/Traced']} traced and {stats['Ray/Shadow']} shadow rays, "
         f"sums {'bitwise equal' if torch.equal(again, first) else 'DIFFERENT'}")
@@ -2098,6 +2289,10 @@ def main() -> int:
 
     # --- slice phase: TLAS instancing, counters from zero ---
     inst_rows = instanced_phase(dev, rs, smi)
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
+    # --- the Plücker micro-benchmark's kernels, counters from zero ---
+    plk_rows = plucker_phase(dev, smi)
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     kernels = [
@@ -2134,7 +2329,15 @@ def main() -> int:
              plain_ms=b_out[k]["plain_ms"], bound_ms=b_out[k]["bound_ms"],
              bound_by=b_out[k]["bound_by"], library_ms=b_out[k]["library_ms"])
         for k in ("setup", "select", "seg")
-    ] + inst_rows
+    ] + [
+        dict(name="binned_seg_exact", route="cuda", source=BINNED_SOURCE,
+             replaces=BINNED_SITES["seg"], launches=exact_launches,
+             max_abs_err=float(max(b_rnd["seg_exact"]["max_abs_err"],
+                                   b_out["seg_exact"]["max_abs_err"])),
+             ms=b_out["seg_exact"]["ms"], plain_ms=b_out["seg_exact"]["plain_ms"],
+             bound_ms=b_out["seg_exact"]["bound_ms"], bound_by=b_out["seg_exact"]["bound_by"],
+             library_ms=None),
+    ] + inst_rows + plk_rows
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,9 +5,10 @@
 // `_trace_binned_impl`:
 //   setup_kernel  <- `_setup_kernel`  (line 552, via `_setup_rank`)
 //   select_kernel <- `_select_kernel` (line 402, via `_run_select`)
-//   seg_kernel    <- `_seg_kernel`    (line 117, via `_run_rows`; keyed, both forms)
+//   seg_kernel    <- `_seg_kernel`    (line 117, via `_run_rows`; keyed and exact, both forms)
 // Each computes what its plain PyTorch version in ops/binned_trace.py computes
-// (`setup_rank_plain`, `select_plain`, `seg_keys_plain`), bit for bit.
+// (`setup_rank_plain`, `select_plain`, `seg_keys_plain`, `seg_hits_plain`), bit
+// for bit.
 //
 // setup_kernel: per ray, the slab test of every super box (`echo::slab`, the
 // JAX kernel's op order, NaN-propagating min/max; strict `tn < limit`, no
@@ -38,6 +39,11 @@
 // reads one chunk's rows and each load is a broadcast through L1. The TPU's
 // segment table and double-buffered DMA are its row machinery and have no
 // counterpart; staging a chunk in shared memory is left for later work.
+// The exact form (KEYED = false, `_seg_kernel(keyed=False)`) runs the same
+// pairs and writes 4 floats a pair instead of a key: the least t below t_max,
+// ties to the least sorted slot (the strict < over the prims in slot order),
+// that slot as a float (-1 where nothing is found), and its u and v; a pair
+// without a hit keeps (t_max, -1, 0, 0). Same bound, same design.
 // Instanced form (TLAS scenes): the pairs carry global chunks; the kernel
 // maps each to its pack chunk (g2c) and instance (g2i), moves the pair's
 // world ray into the instance's space with the instance's 12 floats (A
@@ -157,11 +163,13 @@ select_kernel(int* __restrict__ cand, int w, int n, const int* __restrict__ nk,
   mink_out[i] = mink;
 }
 
-template <bool HAS_TRI, bool HAS_SPH, bool INSTANCED>
+// KEYED: out is int (M,), the packed key of each pair; else float (4, M):
+// rows t, prim (sorted slot as a float), u, v
+template <bool HAS_TRI, bool HAS_SPH, bool INSTANCED, bool KEYED>
 __global__ void seg_kernel(const float* __restrict__ rec, const int* __restrict__ chunk_of, int m,
                            const float* __restrict__ chunks, const int* __restrict__ g2c,
                            const int* __restrict__ g2i, const float* __restrict__ inst_f32,
-                           int n_chunks, int* __restrict__ out) {
+                           int n_chunks, void* __restrict__ out) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= m) return;
   echo::Ray r;
@@ -190,7 +198,9 @@ __global__ void seg_kernel(const float* __restrict__ rec, const int* __restrict_
     r.ignore = static_cast<int>(b.w);
   }
   int c = chunk_of[q];
-  int best = kIntInf;
+  int best = kIntInf;                        // keyed
+  float bt = r.tmax, bu = 0.0f, bv = 0.0f;   // exact
+  int bslot = -1;
   if (r.tmax > 0.0f && c >= 0 && c < n_chunks) {  // dead pairs read nothing
     if (INSTANCED) {  // global chunk -> (pack chunk, instance); the ray into its space
       const int inst = __ldg(g2i + c);
@@ -214,10 +224,25 @@ __global__ void seg_kernel(const float* __restrict__ rec, const int* __restrict_
       float t, u, v;
       if (!echo::prim_hit<HAS_TRI, HAS_SPH, !INSTANCED>(rows, kChunk, j, base + j, r, t, u, v))
         continue;
-      if (t < r.tmax && t < kFarT) best = min(best, (__float_as_int(t) & -(1 << kPBits)) | j);
+      if (KEYED) {
+        if (t < r.tmax && t < kFarT) best = min(best, (__float_as_int(t) & -(1 << kPBits)) | j);
+      } else if (t < bt && t < kFarT) {  // strict: an equal t keeps the lower slot
+        bt = t;
+        bslot = base + j;
+        bu = u;
+        bv = v;
+      }
     }
   }
-  out[q] = best;
+  if (KEYED) {
+    static_cast<int*>(out)[q] = best;
+  } else {
+    float* o = static_cast<float*>(out);
+    o[q] = bt;
+    o[(size_t)m + q] = bslot >= 0 ? static_cast<float>(bslot) : -1.0f;
+    o[2 * (size_t)m + q] = bu;
+    o[3 * (size_t)m + q] = bv;
+  }
 }
 
 // dynamic shared memory above the 48 KB default needs an opt-in per kernel
@@ -226,6 +251,33 @@ int smem_opt_in(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+template <bool KEYED>
+int launch_seg(const float* rec, const int* chunk, int m, const float* chunks, int n_chunks,
+               int has_tri, int has_sph, int block, const int* g2c, const int* g2i,
+               const float* inst_f32, void* out, void* stream) {
+  const dim3 grid((m + block - 1) / block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ECHO_SEG_LAUNCH(TRI, SPH, INST)                                                    \
+  seg_kernel<TRI, SPH, INST, KEYED><<<grid, block, 0, s>>>(rec, chunk, m, chunks, g2c, g2i, \
+                                                           inst_f32, n_chunks, out)
+  if (g2c != nullptr) {
+    if (has_tri && has_sph)
+      ECHO_SEG_LAUNCH(true, true, true);
+    else if (has_tri)
+      ECHO_SEG_LAUNCH(true, false, true);
+    else
+      ECHO_SEG_LAUNCH(false, true, true);
+  } else if (has_tri && has_sph) {
+    ECHO_SEG_LAUNCH(true, true, false);
+  } else if (has_tri) {
+    ECHO_SEG_LAUNCH(true, false, false);
+  } else {
+    ECHO_SEG_LAUNCH(false, true, false);
+  }
+#undef ECHO_SEG_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -254,25 +306,15 @@ extern "C" int binned_select(int* cand, int w, int n, const int* nk, const float
 extern "C" int binned_seg(const float* rec, const int* chunk, int m, const float* chunks,
                           int n_chunks, int has_tri, int has_sph, int block, const int* g2c,
                           const int* g2i, const float* inst_f32, int* out, void* stream) {
-  const dim3 grid((m + block - 1) / block);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ECHO_SEG_LAUNCH(TRI, SPH, INST)                                                     \
-  seg_kernel<TRI, SPH, INST><<<grid, block, 0, s>>>(rec, chunk, m, chunks, g2c, g2i, inst_f32, \
-                                                    n_chunks, out)
-  if (g2c != nullptr) {
-    if (has_tri && has_sph)
-      ECHO_SEG_LAUNCH(true, true, true);
-    else if (has_tri)
-      ECHO_SEG_LAUNCH(true, false, true);
-    else
-      ECHO_SEG_LAUNCH(false, true, true);
-  } else if (has_tri && has_sph) {
-    ECHO_SEG_LAUNCH(true, true, false);
-  } else if (has_tri) {
-    ECHO_SEG_LAUNCH(true, false, false);
-  } else {
-    ECHO_SEG_LAUNCH(false, true, false);
-  }
-#undef ECHO_SEG_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return launch_seg<true>(rec, chunk, m, chunks, n_chunks, has_tri, has_sph, block, g2c, g2i,
+                          inst_f32, out, stream);
+}
+
+// the exact form: out is (4, m) floats, rows t, prim, u, v
+extern "C" int binned_seg_exact(const float* rec, const int* chunk, int m, const float* chunks,
+                                int n_chunks, int has_tri, int has_sph, int block,
+                                const int* g2c, const int* g2i, const float* inst_f32,
+                                float* out, void* stream) {
+  return launch_seg<false>(rec, chunk, m, chunks, n_chunks, has_tri, has_sph, block, g2c, g2i,
+                           inst_f32, out, stream);
 }

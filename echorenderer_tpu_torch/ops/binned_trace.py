@@ -44,9 +44,13 @@ On a CUDA tensor each of the three kernel wrappers launches its
 hand-written kernel in csrc/binned.cu (built with nvcc on first use,
 ops/cuda_build.py); on a CPU tensor it runs the plain PyTorch version
 beside it. They replace the TPU's `_setup_kernel`, `_select_kernel` and
-`_seg_kernel` (keyed, both forms) of echorenderer_tpu/ops/binned_trace.py
-(:552, :402, :117). The refill, the pair sort and the record gather stay
-PyTorch ops, as they are XLA ops in the JAX package. The engine is the JAX
+`_seg_kernel` (keyed and exact, both forms) of
+echorenderer_tpu/ops/binned_trace.py (:552, :402, :117). The exact form,
+`seg_hits` (one (t, prim, u, v) per pair, as `_pack_and_intersect(...,
+keyed=False)`), is reached through `_Walk.pairs(..., keyed=False)`; as in
+the JAX package, the traversal itself never calls it. The refill, the pair
+sort and the record gather stay PyTorch ops, as they are XLA ops in the
+JAX package. The engine is the JAX
 package's fused one (a ray's refill decision is the previous round's) at
 any ray count. Each round reads one flag back to the host (`STATS`); the
 wrappers count their kernel launches in `LAUNCHES`.
@@ -91,16 +95,17 @@ PLAIN_SLICE = 2**16  # rays (setup) or pairs (seg) per pass of the plain version
 STATS = dict(calls=0, rounds=0, syncs=0, misses=0)
 # kernel launches per wrapper (CUDA tensors only; the plain versions add
 # none): LAUNCHES on the pairs of a flat scene, LAUNCHES_INSTANCED on those
-# of an instanced scene (setup and select are the same kernels for both)
-LAUNCHES = dict(setup=0, select=0, seg=0)
-LAUNCHES_INSTANCED = dict(seg=0)
+# of an instanced scene (setup and select are the same kernels for both);
+# "seg" counts seg_keys, "seg_exact" seg_hits
+LAUNCHES = dict(setup=0, select=0, seg=0, seg_exact=0)
+LAUNCHES_INSTANCED = dict(seg=0, seg_exact=0)
 
 
 def reset_stats():
     """Zero STATS, LAUNCHES and LAUNCHES_INSTANCED."""
     STATS.update(calls=0, rounds=0, syncs=0, misses=0)
-    LAUNCHES.update(setup=0, select=0, seg=0)
-    LAUNCHES_INSTANCED.update(seg=0)
+    LAUNCHES.update(setup=0, select=0, seg=0, seg_exact=0)
+    LAUNCHES_INSTANCED.update(seg=0, seg_exact=0)
 
 
 # ----------------------------------------------------------------------------
@@ -215,17 +220,15 @@ def select_plain(cand, new_keys, best_t, do_refill, k, cbits):
     return torch.stack(pops), (c != _INT_INF).sum(0, dtype=torch.int32), c.amin(0)
 
 
-def seg_keys_plain(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
-    """Plain PyTorch pair keys: for each pair (ray record, chunk) with
-    t_max > 0, the least (bits(t) & ~0xFF) | prim-in-chunk over the
-    chunk's hits with t < t_max; _INT_INF otherwise. With `inst` = (g2c,
-    g2i, inst_f32) the chunks are global: each pair tests its pack chunk in
-    its instance's space, and rec's column 8 is the ignore's instance."""
-    out = torch.full((rec.shape[0],), _INT_INF, dtype=torch.int32, device=rec.device)
+def _pair_hits(rec, chunk, prim_chunks, has_tri, has_sph, inst):
+    """The plain seg kernels' shared part: per slice of the live pairs (t_max
+    > 0, a valid chunk), (pair indices, pack chunks (M,), t, u, v (M,
+    HCHUNK), valid: a hit below t_max). With `inst` = (g2c, g2i, inst_f32)
+    the chunks are global: each pair tests its pack chunk in its instance's
+    space, and rec's column 8 is the ignore's instance."""
     n_chunks = prim_chunks.shape[0] if inst is None else inst[0].shape[0]
     ok_pair = (rec[:, 6] > 0.0) & (chunk >= 0) & (chunk < n_chunks)
     live = torch.nonzero(ok_pair).squeeze(1)
-    local = torch.arange(HCHUNK, dtype=torch.int32, device=rec.device)[None]
     for s in range(0, live.numel(), PLAIN_SLICE):
         idx = live[s: s + PLAIN_SLICE]
         c = chunk[idx].long()
@@ -238,12 +241,45 @@ def seg_keys_plain(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
             ray = torch.cat(to_instance(inst_f32, ii, r[0:3], r[3:6]))
             ign = torch.where(r[8] == ii.to(torch.float32), ign, -1.0)
         rows = prim_chunks[c, :10, :].permute(1, 0, 2)  # (10, M, HCHUNK)
-        t, _, _, ok = _chunk_hits(rows, c * HCHUNK, ray, ign.to(torch.int32), has_tri, has_sph,
+        t, u, v, ok = _chunk_hits(rows, c * HCHUNK, ray, ign.to(torch.int32), has_tri, has_sph,
                                   unit_dir=inst is None)
-        valid = ok & (t < r[6][:, None]) & (t < _INF)
+        yield idx, c, t, u, v, ok & (t < r[6][:, None]) & (t < _INF)
+
+
+def seg_keys_plain(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
+    """Plain PyTorch pair keys: for each pair (ray record, chunk) with
+    t_max > 0, the least (bits(t) & ~0xFF) | prim-in-chunk over the
+    chunk's hits with t < t_max; _INT_INF otherwise. With `inst` = (g2c,
+    g2i, inst_f32) the chunks are global: each pair tests its pack chunk in
+    its instance's space, and rec's column 8 is the ignore's instance."""
+    out = torch.full((rec.shape[0],), _INT_INF, dtype=torch.int32, device=rec.device)
+    local = torch.arange(HCHUNK, dtype=torch.int32, device=rec.device)[None]
+    for idx, _, t, _, _, valid in _pair_hits(rec, chunk, prim_chunks, has_tri, has_sph, inst):
         key = torch.where(valid, (_bits(t) & -(1 << _PBITS)) | local, _INT_INF)
         out[idx] = key.amin(1)
     return out
+
+
+def seg_hits_plain(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
+    """Plain PyTorch exact pair results, the inputs of `seg_keys_plain`:
+    (t, prim, u, v), each (M,) float32. For each pair the least t below
+    t_max over its chunk's hits, ties to the least sorted slot; prim is that
+    slot (of the pack chunk on an instanced pack) as a float. A pair without
+    a hit, a dead one included, keeps (t_max, -1, 0, 0)."""
+    m = rec.shape[0]
+    out = torch.zeros((4, m), dtype=torch.float32, device=rec.device)
+    out[0] = rec[:, 6]
+    out[1] = -1.0
+    local = torch.arange(HCHUNK, device=rec.device)[None]
+    for idx, c, t, u, v, valid in _pair_hits(rec, chunk, prim_chunks, has_tri, has_sph, inst):
+        tm = torch.where(valid, t, _INF).amin(1, keepdim=True)
+        j = torch.where(valid & (t == tm), local, HCHUNK).amin(1, keepdim=True)
+        found = j[:, 0] < HCHUNK
+        jj = torch.clamp(j, max=HCHUNK - 1)
+        out[:, idx] = torch.where(found[None], torch.stack([
+            tm[:, 0], (c * HCHUNK + jj[:, 0]).to(torch.float32),
+            u.gather(1, jj)[:, 0], v.gather(1, jj)[:, 0]]), out[:, idx])
+    return tuple(out)
 
 
 # ----------------------------------------------------------------------------
@@ -262,9 +298,9 @@ def _load():
         lib.binned_select.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr]
         # rec, chunk, m, prim_chunks, valid chunk ids, has_tri, has_sph,
         # block, g2c, g2i, inst_f32 (null for a flat scene), out, stream
-        lib.binned_seg.argtypes = [ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
-                                   ptr]
-        for fn in (lib.binned_setup, lib.binned_select, lib.binned_seg):
+        seg = [ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+        lib.binned_seg.argtypes = lib.binned_seg_exact.argtypes = seg
+        for fn in (lib.binned_setup, lib.binned_select, lib.binned_seg, lib.binned_seg_exact):
             fn.restype = i32
         _lib = lib
     return _lib
@@ -357,14 +393,9 @@ def select(cand, new_keys, best_t, do_refill, k, cbits):
     return pop, live, mink
 
 
-def seg_keys(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
-    """Packed closest-hit key of every (ray, chunk) pair: rec (M, 8) f32
-    [o xyz, d xyz, t_max, sorted-slot ignore], chunk (M,) int32 (pairs
-    sorted by chunk share its prim rows), prim_chunks (C, 16, HCHUNK) f32.
-    Instanced scenes pass `inst` = (g2c (G,) int32, g2i (G,) int32,
-    inst_f32 (I*12,) f32): the chunks are global chunks, and rec (M, 9)
-    holds the ignore's instance in column 8. Returns (M,) int32. CUDA
-    tensors launch the kernel; CPU tensors take the plain version."""
+def _seg_route(name, rec, chunk, prim_chunks, inst):
+    """The input checks of seg_keys and seg_hits; returns `_route`'s
+    answer."""
     width = 8 if inst is None else 9
     if rec.dtype != torch.float32 or rec.dim() != 2 or rec.shape[1] != width:
         raise ValueError(f"rec must be (M, {width}) float32, got {tuple(rec.shape)} {rec.dtype}")
@@ -382,21 +413,49 @@ def seg_keys(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
         if inst_f32.dtype != torch.float32 or inst_f32.numel() % 12:
             raise ValueError("inst_f32 must hold 12 floats per instance")
         tensors += (g2c, g2i, inst_f32)
-    if _route("seg_keys", rec, tensors) == "plain":
-        return seg_keys_plain(rec, chunk, prim_chunks, has_tri, has_sph, inst)
-    if inst is None and rec.data_ptr() % 16:
-        raise ValueError("seg_keys reads each record as two float4: rec must be 16-byte aligned")
-    m = rec.shape[0]
-    out = torch.empty(m, dtype=torch.int32, device=rec.device)
-    if m:
+    route = _route(name, rec, tensors)
+    if route == "cuda" and inst is None and rec.data_ptr() % 16:
+        raise ValueError(f"{name} reads each record as two float4: rec must be 16-byte aligned")
+    return route
+
+
+def _launch_seg(name, rec, chunk, prim_chunks, has_tri, has_sph, inst, out):
+    """Launch seg_keys' (name "seg") or seg_hits' ("seg_exact") kernel into
+    `out` and count it."""
+    if rec.shape[0]:
+        fn = getattr(_load(), f"binned_{name}")
         n_chunks, ptrs = (prim_chunks.shape[0], (None, None, None)) if inst is None else (
-            g2c.shape[0], (g2c.data_ptr(), g2i.data_ptr(), inst_f32.data_ptr()))
-        err = _load().binned_seg(rec.data_ptr(), chunk.data_ptr(), m, prim_chunks.data_ptr(),
-                                 n_chunks, int(has_tri), int(has_sph), ROW, *ptrs,
-                                 out.data_ptr(), _stream(rec))
-        _raise_on("seg_keys", err)
-        (LAUNCHES if inst is None else LAUNCHES_INSTANCED)["seg"] += 1
+            inst[0].shape[0], tuple(x.data_ptr() for x in inst))
+        err = fn(rec.data_ptr(), chunk.data_ptr(), rec.shape[0], prim_chunks.data_ptr(),
+                 n_chunks, int(has_tri), int(has_sph), ROW, *ptrs, out.data_ptr(), _stream(rec))
+        _raise_on(name, err)
+        (LAUNCHES if inst is None else LAUNCHES_INSTANCED)[name] += 1
     return out
+
+
+def seg_keys(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
+    """Packed closest-hit key of every (ray, chunk) pair: rec (M, 8) f32
+    [o xyz, d xyz, t_max, sorted-slot ignore], chunk (M,) int32 (pairs
+    sorted by chunk share its prim rows), prim_chunks (C, 16, HCHUNK) f32.
+    Instanced scenes pass `inst` = (g2c (G,) int32, g2i (G,) int32,
+    inst_f32 (I*12,) f32): the chunks are global chunks, and rec (M, 9)
+    holds the ignore's instance in column 8. Returns (M,) int32. CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    if _seg_route("seg_keys", rec, chunk, prim_chunks, inst) == "plain":
+        return seg_keys_plain(rec, chunk, prim_chunks, has_tri, has_sph, inst)
+    out = torch.empty(rec.shape[0], dtype=torch.int32, device=rec.device)
+    return _launch_seg("seg", rec, chunk, prim_chunks, has_tri, has_sph, inst, out)
+
+
+def seg_hits(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
+    """Exact closest hit of every (ray, chunk) pair, the inputs of
+    `seg_keys`: (t, prim, u, v), each (M,) float32 (`seg_hits_plain` says
+    what they hold). CUDA tensors launch the kernel's exact form; CPU
+    tensors take the plain version."""
+    if _seg_route("seg_hits", rec, chunk, prim_chunks, inst) == "plain":
+        return seg_hits_plain(rec, chunk, prim_chunks, has_tri, has_sph, inst)
+    out = torch.empty((4, rec.shape[0]), dtype=torch.float32, device=rec.device)
+    return tuple(_launch_seg("seg_exact", rec, chunk, prim_chunks, has_tri, has_sph, inst, out))
 
 
 # ----------------------------------------------------------------------------
@@ -518,11 +577,12 @@ class _Walk:
         next_sup = torch.where(do_refill, extract(ksup)[0], st["next_sup"])
         return torch.cat(keys).contiguous(), new_cursor, next_sup
 
-    def pairs(self, sel_c, rays, best_t, ign_f, ii_f=None):
+    def pairs(self, sel_c, rays, best_t, ign_f, ii_f=None, keyed=True):
         """Keys (k, N) of this round's (ray, chunk) pairs (chunk -1: none):
         the pairs sorted chunk-major, their ray records gathered (with the
         ignore's instance on an instanced pack), one seg_keys launch, and
-        the results put back in pair order."""
+        the results put back in pair order. keyed=False launches seg_hits
+        instead and returns its (t, prim, u, v), each (k, N)."""
         kk, n = sel_c.shape
         pc = sel_c.reshape(-1)
         key_s, q_s = torch.sort(torch.where(pc >= 0, pc, self.c), stable=True)
@@ -533,10 +593,16 @@ class _Walk:
         g[:, 6] = torch.where(live, g[:, 6], 0.0)  # dead pairs: t_max 0
         for col in range(7, g.shape[1]):  # and ignores that match nothing
             g[:, col] = torch.where(live, g[:, col], -2.0)
-        res = seg_keys(g, key_s.contiguous(), self.soa.prim_chunks, *self.kinds, inst=self.inst)
+        args = (g, key_s.contiguous(), self.soa.prim_chunks, *self.kinds)
+        if keyed:
+            res = seg_keys(*args, inst=self.inst)
+            out = torch.empty_like(res)
+            out[q_s] = res
+            return out.view(kk, n)
+        res = torch.stack(seg_hits(*args, inst=self.inst))
         out = torch.empty_like(res)
-        out[q_s] = res
-        return out.view(kk, n)
+        out[:, q_s] = res
+        return tuple(out.view(4, kk, n))
 
     def round(self, st, k, ksup):
         """One fused-engine round: refill (last round's decision), select,

@@ -504,7 +504,7 @@ def test_wavefront_first_wave_is_coherent(large, monkeypatch):
     assert calls[2:] == [("trace", False), ("occlude", False)] * (iters - 1)
     assert len(walks) == 2 and bt.STATS["calls"] == 2 * (iters - 1)
     assert bool(torch.isfinite(s).all()) and float(s.sum()) > 0
-    assert bt.LAUNCHES == dict(setup=0, select=0, seg=0)  # CPU: no kernel
+    assert bt.LAUNCHES == dict(setup=0, select=0, seg=0, seg_exact=0)  # CPU: no kernel
 
 
 def test_peel_is_bitwise_invisible_below_threshold(large, monkeypatch):
