@@ -10,7 +10,14 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      registers, spills and shared memory per kernel, the megakernel's
      three forms (untextured, textured, chunk-tree) by name with their
      registers, spills and stack frame (the chunk-tree form's holds the
-     walk's stack), and hier_kernel's forms.
+     walk's stack), and hier_kernel's forms with their static shared memory.
+     Every phase that measures a form of the chunk-tree walk (hier_kernel's
+     trace and occlude, flat and instanced; the megakernel's chunk-tree
+     form on each frame) also reports its ptxas registers, stack frame and
+     static shared memory, its dynamic shared memory a block, its resident
+     warps/SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and its share
+     of its bound; these lines are printed again, "[walk]", before the
+     kernels line.
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, on the same inputs:
      - dense_trace / dense_occlude on every call the wavefront path makes
@@ -102,7 +109,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      peak memory, mean luminance, launches (9 chunk-tree launches and no
      other), the first timed program's sums against the walk-only first
      program's (pixels not bitwise equal, MEGA_TOL), and its launch against
-     its plain version: median ms of 3 launches, the plain ms, the bound
+     its plain version: median ms of 10 launches, the plain ms, the bound
      (the least prim-test work of the plain run's walk calls). The kernels
      line reports the dense kernels' ms and bound per launch of the
      wavefront path, the megakernel's for the bench launch, the hier
@@ -158,6 +165,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -297,8 +305,9 @@ def hdr_sky_over_spheres():
 
 
 def ptxas_forms(ptxas: str, kernel: str) -> dict:
-    """{entry name: "N registers, S bytes spill stores, L bytes spill
-    loads"} for every compiled form of `kernel` in an -Xptxas -v report."""
+    """{entry name: "N registers, F bytes stack frame, S bytes spill stores,
+    L bytes spill loads, M bytes static smem"} for every compiled form of
+    `kernel` in an -Xptxas -v report."""
     forms, entry, spill = {}, None, ""
     for line in ptxas.splitlines():
         if "Compiling entry function" in line:
@@ -308,8 +317,28 @@ def ptxas_forms(ptxas: str, kernel: str) -> dict:
             spill = line.strip()
         elif entry and "Used" in line and "registers" in line:
             regs = line.split("Used")[1].split("registers")[0].strip()
-            forms[entry] = f"{regs} registers, {spill}"
+            smem = re.search(r"(\d+) bytes smem", line)
+            smem = smem.group(1) if smem else "0"
+            forms[entry] = f"{regs} registers, {spill}, {smem} bytes static smem"
     return forms
+
+
+# ptxas reports of the chunk-tree walk's forms, filled by main(): hier_kernel's
+# by (has_tri, has_sph, any_hit, instanced), the megakernel's chunk-tree form
+# by "mega"; and the report line of every form measured, printed again before
+# the kernels line
+WALK_PTXAS: dict = {}
+WALK_REPORTS: list = []
+
+
+def walk_form_report(label, ms, bound, occ, ptxas) -> str:
+    """One form of the chunk-tree walk: ptxas registers / stack frame /
+    static smem, dynamic smem a block, resident warps/SM, % of its bound."""
+    line = (f"{label}: {ptxas}; {occ['smem']} bytes dynamic smem a {occ['block']}-thread block, "
+            f"{occ['blocks']} blocks = {occ['warps']} resident warps/SM; {ms:.4f} ms against a "
+            f"bound of {bound:.6f} ms: {100.0 * bound / ms:.3f}% of bound")
+    WALK_REPORTS.append(line)
+    return line
 
 
 def run_ms(fn, runs: int = 10, warm: bool = True) -> list[float]:
@@ -1019,6 +1048,11 @@ def compare_hier(label, soa, calls):
         f"call: trace {flops['trace']:.6g}, occlude {flops['occlude']:.6g} flops; bound per "
         f"call: trace {bounds['trace'][0]:.6f} ({bounds['trace'][1]}), occlude "
         f"{bounds['occlude'][0]:.6f} ({bounds['occlude'][1]})")
+    kinds = soa.num_tris > 0, soa.num_prims > soa.num_tris
+    for kind, any_hit in (("trace", False), ("occlude", True)):
+        log(f"[kernels] {label}: " + walk_form_report(
+            f"hier_kernel {kind}{'[instanced]' if inst else ''}", ms[kind], bounds[kind][0],
+            ph.occupancy(any_hit, inst, *kinds), WALK_PTXAS[(*kinds, any_hit, inst)]))
     return err, ms, bounds
 
 
@@ -1182,6 +1216,8 @@ def compare_mega_hier(label, scene, res, spp, bounce, bitwise, start=0, kernel_r
         f"{ms:.4f}, plain {plain_ms:.4f} (1 run, {plain_ms / ms:.2f}x); least prim-test work "
         f"{flops:.6g} flops; bound {bound[0]:.6f} ms ({bound[1]}); "
         f"{n * spp / ms / 1e3:.4f} Mspps in the kernel alone")
+    log(f"[kernels] megakernel chunk-tree form, {label}: " + walk_form_report(
+        "mega_kernel<false, true>", ms, bound[0], mk.hier_occupancy(), WALK_PTXAS["mega"]))
     if (bitwise and differ) or share < t["share"] or not mean_diff < t["mean"]:
         raise AssertionError(f"the chunk-tree megakernel disagrees with its plain version on "
                              f"{label}")
@@ -1710,7 +1746,7 @@ def mega_hier_slice(grid, res, program, walk_first, walk_mspps, main_mspps, smi)
     `program`s through _sample_frame (one launch each, nothing else). The
     first timed program's sums against the walk-only first program's
     (`walk_first`): pixels not bitwise equal, MEGA_TOL. Then the launch
-    against its plain version (compare_mega_hier, 3 timed launches). Returns
+    against its plain version (compare_mega_hier, 10 timed launches). Returns
     the kernels line's megakernel_hier entry."""
     import os
 
@@ -1758,8 +1794,7 @@ def mega_hier_slice(grid, res, program, walk_first, walk_mspps, main_mspps, smi)
     if outside > (1 - t["share"]) * n_px or not mean_diff < t["mean"]:
         raise AssertionError("the chunk-tree megakernel disagrees with the walk-only program")
     label = f"sphere_grid(1M) {res[0]}x{res[1]} 1 spp, the first timed program's launch"
-    err, ms, bound, _ = compare_mega_hier(label, grid, res, 1, 6, bitwise=True, start=1,
-                                          kernel_runs=3)
+    err, ms, bound, _ = compare_mega_hier(label, grid, res, 1, 6, bitwise=True, start=1)
     return dict(name="megakernel_hier", route="cuda", source=MEGA_SOURCE,
                 replaces=MEGA_HIER_SITE, launches=counts["mega_hier"],
                 max_abs_err=max(err, float((first - walk_first).abs().max())), ms=ms["ms"],
@@ -1935,8 +1970,14 @@ def main() -> int:
         log(f"[build] megakernel {form} form ({name}): {report}")
     if set(named) != set(MEGA_FORMS.values()):
         return fail(f"expected the megakernel's three forms in the ptxas report, got {forms}")
-    for name, report in ptxas_forms(builds["hier_walk"].ptxas, "hier_kernel").items():
+    hier_forms = ptxas_forms(builds["hier_walk"].ptxas, "hier_kernel")
+    for name, report in hier_forms.items():
         log(f"[build] hier_kernel form ({name}): {report}")
+    for key in [(t, s, a, i) for t in (True, False) for s in (True, False) if t or s
+                for a in (False, True) for i in (False, True)]:
+        tag = "I" + "".join(f"Lb{int(b)}E" for b in key) + "E"  # its template arguments
+        WALK_PTXAS[key] = next(r for n, r in hier_forms.items() if tag in n)
+    WALK_PTXAS["mega"] = named["chunk-tree"]
     pi._load()
     mk._load()
     ph._load()
@@ -2338,6 +2379,8 @@ def main() -> int:
              bound_ms=b_out["seg_exact"]["bound_ms"], bound_by=b_out["seg_exact"]["bound_by"],
              library_ms=None),
     ] + inst_rows + plk_rows
+    for line in WALK_REPORTS:
+        log(f"[walk] {line} | {smi}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

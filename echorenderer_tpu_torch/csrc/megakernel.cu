@@ -29,6 +29,17 @@
 // capture them without an O(P) one-hot gather; here the winning slot's rows
 // are one indexed load from the per-slot shading table, the same values. The
 // JAX package leaves textures out of that variant, and so does this form.
+// Its walk is warp-cooperative (hier_walk.cuh: traversal per lane, chunk
+// leaves postponed and tested by the whole warp from a shared-memory stage
+// that a bulk asynchronous copy fills), so this form calls it at
+// warp-uniform points: every lane of a warp stays in its loop until the
+// warp's paths are all done (a finished lane traces rays with t_max = 0),
+// and every lane walks its NEE shadow ray after the interaction, not inside
+// the candidate branch (t_max = 0 where it has none). What bounds it then:
+// the lanes of a warp that end their paths at different bounces idle in
+// the loop, the walk's stack in local memory, and 128 registers a thread,
+// which hold the resident warps to 16 a SM (4 blocks; the warps' stages,
+// 40 KiB a block, would allow 5).
 //
 // What bounds it on the H100: float work. Every traced and shadow ray tests
 // every prim of the scene (the chunk-tree form: the prims of every chunk
@@ -39,9 +50,10 @@
 //   - one thread per lane; the lane runs its pixel's samples one after the
 //     other, regenerating a camera ray when a path ends, and then its next
 //     pixel slot (slot j of lane L is pixel j * n_lanes + L). No loop
-//     condition is shared across threads: a thread returns when its slots
-//     are done, so the TPU kernel's block-wide "any lane live" test and its
-//     K-slot tail averaging become the warp scheduler's business;
+//     condition is shared across threads (the chunk-tree form: across
+//     warps): a thread (warp) returns when its slots are done, so the TPU
+//     kernel's block-wide "any lane live" test and its K-slot tail
+//     averaging become the warp scheduler's business;
 //   - the whole path state and the pixel's sums stay in registers; the sums
 //     are written once per pixel;
 //   - the 10 prim rows are staged once per block in dynamic shared memory
@@ -943,8 +955,8 @@ __device__ __forceinline__ bool occlude_rows(const float* rows, int padded, cons
 // closest hit and any hit over the chunk tree (the chunk-tree form)
 template <bool HAS_TRI, bool HAS_SPH>
 __device__ __forceinline__ int trace_tree(const Params& p, const Ray& r, float& best_t,
-                                          float& best_u, float& best_v) {
-  const echo::HierHit h = echo::hier_walk<HAS_TRI, HAS_SPH, false, false>(p.hier, r, -1);
+                                          float& best_u, float& best_v, echo::HierStage& st) {
+  const echo::HierHit h = echo::hier_walk<HAS_TRI, HAS_SPH, false, false>(p.hier, r, -1, st);
   best_t = h.t;
   best_u = h.u;
   best_v = h.v;
@@ -952,35 +964,39 @@ __device__ __forceinline__ int trace_tree(const Params& p, const Ray& r, float& 
 }
 
 template <bool HAS_TRI, bool HAS_SPH>
-__device__ __forceinline__ bool occlude_tree(const Params& p, const Ray& r) {
-  return echo::hier_walk<HAS_TRI, HAS_SPH, true, false>(p.hier, r, -1).blocked;
+__device__ __forceinline__ bool occlude_tree(const Params& p, const Ray& r,
+                                             echo::HierStage& st) {
+  return echo::hier_walk<HAS_TRI, HAS_SPH, true, false>(p.hier, r, -1, st).blocked;
 }
 
-template <bool HIER>
+// closest hit and any hit over the staged prims (the untextured and
+// textured forms)
 __device__ int trace(const Params& p, const float* rows, const Ray& r, float& t, float& u,
                      float& v) {
-  if constexpr (HIER) {
-    if (p.has_tri && p.has_sph) return trace_tree<true, true>(p, r, t, u, v);
-    if (p.has_tri) return trace_tree<true, false>(p, r, t, u, v);
-    return trace_tree<false, true>(p, r, t, u, v);
-  } else {
-    if (p.has_tri && p.has_sph) return trace_rows<true, true>(rows, p.padded, r, t, u, v);
-    if (p.has_tri) return trace_rows<true, false>(rows, p.padded, r, t, u, v);
-    return trace_rows<false, true>(rows, p.padded, r, t, u, v);
-  }
+  if (p.has_tri && p.has_sph) return trace_rows<true, true>(rows, p.padded, r, t, u, v);
+  if (p.has_tri) return trace_rows<true, false>(rows, p.padded, r, t, u, v);
+  return trace_rows<false, true>(rows, p.padded, r, t, u, v);
 }
 
-template <bool HIER>
 __device__ bool occlude(const Params& p, const float* rows, const Ray& r) {
-  if constexpr (HIER) {
-    if (p.has_tri && p.has_sph) return occlude_tree<true, true>(p, r);
-    if (p.has_tri) return occlude_tree<true, false>(p, r);
-    return occlude_tree<false, true>(p, r);
-  } else {
-    if (p.has_tri && p.has_sph) return occlude_rows<true, true>(rows, p.padded, r);
-    if (p.has_tri) return occlude_rows<true, false>(rows, p.padded, r);
-    return occlude_rows<false, true>(rows, p.padded, r);
-  }
+  if (p.has_tri && p.has_sph) return occlude_rows<true, true>(rows, p.padded, r);
+  if (p.has_tri) return occlude_rows<true, false>(rows, p.padded, r);
+  return occlude_rows<false, true>(rows, p.padded, r);
+}
+
+// the chunk-tree form's trace and occlude: every lane of the warp calls
+// them together, with the warp's stage
+__device__ __forceinline__ int trace_hier(const Params& p, const Ray& r, float& t, float& u,
+                                          float& v, echo::HierStage& st) {
+  if (p.has_tri && p.has_sph) return trace_tree<true, true>(p, r, t, u, v, st);
+  if (p.has_tri) return trace_tree<true, false>(p, r, t, u, v, st);
+  return trace_tree<false, true>(p, r, t, u, v, st);
+}
+
+__device__ __forceinline__ bool occlude_hier(const Params& p, const Ray& r, echo::HierStage& st) {
+  if (p.has_tri && p.has_sph) return occlude_tree<true, true>(p, r, st);
+  if (p.has_tri) return occlude_tree<true, false>(p, r, st);
+  return occlude_tree<false, true>(p, r, st);
 }
 
 __device__ __forceinline__ Ray make_ray(V3 o, V3 d, float tmax, int ignore) {
@@ -1056,8 +1072,15 @@ __device__ void spawn(const Params& p, const float* cam, const Pixel& q, uint32_
   d = d / lo_clamp(sqrtf(dot(d, d)), 1e-20f);
 }
 
+// HIER: every lane of the warp runs the loop until the warp is done, a lane
+// whose slots are done (or that has none) tracing dead rays (t_max = 0), and
+// the NEE shadow ray is walked after the interaction by every lane (t_max =
+// 0 where there is none), so that the walk is called warp-wide. The draws
+// are a pure function of (seed, pixel, sample, dimension), so no number
+// changes.
 template <bool TEX, bool HIER>
-__device__ void run_lane(const Params& p, const float* rows, int lane) {
+__device__ void run_lane(const Params& p, const float* rows, int lane,
+                         echo::HierStage* st = nullptr) {
   constexpr int SPW = TEX ? SP_TEX : SP, MTW = TEX ? MT_TEX : MT;
   const float* cam = p.cam;
   const V3 amb_all = load3(cam + C_AMB_ALL);
@@ -1071,8 +1094,13 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
 
   int slot = 0;
   int pix = lane;
-  if (pix >= p.n) return;
-  Pixel q = load_pixel(p, pix);
+  bool live = true;  // this lane still has samples to take
+  if constexpr (HIER) {
+    live = lane < p.n_lanes && pix < p.n;
+  } else {
+    if (pix >= p.n) return;
+  }
+  Pixel q = load_pixel(p, live ? pix : 0);  // (a lane with nothing to do never uses it)
   uint32_t sample = 0;
   V3 s_sum = mk(0.0f, 0.0f, 0.0f), s_sq = s_sum;
 
@@ -1086,10 +1114,21 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
   int ignore = -1;
 
   for (;;) {
+    if constexpr (HIER) {
+      if (!__any_sync(echo::kFullWarp, live)) return;
+    }
     const uint32_t sid = q.s0 + sample;
     float hit_t, hit_u, hit_v;
-    const int hit = trace<HIER>(p, rows, make_ray(o, d, kInf, ignore), hit_t, hit_u, hit_v);
+    int hit;
+    if constexpr (HIER) {
+      hit = trace_hier(p, make_ray(o, d, live ? kInf : 0.0f, ignore), hit_t, hit_u, hit_v, *st);
+    } else {
+      hit = trace(p, rows, make_ray(o, d, kInf, ignore), hit_t, hit_u, hit_v);
+    }
     bool continues = false;
+    Ray shadow = make_ray(o, d, 0.0f, -1);  // HIER: the NEE shadow ray (none: t_max = 0)
+    V3 nee_term = mk(0.0f, 0.0f, 0.0f);     // HIER: its radiance unless shadowed
+    bool nee_live = false;
     V3 new_tp, cont_o, wi_world, point;
     float bs_pdf = 0.0f;
     bool bs_spec = false;
@@ -1219,7 +1258,12 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
         if (candidate) {
           const V3 shadow_o = offset_origin(point, geo_n, ls.incident);
           const float shadow_t = ls.travel >= kInf ? kInf : ls.travel * kShadowScale;
-          if (!occlude<HIER>(p, rows, make_ray(shadow_o, ls.incident, shadow_t, hit))) {
+          if constexpr (HIER) {  // walked below, by the whole warp
+            shadow = make_ray(shadow_o, ls.incident, shadow_t, hit);
+            float mis_w = ls.use_mis ? power_heuristic(nee_pdf, scatter_pdf) : 1.0f;
+            nee_term = ls.radiant * f_l * (mis_w / lo_clamp(nee_pdf, 1e-20f));
+            nee_live = true;
+          } else if (!occlude(p, rows, make_ray(shadow_o, ls.incident, shadow_t, hit))) {
             float mis_w = ls.use_mis ? power_heuristic(nee_pdf, scatter_pdf) : 1.0f;
             V3 nee = ls.radiant * f_l * (mis_w / lo_clamp(nee_pdf, 1e-20f));
             radiance = radiance + throughput * nee;
@@ -1240,6 +1284,12 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
         bs_pdf = bs.pdf;
         bs_spec = bs.spec;
       }
+    }
+
+    if constexpr (HIER) {
+      const bool shadowed = occlude_hier(p, shadow, *st);
+      if (nee_live && !shadowed) radiance = radiance + throughput * nee_term;
+      if (!live) continue;
     }
 
     if (continues) {
@@ -1272,7 +1322,14 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
       out[2] = s_sq.z;
       slot += 1;
       pix = slot * p.n_lanes + lane;
-      if (slot >= p.k_slots || pix >= p.n) return;
+      if (slot >= p.k_slots || pix >= p.n) {
+        if constexpr (HIER) {
+          live = false;  // on with dead rays until the warp is done
+          continue;
+        } else {
+          return;
+        }
+      }
       q = load_pixel(p, pix);
       sample = 0;
       s_sum = s_sq = mk(0.0f, 0.0f, 0.0f);
@@ -1289,22 +1346,28 @@ __device__ void run_lane(const Params& p, const float* rows, int lane) {
 }
 
 // TEX: the texture stage; HIER: the chunk-tree form, which stages no prims
-// (used with TEX = false only)
+// but gives each warp its walk's stage (used with TEX = false only)
 template <bool TEX, bool HIER>
 __global__ void __launch_bounds__(kBlock) mega_kernel(Params p) {
-  extern __shared__ float rows[];
+  extern __shared__ float rows[];  // (dynamic shared memory starts 16-byte aligned)
   if constexpr (!HIER) {
     const int total = 10 * p.padded;
     for (int i = threadIdx.x; i < total; i += kBlock) rows[i] = p.prims[i];
     __syncthreads();
   }
   const int lane = blockIdx.x * kBlock + threadIdx.x;
-  if (lane < p.n_lanes) run_lane<TEX, HIER>(p, rows, lane);
+  if constexpr (HIER) {  // every thread runs: the walk is called warp-wide
+    echo::HierStage st = echo::hier_stage_init(rows, kBlock / 32);
+    run_lane<TEX, HIER>(p, rows, lane, &st);
+  } else {
+    if (lane < p.n_lanes) run_lane<TEX, HIER>(p, rows, lane);
+  }
 }
 
 template <bool TEX, bool HIER>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = HIER ? 0 : sizeof(float) * 10 * (size_t)p.padded;
+  const size_t smem = HIER ? echo::hier_smem_bytes(kBlock / 32)
+                           : sizeof(float) * 10 * (size_t)p.padded;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(mega_kernel<TEX, HIER>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1381,4 +1444,19 @@ extern "C" int megakernel_hier(void* const* ptrs, const int* ints, void* const* 
                             static_cast<const float*>(hier_ptrs[1]),
                             static_cast<const int*>(hier_ptrs[2]), root_code, nullptr, nullptr};
   return launch<false, true>(p, static_cast<cudaStream_t>(stream));
+}
+
+// The chunk-tree form's resident blocks per SM, its block size and its
+// dynamic shared memory per block, in out[0..2]; returns the CUDA error.
+extern "C" int megakernel_hier_occupancy(int* out) {
+  const void* fn = reinterpret_cast<const void*>(mega_kernel<false, true>);
+  constexpr size_t smem = echo::hier_smem_bytes(kBlock / 32);
+  static_assert(smem <= 48 * 1024, "within the default dynamic shared memory");
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBlock, smem);
+  out[0] = blocks;
+  out[1] = kBlock;
+  out[2] = static_cast<int>(smem);
+  return static_cast<int>(err);
 }

@@ -279,8 +279,21 @@ def _load():
         lib.megakernel_hier.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         lib.megakernel_hier.restype = ctypes.c_int
+        lib.megakernel_hier_occupancy.argtypes = [ctypes.c_void_p]
+        lib.megakernel_hier_occupancy.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def hier_occupancy() -> dict:
+    """The chunk-tree form's resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its block size,
+    dynamic shared memory per block and resident warps per SM."""
+    out = (ctypes.c_int * 3)()
+    err = _load().megakernel_hier_occupancy(out)
+    if err:
+        raise RuntimeError(f"megakernel_hier_occupancy failed: cudaError {err}")
+    return dict(blocks=out[0], block=out[1], smem=out[2], warps=out[0] * out[1] // 32)
 
 
 def _present_mask(present) -> int:

@@ -21,9 +21,10 @@ skipped only inside its own instance, and a hit reports its instance.
 
 Two kernels walk the tree for a batch of rays: `hier_trace` (closest hit)
 and `hier_occlude` (any hit). On a CUDA tensor each launches the
-hand-written kernel in csrc/hier_walk.cu (one thread per ray, a stack per
-thread), built with nvcc on first use (ops/cuda_build.py); on a CPU tensor
-it runs the plain PyTorch version beside it, a lockstep walk in which
+hand-written kernel in csrc/hier_walk.cu (one thread per ray and a stack
+per thread for the traversal; each chunk leaf tested by the whole warp
+from shared memory), built with nvcc on first use (ops/cuda_build.py); on
+a CPU tensor it runs the plain PyTorch version beside it, a lockstep walk in which
 every unfinished ray pops one entry of its own stack per step. Both apply
 the same rules: the box test of `pallas_intersect._box_reach` (with its
 CULL_MARGIN slack), the far child pushed first, an entry skipped once the
@@ -384,10 +385,12 @@ def to_instance(inst_f32, inst, o, d):
     return vec.affine(o.T, a, aff[:, 9:12]).T, vec.affine(d.T, a).T
 
 
-def _walk(rays, ignore, soa: HierSoA, any_hit, ign_inst=None):
+def _walk(rays, ignore, soa: HierSoA, any_hit, ign_inst=None, visits=None):
     """The kernel's walk over one ray slice, in lockstep: each step, every
     ray with a non-empty stack pops one entry. Instanced tables take each
-    ray's ignored prim's instance `ign_inst` (-1: none)."""
+    ray's ignored prim's instance `ign_inst` (-1: none). A `visits` list
+    receives, each step, the (rays, chunks, instances) of the chunk leaves
+    tested (instance -1 outside any)."""
     dev = rays.device
     m = rays.shape[1]
     has_tri, has_sph = soa.num_tris > 0, soa.num_prims > soa.num_tris
@@ -469,6 +472,8 @@ def _walk(rays, ignore, soa: HierSoA, any_hit, ign_inst=None):
         li = leaf
         if li.numel():
             chunk = e
+            if visits is not None:
+                visits.append((li.clone(), chunk.clone(), cur_inst[li].clone()))
             rows = soa.prim_chunks[chunk.long(), :10, :].permute(1, 0, 2)  # (10, K, HCHUNK)
             base = chunk * HCHUNK
             ig = ignore[li]
@@ -542,8 +547,22 @@ def _load():
         lib.hier_trace.restype = i32
         lib.hier_occlude.argtypes = common + [ptr, ptr]
         lib.hier_occlude.restype = i32
+        lib.hier_occupancy.argtypes = [i32, i32, i32, i32, ptr]
+        lib.hier_occupancy.restype = i32
         _lib = lib
     return _lib
+
+
+def occupancy(any_hit: bool, instanced: bool, has_tri: bool = True,
+              has_sph: bool = False) -> dict:
+    """One kernel form's resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its block size,
+    dynamic shared memory per block and resident warps per SM."""
+    out = (ctypes.c_int * 3)()
+    err = _load().hier_occupancy(int(any_hit), int(instanced), int(has_tri), int(has_sph), out)
+    if err:
+        raise RuntimeError(f"hier_occupancy failed: cudaError {err}")
+    return dict(blocks=out[0], block=out[1], smem=out[2], warps=out[0] * out[1] // 32)
 
 
 def check_tables(soa: HierSoA):
@@ -553,6 +572,9 @@ def check_tables(soa: HierSoA):
         raise ValueError("the hier kernels need contiguous inputs")
     if soa.prim_chunks.dtype != torch.float32 or soa.prim_chunks.shape[1:] != (16, HCHUNK):
         raise ValueError(f"prim_chunks must be (C, 16, {HCHUNK}) float32")
+    if soa.prim_chunks.data_ptr() % 16:
+        raise ValueError("the walk copies each chunk record by a bulk asynchronous copy: "
+                         "prim_chunks must be 16-byte aligned")
     if soa.bounds.dtype != torch.float32 or soa.codes.dtype != torch.int32:
         raise ValueError("node bounds must be float32 and codes int32")
     if soa.root_code < 0 and not soa.instanced:

@@ -234,6 +234,25 @@ def test_wrapper_rejects_bad_inputs():
         ph.hier_occlude(rays, ig, soa._replace(instanced=True))
 
 
+def test_tables_must_be_16_byte_aligned():
+    """The walk copies chunk records into shared memory by a bulk
+    asynchronous copy, which needs a 16-byte-aligned source: a contiguous
+    view of the chunks at an unaligned offset is refused on every device."""
+    g = _geometry_np(600, 0)
+    soa = ph.build_hier_soa(g, np.arange(600))
+    flat = torch.empty(soa.prim_chunks.numel() + 1)
+    shifted = flat[1:].view(soa.prim_chunks.shape).copy_(soa.prim_chunks)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    bad = soa._replace(prim_chunks=shifted)
+    rays, ig = torch.zeros((7, 10)), torch.full((10,), -1, dtype=torch.int32)
+    for fn in (ph.hier_trace, ph.hier_occlude):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(rays, ig, bad)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ph.check_tables(bad)
+    ph.check_tables(soa)
+
+
 # ---------------------------------------------------------------------------
 # scenes, preparation and the slice
 # ---------------------------------------------------------------------------
@@ -433,3 +452,356 @@ def test_cuda_kernels_match_plain(cuda, num_tris, num_spheres):
     for name, k, p in zip("tpuv", kt, pt):
         assert torch.equal(k, p), name
     assert torch.equal(ph.hier_occlude(rays, ig, soa), ph.hier_occlude_plain(rays, ig, soa))
+
+
+# ---------------------------------------------------------------------------
+# the warp-cooperative leaf phase of csrc/hier_walk.cuh: a model of it (on
+# the CPU), and the CUDA walk's edge cases (on the card)
+# ---------------------------------------------------------------------------
+
+LANES = 32  # a warp
+NO_SLOT = 2 ** 31 - 1  # the leaf phase's "no hit" slot and instance
+
+
+def _leaf_phase_model(rays, ig, soa, any_hit, ign_inst=None, seed=0):
+    """A model of the CUDA walk's leaf phase over the chunks the plain walk
+    enters (`_walk(visits=...)`): the rays in groups of 32 (a warp); each
+    group's (ray, chunk, instance) leaves in a seeded random order, grouped
+    by chunk; each chunk's 256 prims split over 32 lanes as (member, prim)
+    pairs, lane j testing prims j, 32 + j, ..., 224 + j of a member's ray in
+    its current space and keeping the least t by a strict <, then a 5-level
+    xor butterfly on (t, slot, instance) and the member's merge under the
+    walk's tie rule; an any-hit member is blocked by any lane's hit before
+    its t_max. Returns what hier_trace_plain / hier_occlude_plain return."""
+    visits = []
+    ph._walk(rays, ig, soa, any_hit, ign_inst, visits=visits)
+    n = rays.shape[1]
+    inst_on = soa.instanced
+    has_tri, has_sph = soa.num_tris > 0, soa.num_prims > soa.num_tris
+    if visits:
+        leaves = torch.stack([torch.cat([v[k] for v in visits]).long() for k in range(3)], 1)
+    else:
+        leaves = torch.zeros((0, 3), dtype=torch.long)
+    best_t = rays[6].clone()
+    best_p = torch.full((n,), -1, dtype=torch.int32)
+    best_u = torch.zeros(n)
+    best_v = torch.zeros(n)
+    best_i = torch.zeros(n, dtype=torch.int32)
+    blocked = torch.zeros(n, dtype=torch.bool)
+    lanes = torch.arange(LANES)
+    rs = np.random.RandomState(seed)
+    for g0 in range(0, n, LANES):
+        mine = leaves[(leaves[:, 0] >= g0) & (leaves[:, 0] < g0 + LANES)]
+        mine = mine[torch.as_tensor(rs.permutation(len(mine)), dtype=torch.long)]
+        for c in dict.fromkeys(mine[:, 1].tolist()):  # distinct chunks, in visit order
+            group = mine[mine[:, 1] == c]
+            m, inst = group[:, 0], group[:, 2]
+            k_n = len(m)
+            o, d, igm = rays[0:3, m], rays[3:6, m], ig[m]
+            if inst_on:
+                inside = inst >= 0
+                o_l, d_l = ph.to_instance(soa.inst_f32, inst.clamp(min=0).to(torch.int32), o, d)
+                o, d = torch.where(inside, o_l, o), torch.where(inside, d_l, d)
+                igm = torch.where(ign_inst[m] == inst, igm, -1)
+            rows = soa.prim_chunks[c, :10, None, :].expand(10, k_n, ph.HCHUNK)
+            base = torch.full((k_n,), c * ph.HCHUNK, dtype=torch.int32)
+            t, u, v, ok = tpi._chunk_hits(rows, base, torch.cat([o, d]), igm, has_tri, has_sph,
+                                          unit_dir=not inst_on)
+            if any_hit:
+                blocked[m[(ok & (t < rays[6, m][:, None])).any(dim=1)]] = True
+                continue
+            bt = torch.full((k_n, LANES), float("inf"))
+            bs = torch.full((k_n, LANES), NO_SLOT, dtype=torch.int64)
+            bu, bv = torch.zeros(k_n, LANES), torch.zeros(k_n, LANES)
+            for step in range(ph.HCHUNK // LANES):
+                k = LANES * step + lanes
+                take = ok[:, k] & (t[:, k] < bt)
+                bt = torch.where(take, t[:, k], bt)
+                bs = torch.where(take, c * ph.HCHUNK + k, bs)
+                bu = torch.where(take, u[:, k], bu)
+                bv = torch.where(take, v[:, k], bv)
+            bi = torch.where(bs < NO_SLOT, inst[:, None], NO_SLOT)
+            for off in (16, 8, 4, 2, 1):
+                q = lanes ^ off
+                qt, qs, qi = bt[:, q], bs[:, q], bi[:, q]
+                take = (qt < bt) | ((qt == bt) & ((qs < bs) | ((qs == bs) & (qi < bi))))
+                bt, bs, bi = torch.where(take, qt, bt), torch.where(take, qs, bs), torch.where(
+                    take, qi, bi)
+                bu, bv = torch.where(take, bu[:, q], bu), torch.where(take, bv[:, q], bv)
+            assert (bs == bs[:, :1]).all() and (bt == bt[:, :1]).all()  # every lane agrees
+            for j in range(k_n):
+                if bs[j, 0] == NO_SLOT:
+                    continue
+                r, tj, sj, ij = int(m[j]), bt[j, 0], int(bs[j, 0]), int(bi[j, 0])
+                cur_p = int(best_p[r])
+                if tj < best_t[r] or (tj == best_t[r] and cur_p >= 0 and (
+                        sj < cur_p or (inst_on and sj == cur_p and ij < int(best_i[r])))):
+                    best_t[r], best_p[r], best_i[r] = tj, sj, ij
+                    best_u[r], best_v[r] = bu[j, 0], bv[j, 0]
+    if any_hit:
+        return blocked
+    return (best_t, best_p, best_u, best_v) + ((best_i,) if inst_on else ())
+
+
+def _tied_soup(num_tris, num_spheres, seed=0):
+    """tests/test_torch_intersect.py's soup with exact copies of its first
+    quarter of triangles and of spheres, in a random prim order (the copies
+    sit in other chunks), and rays: half aimed at a copied prim from a
+    random origin (an exact t tie between two slots, mostly in two chunks),
+    half `_rays`' random ones, with a sixteenth of the aimed ones dead.
+    Returns (tables, rays, sorted ignores, each sorted slot's copy's or
+    original's slot, -1 for the rest)."""
+    g = _geometry_np(num_tris, num_spheres, seed=seed)
+    nt, ns = num_tris // 4, num_spheres // 4
+    g = {k: np.concatenate([v, v[: nt if k.startswith("tri_") else ns]]) for k, v in g.items()}
+    n_tri = num_tris + nt
+    p = n_tri + num_spheres + ns
+    twin = np.full(p, -1)
+    twin[:nt], twin[num_tris:n_tri] = num_tris + np.arange(nt), np.arange(nt)
+    twin[n_tri:n_tri + ns] = n_tri + num_spheres + np.arange(ns)
+    twin[n_tri + num_spheres:] = n_tri + np.arange(ns)
+    soa = ph.build_hier_soa(g, np.random.RandomState(seed + 1).permutation(p))
+    twin_of_prim = torch.as_tensor(twin)[soa.order.long()]
+    twin_slot = torch.where(twin_of_prim >= 0, soa.inv_order[twin_of_prim.clamp(min=0)].long(),
+                            -1)
+    rs = np.random.RandomState(seed + 2)
+    n_aim = 256
+    centers = np.concatenate([g["tri_v0"][:nt] + (g["tri_e1"][:nt] + g["tri_e2"][:nt]) / 3.0,
+                              g["sph_center"][:ns]])
+    tgt = centers[rs.randint(0, nt + ns, n_aim)]
+    o = rs.uniform(-12, 12, (n_aim, 3)).astype(np.float32)
+    d = (tgt - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.full(n_aim, np.inf, np.float32)
+    t_max[rs.uniform(size=n_aim) < 1 / 16] = 0.0
+    ro, rd, rt, ri = _rays(256, p, seed=seed + 3)
+    o, d = np.concatenate([o, ro]), np.concatenate([d, rd])
+    t_max, ignore = np.concatenate([t_max, rt]), np.concatenate([np.full(n_aim, -1, np.int32), ri])
+    rays = tpi.ray_columns(torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(t_max))
+    return soa, rays, ph._sorted_ignore(soa, torch.as_tensor(ignore)), twin_slot
+
+
+def _tied_instances():
+    """tests/test_torch_instancing.py's mixed pack placed 3 times, then its
+    first placement once more: every hit in either copy has an exact
+    (t, slot) tie in the other instance. Rays as that file makes them, with
+    per-instance ignores."""
+    import echorenderer_tpu_torch.scene as tsc
+    from test_torch_instancing import _mixed, _scene_rays
+
+    scene = _mixed(tsc, count=3)
+    first = next(c for c in scene.children if isinstance(c, tsc.PackInstance))
+    scene.add(tsc.PackInstance(first.pack, position=first.position, rotation=first.rotation,
+                               scale=first.transform.scale))
+    prepared = tprepare(scene, instancing="tlas", device="cpu")
+    soa = prepared.hier_soa
+    o, d, t_max = _scene_rays(prepared, 512, seed=9)
+    rs = np.random.RandomState(10)
+    ignore = np.where(rs.uniform(size=512) < 0.3, rs.randint(0, soa.num_prims, 512), -1)
+    ii = torch.as_tensor(rs.randint(0, 5, 512).astype(np.int32))
+    ig = torch.as_tensor(ignore.astype(np.int32))
+    rays = tpi.ray_columns(torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(t_max))
+    return soa, rays, ph._sorted_ignore(soa, ig), ph._ignore_inst(soa, ig, ii)
+
+
+@pytest.mark.parametrize("num_tris,num_spheres", GEOMETRIES + [(None, None)],
+                         ids=IDS + ["instanced"])
+def test_leaf_phase_model_matches_plain(num_tris, num_spheres):
+    """The leaf phase's grouping, split and reduction give the plain walk's
+    answers bit for bit, on rays with forced exact ties (across chunks;
+    instanced: across two instances of one placement)."""
+    if num_tris is None:
+        soa, rays, ig, ii = _tied_instances()
+    else:
+        (soa, rays, ig, twin), ii = _tied_soup(num_tris, num_spheres, seed=17), None
+    want = ph.hier_trace_plain(rays, ig, soa, ii)
+    for seed in (0, 1):
+        got = _leaf_phase_model(rays, ig, soa, False, ii, seed=seed)
+        for name, a, b in zip("tpuvi", got, want):
+            assert torch.equal(a, b), name
+        assert torch.equal(_leaf_phase_model(rays, ig, soa, True, ii, seed=seed),
+                           ph.hier_occlude_plain(rays, ig, soa, ii))
+    found = want[1] >= 0
+    assert found.sum() > 100
+    if num_tris is None:  # the later copy of the placement never wins a tie
+        tie = soa.inst_codes.numel() - 1
+        assert (want[4][found] == 0).any() and not (want[4][found] == tie).any()
+    else:  # a hit on a copied prim (or its copy) ignoring neither: the lower slot
+        slot = want[1][found & (ig < 0)].long()
+        tied = twin[slot] >= 0
+        assert tied.sum() > 20 and (slot[tied] < twin[slot][tied]).all()
+
+
+@pytest.mark.parametrize("num_tris,num_spheres", GEOMETRIES + [(None, None)],
+                         ids=IDS + ["instanced"])
+def test_leaf_phase_model_matches_jax(num_tris, num_spheres):
+    """The same model against the JAX package's intersect_hier /
+    occlude_hier (the Pallas kernel in interpret mode) on the same tables
+    and rays, with this file's and tests/test_torch_instancing.py's
+    tolerances."""
+    if num_tris is None:
+        from test_torch_instancing import _assert_hits_close, _jprepare, _jsc, _mixed, _prep
+        from test_torch_instancing import _scene_rays
+
+        jnp, _, jph = _jax()
+        jscene = _jprepare(_mixed(_jsc()), instancing="tlas")
+        tscene = from_jax_arrays(_prep().flatten_jax(jscene), device="cpu")
+        soa = tscene.hier_soa
+        o, d, t_max = _scene_rays(tscene, 512, seed=12)
+        ignore = np.full(512, -1, np.int32)
+        jargs = [jnp.asarray(x) for x in (o, d, t_max, ignore)]
+        ref = jph.intersect_hier(jscene.geometry, jscene.hier_soa, *jargs)
+        ref_blocked = np.asarray(jph.occlude_hier(jscene.geometry, jscene.hier_soa, *jargs))
+        geom = tscene.geometry
+    else:
+        jgeom, jsoa, geom, soa = _both(num_tris, num_spheres)
+        o, d, t_max, ignore = _rays(256, num_tris + num_spheres)  # test_trace_matches_jax's
+        jargs, _ = _ray_args(o, d, t_max, ignore)
+        ref = _jax()[2].intersect_hier(jgeom, jsoa, *jargs)
+        ref_blocked = np.asarray(_jax()[2].occlude_hier(jgeom, jsoa, *jargs))
+    targs = [torch.as_tensor(x) for x in (o, d, t_max, ignore)]
+    rays = tpi.ray_columns(*targs[:3])
+    ig = ph._sorted_ignore(soa, targs[3])
+    ii = ph._ignore_inst(soa, targs[3], None)
+    t, p, u, v, *inst = _leaf_phase_model(rays, ig, soa, False, ii, seed=3)
+    prim = torch.where(p >= 0, soa.order[torch.clamp(p, min=0)], -1).to(torch.int32)
+    found = prim >= 0
+    got = tint.Hit(t=torch.where(found, t, tint.INF), prim=prim, uv=torch.stack([u, v], -1),
+                   inst=torch.where(found, inst[0], 0) if inst else torch.zeros_like(prim))
+    blocked = _leaf_phase_model(rays, ig, soa, True, ii, seed=3).numpy()
+    np.testing.assert_array_equal(blocked, ref_blocked)
+    if num_tris is None:
+        _assert_hits_close(got, ref, geom.num_triangles)
+        return
+    ref_prim, ref_t = np.asarray(ref.prim), np.asarray(ref.t)
+    assert _cross_chunk_ties(got.t.numpy(), got.prim.numpy(), ref_t, ref_prim) == 0
+    np.testing.assert_array_equal(got.prim.numpy(), ref_prim)
+    assert (ref_prim >= 0).sum() > 5
+    np.testing.assert_allclose(got.t.numpy(), ref_t, rtol=1e-5, atol=1e-6)
+    tri = (ref_prim >= 0) & (ref_prim < num_tris)
+    np.testing.assert_allclose(got.uv.numpy()[tri], np.asarray(ref.uv)[tri], rtol=1e-5,
+                               atol=1e-5)
+
+
+CLUSTER_GAP = 12.0  # between cluster centres, along x
+
+
+def _clusters(n_chunks, copies=False, seed=0):
+    """Clusters of 240 small triangles and 16 small spheres about (12 k, 0,
+    0), ordered so that chunk k holds cluster k: a ray along +z through a
+    cluster enters its chunk alone. With `copies`, chunk k + n_chunks / 2
+    repeats chunk k prim for prim: every hit has an exact (t) tie at a
+    higher slot in another chunk."""
+    rs = np.random.RandomState(seed)
+    nt, ns = 240, 16
+    k_n = n_chunks // 2 if copies else n_chunks
+    at = lambda m: np.repeat(np.stack([CLUSTER_GAP * np.arange(k_n), np.zeros(k_n),
+                                       np.zeros(k_n)], -1), m, 0)
+    g = _geometry_np(k_n * nt, k_n * ns, seed=seed)
+    g["tri_v0"] = (at(nt) + rs.uniform(-1.0, 1.0, (k_n * nt, 3))).astype(np.float32)
+    g["tri_e1"] = rs.uniform(-0.4, 0.4, (k_n * nt, 3)).astype(np.float32)
+    g["tri_e2"] = rs.uniform(-0.4, 0.4, (k_n * nt, 3)).astype(np.float32)
+    g["sph_center"] = (at(ns) + rs.uniform(-1.0, 1.0, (k_n * ns, 3))).astype(np.float32)
+    g["sph_radius"] = rs.uniform(0.05, 0.25, k_n * ns).astype(np.float32)
+    if copies:
+        g = {k: np.concatenate([v, v]) for k, v in g.items()}
+    t_all = n_chunks * nt
+    order = np.concatenate([np.concatenate([np.arange(k * nt, (k + 1) * nt),
+                                            t_all + np.arange(k * ns, (k + 1) * ns)])
+                            for k in range(n_chunks)])
+    return g, order
+
+
+def _at_clusters(which, seed=0, jitter=0.8):
+    """Rays along +z (tilted a little) through the clusters `which`, from
+    z = -6, with t_max infinite."""
+    rs = np.random.RandomState(seed)
+    n = len(which)
+    o = np.stack([CLUSTER_GAP * np.asarray(which, np.float32), np.zeros(n, np.float32),
+                  np.full(n, -6.0, np.float32)], -1)
+    o[:, :2] += rs.uniform(-jitter, jitter, (n, 2)).astype(np.float32)
+    d = np.concatenate([rs.uniform(-0.05, 0.05, (n, 2)), np.ones((n, 1))], -1)
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return o, d, np.full(n, np.inf, np.float32), np.full(n, -1, np.int32)
+
+
+def _kernel_equals_plain(dev, soa, o, d, t_max, ignore):
+    """hier_trace / hier_occlude against their plain versions, bitwise;
+    returns the plain trace."""
+    rays = tpi.ray_columns(*(torch.as_tensor(x, device=dev) for x in (o, d, t_max)))
+    ig = ph._sorted_ignore(soa, torch.as_tensor(ignore, device=dev))
+    want = ph.hier_trace_plain(rays, ig, soa)
+    got = ph.hier_trace(rays, ig, soa)
+    blocked = ph.hier_occlude(rays, ig, soa)
+    torch.cuda.synchronize()
+    for name, k, p in zip("tpuv", got, want):
+        assert torch.equal(k, p), name
+    assert torch.equal(blocked, ph.hier_occlude_plain(rays, ig, soa))
+    return want
+
+
+@pytest.mark.cuda
+def test_cuda_warp_in_one_chunk(cuda):
+    """Every lane of every warp enters the same chunk (one leaf-phase group
+    of 32), with and without identical rays."""
+    g, order = _clusters(8)
+    soa = ph.build_hier_soa(g, order, device=cuda)
+    o, d, t_max, ig = _at_clusters([5] * 96)
+    o[64:], d[64:] = o[64], d[64]  # the third warp: 32 identical rays
+    want = _kernel_equals_plain(cuda, soa, o, d, t_max, ig)
+    assert (want[1] // ph.HCHUNK == 5).sum() > 48
+
+
+@pytest.mark.cuda
+def test_cuda_warp_in_32_chunks(cuda):
+    """The 32 lanes of a warp enter 32 different chunks (32 groups of one,
+    32 copies in a row through one stage)."""
+    g, order = _clusters(40)
+    soa = ph.build_hier_soa(g, order, device=cuda)
+    which = list(range(32)) + list(range(39, 7, -1))
+    o, d, t_max, ig = _at_clusters(which, jitter=0.3)
+    want = _kernel_equals_plain(cuda, soa, o, d, t_max, ig)
+    hit = want[1] >= 0
+    assert len(set((want[1][hit] // ph.HCHUNK).tolist())) >= 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 1000])
+def test_cuda_ray_counts_off_the_warp(cuda, n):
+    """n not a multiple of 32 or of a block: the lanes past the last ray
+    walk dead rays with their warp."""
+    g, order = _clusters(12)
+    soa = ph.build_hier_soa(g, order, device=cuda)
+    rs = np.random.RandomState(n)
+    o, d, t_max, ig = _at_clusters(rs.randint(0, 12, n), seed=n)
+    d[::3] = rs.normal(size=(len(d[::3]), 3)).astype(np.float32)  # a third wander
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    _kernel_equals_plain(cuda, soa, o, d, t_max, ig)
+
+
+@pytest.mark.cuda
+def test_cuda_dead_lanes_among_live(cuda):
+    """t_max <= 0 (no work) on every other lane, and on whole warps."""
+    g, order = _clusters(12)
+    soa = ph.build_hier_soa(g, order, device=cuda)
+    rs = np.random.RandomState(2)
+    o, d, t_max, ig = _at_clusters(rs.randint(0, 12, 512), seed=2)
+    t_max[::2] = rs.choice([0.0, -1.0, -np.inf], 256)
+    t_max[1::4] = rs.uniform(4.0, 8.0, 128)  # finite: ends inside the cluster
+    t_max[256:320] = 0.0
+    ig[::5] = rs.randint(0, len(order), len(ig[::5]))
+    want = _kernel_equals_plain(cuda, soa, o, d, t_max, ig)
+    assert (want[1][::2] == -1).all() and (want[1] >= 0).sum() > 100
+
+
+@pytest.mark.cuda
+def test_cuda_exact_ties_across_chunks(cuda):
+    """Chunks k and k + 6 hold the same prims: every hit ties in t across
+    two chunks, and the lower slot wins (as the plain walk keeps it)."""
+    g, order = _clusters(12, copies=True)
+    soa = ph.build_hier_soa(g, order, device=cuda)
+    rs = np.random.RandomState(3)
+    o, d, t_max, ig = _at_clusters(rs.randint(0, 6, 1024), seed=3)
+    want = _kernel_equals_plain(cuda, soa, o, d, t_max, ig)
+    hit = want[1] >= 0
+    assert hit.sum() > 300 and (want[1][hit] < 6 * ph.HCHUNK).all()

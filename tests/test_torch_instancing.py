@@ -583,3 +583,45 @@ def test_cuda_walk_matches_plain(cuda, count):
     assert torch.equal(ph.hier_occlude(rays, sig, soa, sii),
                        ph.hier_occlude_plain(rays, sig, soa, sii))
     assert ph.hier_trace.launches_instanced > 0
+
+
+def _placed_twice(m):
+    """The mixed pack placed 3 times, then its first placement once more:
+    every hit in either copy has an exact (t, slot) tie in the other
+    instance, which the lower instance wins."""
+    scene = _mixed(m, count=3)
+    first = next(c for c in scene.children if isinstance(c, m.PackInstance))
+    scene.add(m.PackInstance(first.pack, position=first.position, rotation=first.rotation,
+                             scale=first.transform.scale))
+    return scene
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4099, 1000, 33])
+def test_cuda_walk_edge_cases_match_plain(cuda, n):
+    """The instanced walk's warp-cooperative leaf phase: exact ties across
+    two instances of one placement, n not a multiple of 32 or of a block,
+    dead lanes among live ones (a sixteenth of the rays, and every fifth
+    lane of the rest), a warp of identical rays, per-instance ignores;
+    bitwise against the plain walk."""
+    scene = tprepare(_placed_twice(tsc), instancing="tlas", device=cuda)
+    soa = scene.hier_soa
+    o, d, t_max = _scene_rays(scene, n, seed=n)
+    t_max[1::5] = 0.0
+    o[-32:], d[-32:], t_max[-32:] = o[-1], d[-1], np.inf  # a warp of one ray, if n >= 64
+    rays = tpi.ray_columns(*(torch.as_tensor(x, device=cuda) for x in (o, d, t_max)))
+    rs = np.random.RandomState(n)
+    ig = torch.as_tensor(np.where(rs.uniform(size=n) < 0.3, rs.randint(0, soa.num_prims, n), -1),
+                         device=cuda)
+    ii = torch.as_tensor(rs.randint(0, 5, n), device=cuda)
+    sig, sii = ph._sorted_ignore(soa, ig), ph._ignore_inst(soa, ig, ii)
+    want = ph.hier_trace_plain(rays, sig, soa, sii)
+    got = ph.hier_trace(rays, sig, soa, sii)
+    blocked = ph.hier_occlude(rays, sig, soa, sii)
+    torch.cuda.synchronize()
+    for name, k, p in zip("tpuvi", got, want):
+        assert torch.equal(k, p), name
+    assert torch.equal(blocked, ph.hier_occlude_plain(rays, sig, soa, sii))
+    found = want[1] >= 0
+    last = soa.inst_codes.numel() - 1  # the repeated placement: it never wins a tie
+    assert not (want[4][found] == last).any()

@@ -372,3 +372,24 @@ def test_cuda_hier_outside_envelope_raises(cuda):
     pxy = torch.stack([pid % 8, pid // 8], -1).to(torch.int32)
     with pytest.raises(ValueError, match="chunk-tree form's envelope: no chunk-tree tables"):
         tmk.sample_frame_mega(scene, pid, pxy, (8, 8), 0, 0, 1, hier=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounce_limit,k_slots", [(0, 1), (3, 3)])
+def test_cuda_hier_lanes_finish_apart(cuda, bounce_limit, k_slots):
+    """The lanes of a warp end their paths at different bounces, bounce 0
+    among them (Russian roulette at survivability 0.6; a bounce limit of 0
+    ends every path there), and their pixel slots at different times
+    (1,000 pixels: not a multiple of 32 or of the block; with 3 slots the
+    last lanes have one slot fewer); a finished lane walks dead rays with
+    its warp until the warp is done. Bitwise against the plain version."""
+    scene = tprepare(tscenes.sphere_grid(20_000), device=cuda)
+    pid, pxy, res = _lanes(1000, (40, 25))
+    pid = torch.as_tensor(pid.astype(np.int64), device=cuda)
+    pxy = torch.as_tensor(pxy, device=cuda)
+    kw = dict(bounce_limit=bounce_limit, survivability=0.6)
+    a, a2 = tmk.sample_frame_mega(scene, pid, pxy, res, 5, 0, 3, hier=True, k_slots=k_slots, **kw)
+    b, b2 = tmk.sample_frame_mega_plain(scene, pid, pxy, res, 5, 0, 3, hier=True, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and float(a.sum()) > 0
+    assert torch.equal(a, b) and torch.equal(a2, b2)
