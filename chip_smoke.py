@@ -17,7 +17,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      static shared memory, its dynamic shared memory a block, its resident
      warps/SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and its share
      of its bound; these lines are printed again, "[walk]", before the
-     kernels line.
+     kernels line. The seg kernel's forms (seg_kernel<has_tri, has_sph,
+     instanced, keyed>) with their ptxas registers, stack frame and spills;
+     before the kernels line, one "[seg]" line a form (flat and instanced,
+     keyed and exact, triangle-only and mixed, and any other form checked):
+     its ptxas report, dynamic shared memory a block, resident warps/SM and
+     what caps them, and over every checked launch of it the mean ms, the
+     mean bound and its share.
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, on the same inputs:
      - dense_trace / dense_occlude on every call the wavefront path makes
@@ -54,7 +60,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        the bytes each launch needs: the records of live pairs, the new keys
        of refilling rays) and the median per call, the plain version's,
        launches, rounds and host reads per call, and torch.sort of setup's
-       key matrix as its yardstick (the ranking step only); every seg
+       key matrix as its yardstick (the ranking step only); the seg
+       launches bucketed by live pairs (< 2^14, < 2^18, the rest), each
+       bucket's launches, share of the seg time, mean ms and share of its
+       bound; every seg
        launch also runs the seg kernel's exact form (seg_hits: t, prim, u, v
        per pair, the JAX package's `_seg_kernel(keyed=False)`, which no
        render path calls) on the same pairs, bitwise against its plain
@@ -222,6 +231,12 @@ PLUCKER_SITES = dict(mt="benchmarks/plucker_micro.py:79", plk="benchmarks/plucke
 PLUCKER_PRODUCT_FLOPS = 44
 PLUCKER_RAY_FLOPS = 9
 INSTANCED_RES = (1920, 1080)  # bench.py's large-scene frame, for the TLAS slice
+# live-pair bounds of the seg launches' buckets (< 2^14, < 2^18, the rest)
+SEG_BUCKETS = (2 ** 14, 2 ** 18)
+# the seg kernel's forms by BinnedCheck kind: (instanced, keyed)
+SEG_KINDS = {"seg": (False, True), "seg_instanced": (True, True), "seg_exact": (False, False),
+             "seg_exact_instanced": (True, False)}
+H100_SMEM_SM = 233_472  # shared memory of an SM (228 KiB), 1 KiB of it reserved a block
 TLAS_BAKE_RES = (320, 180)  # the TLAS-against-bake renders
 
 
@@ -329,6 +344,55 @@ def ptxas_forms(ptxas: str, kernel: str) -> dict:
 # the kernels line
 WALK_PTXAS: dict = {}
 WALK_REPORTS: list = []
+# the seg kernel's ptxas reports by (has_tri, has_sph, instanced, keyed),
+# filled by main(); and every checked seg launch: (kind, (has_tri,
+# has_sph), row), for the "[seg]" lines before the kernels line
+SEG_PTXAS: dict = {}
+SEG_LAUNCHES: list = []
+
+
+def occupancy_cap(occ, ptxas) -> str:
+    """What caps a form's resident blocks a SM: its shared memory, its
+    registers (256 a warp at a time, from each of the SM's four 16,384-
+    register quarters), or the 64 warps of an SM."""
+    regs = int(ptxas.split(" registers")[0])
+    wpb = occ["block"] // 32
+    caps = {"shared memory": H100_SMEM_SM // (occ["smem"] + 1024),
+            "registers": 4 * (16384 // (-(-regs * 32 // 256) * 256)) // wpb,
+            "the 64 warps of an SM": 64 // wpb}
+    held = [name for name, blocks in caps.items() if blocks == occ["blocks"]]
+    return " and ".join(held) if held else "the occupancy query's other limits"
+
+
+def seg_form_reports(smi) -> list:
+    """One "[seg]" line a seg form (flat and instanced, keyed and exact,
+    triangle-only and mixed, and any other form the checks launched): ptxas
+    registers / stack frame / spills, dynamic shared memory a block,
+    resident warps/SM and what caps them; over every checked launch of the
+    form, the launches, the mean ms, the mean bound and its share."""
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+
+    keys = {(t, s, i, k) for t, s in ((True, False), (True, True))
+            for i in (False, True) for k in (True, False)}
+    keys |= {(*form, *SEG_KINDS[kind]) for kind, form, _ in SEG_LAUNCHES}
+    lines = []
+    for tri, sph, inst, keyed in sorted(keys, reverse=True):
+        ptxas = SEG_PTXAS[(tri, sph, inst, keyed)]
+        occ = bt.seg_occupancy(keyed, inst, tri, sph)
+        rows = [r for kind, form, r in SEG_LAUNCHES
+                if form == (tri, sph) and SEG_KINDS[kind] == (inst, keyed)]
+        name = (f"seg_kernel {'instanced' if inst else 'flat'} {'keyed' if keyed else 'exact'} "
+                f"{'mixed' if sph and tri else 'triangle-only' if tri else 'sphere-only'}")
+        timing = "not launched by this run's checks"
+        if rows:
+            ms, bound = sum(r["ms"] for r in rows), sum(r["bound"][0] for r in rows)
+            timing = (f"{len(rows)} checked launches: mean {ms / len(rows):.4f} ms against a "
+                      f"mean bound of {bound / len(rows):.6f} ms, {100.0 * bound / ms:.2f}% of "
+                      f"bound")
+        lines.append(f"{name}: {ptxas}; {occ['smem']} bytes dynamic smem a {occ['block']}-thread "
+                     f"block, {occ['blocks']} blocks = {occ['warps']} resident warps/SM, capped "
+                     f"by {occupancy_cap(occ, ptxas)}; {timing} | {smi}")
+    return lines
 
 
 def walk_form_report(label, ms, bound, occ, ptxas) -> str:
@@ -690,6 +754,7 @@ class BinnedCheck:
             record(kind, k_ms, p_ms, flops,
                    n_live * (4 * rec.shape[1] + 4 + 4) + (rec.shape[0] - n_live) * 8 + rows_bytes,
                    pairs=rec.shape[0], live=n_live)
+            SEG_LAUNCHES.append((kind, (bool(has_tri), bool(has_sph)), self.rows[kind][-1]))
             # the exact form on the same pairs: bitwise to its plain version,
             # and to the keyed result's hits and bands
             ekind = "seg_exact" if inst is None else "seg_exact_instanced"
@@ -712,6 +777,7 @@ class BinnedCheck:
                    n_live * (4 * rec.shape[1] + 4 + 16) + (rec.shape[0] - n_live) * 24
                    + rows_bytes, pairs=rec.shape[0], live=n_live, ties=ties,
                    found=int(found.sum()))
+            SEG_LAUNCHES.append((ekind, (bool(has_tri), bool(has_sph)), self.rows[ekind][-1]))
             return got
 
         bt.setup_rank, bt.select, bt.seg_keys = setup, select, seg
@@ -764,6 +830,16 @@ class BinnedCheck:
                                                 ("found pairs whose prim differs from the keyed "
                                                  "kernel's within one band", "ties", "found"))
                       if part in rows[0]}
+            if kind in SEG_KINDS:  # where the seg time sits, by live pairs a launch
+                edges = (0,) + SEG_BUCKETS + (None,)
+                o["buckets"] = []
+                for lo, hi in zip(edges, edges[1:]):
+                    inb = [r for r in rows if r["live"] >= lo and (hi is None or r["live"] < hi)]
+                    b_ms = sum(r["ms"] for r in inb)
+                    o["buckets"].append(dict(
+                        live=f"{lo}-{hi - 1}" if hi else f">= {lo}", launches=len(inb),
+                        share=b_ms / total, ms=b_ms / len(inb) if inb else 0.0,
+                        bound_share=sum(r["bound"][0] for r in inb) / b_ms if b_ms else 0.0))
             log(f"[kernels] {label}: binned {kind}: {o['launches']} launches over "
                 f"{len(per_call)} calls, each bitwise equal to its plain version (max |diff| "
                 f"{o['max_abs_err']}); mean ms per launch {o['ms']:.4f} (plain "
@@ -775,7 +851,11 @@ class BinnedCheck:
                 f"{100 * o['share']:.2f}% of the kernel's time"
                 + "".join(f"; {name} {a} of {b}" for name, (a, b) in shares.items())
                 + (f"; torch.sort of the same key matrix (ranking step only) "
-                   f"{o['library_ms']:.4f} ms per launch" if lib else ""))
+                   f"{o['library_ms']:.4f} ms per launch" if lib else "")
+                + "".join(f"; live pairs {b['live']}: {b['launches']} launches, "
+                          f"{100 * b['share']:.1f}% of the time, mean {b['ms']:.4f} ms, "
+                          f"{100 * b['bound_share']:.2f}% of bound"
+                          for b in o.get("buckets", ())))
         return out
 
 
@@ -1978,6 +2058,14 @@ def main() -> int:
         tag = "I" + "".join(f"Lb{int(b)}E" for b in key) + "E"  # its template arguments
         WALK_PTXAS[key] = next(r for n, r in hier_forms.items() if tag in n)
     WALK_PTXAS["mega"] = named["chunk-tree"]
+    seg_forms = ptxas_forms(builds["binned"].ptxas, "seg_kernel")
+    for key in [(t, s, i, k) for t in (True, False) for s in (True, False) if t or s
+                for i in (True, False) for k in (True, False)]:
+        tag = "I" + "".join(f"Lb{int(b)}E" for b in key) + "E"  # its template arguments
+        SEG_PTXAS[key] = next(r for n, r in seg_forms.items() if tag in n)
+    for key, report in sorted(SEG_PTXAS.items(), reverse=True):
+        log(f"[build] seg_kernel<{', '.join(str(int(b)) for b in key)}> (has_tri, has_sph, "
+            f"instanced, keyed): {report}")
     pi._load()
     mk._load()
     ph._load()
@@ -2381,6 +2469,8 @@ def main() -> int:
     ] + inst_rows + plk_rows
     for line in WALK_REPORTS:
         log(f"[walk] {line} | {smi}")
+    for line in seg_form_reports(smi):
+        log(f"[seg] {line}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -34,33 +34,51 @@
 // seg_kernel: per (ray, chunk) pair of the chunk-sorted pair list, the least
 // packed key (bits(t) & ~0xFF) | prim-in-chunk over the chunk's prims hit
 // with t < t_max (`echo::prim_hit`, the test of every other kernel), else
-// _INT_INF. Bound by the prim tests (256 a pair); design: one thread per
-// pair, ROW pairs a block; the pairs are sorted by chunk, so a warp mostly
-// reads one chunk's rows and each load is a broadcast through L1. The TPU's
-// segment table and double-buffered DMA are its row machinery and have no
-// counterpart; staging a chunk in shared memory is left for later work.
-// The exact form (KEYED = false, `_seg_kernel(keyed=False)`) runs the same
-// pairs and writes 4 floats a pair instead of a key: the least t below t_max,
-// ties to the least sorted slot (the strict < over the prims in slot order),
-// that slot as a float (-1 where nothing is found), and its u and v; a pair
-// without a hit keeps (t_max, -1, 0, 0). Same bound, same design.
-// Instanced form (TLAS scenes): the pairs carry global chunks; the kernel
-// maps each to its pack chunk (g2c) and instance (g2i), moves the pair's
-// world ray into the instance's space with the instance's 12 floats (A
-// row-major, then b; each row summed left to right and then + b, as
+// _INT_INF. The exact form (KEYED = false, `_seg_kernel(keyed=False)`) runs
+// the same pairs and writes 4 floats a pair instead of a key: the least t
+// below t_max, ties to the least sorted slot, that slot as a float (-1 where
+// nothing is found), and its u and v; a pair without a hit keeps
+// (t_max, -1, 0, 0). Instanced form (TLAS scenes): the pairs carry global
+// chunks; each maps to its pack chunk (g2c) and instance (g2i), the pair's
+// world ray moves into the instance's space with the instance's 12 floats
+// (A row-major, then b; each row summed left to right and then + b, as
 // `pallas_hier.to_instance`), so t stays the world parameter and spheres
-// take the full quadratic, and skips the ray's ignored prim only where the
-// record's ign_inst (column 8 of a 9-float record) names this instance. A
-// warp's pairs mostly share one chunk and so one instance: the 12 floats are
-// broadcast loads through the read-only cache.
-//
+// take the full quadratic, and the ray's ignored prim is skipped only where
+// the record's ign_inst (column 8 of a 9-float record) names this instance.
+// Bound by the prim tests (256 a pair, ~45 flops a triangle). Design: the
+// pairs are sorted by chunk, so the list is a sequence of runs of one chunk
+// (the TPU kernel's segments). A warp takes a tile of kSegTile consecutive
+// pairs and walks its runs (a ballot over chunk_of[q] != c finds each run's
+// end); pairs without a valid chunk (the dead tail) get their sentinels and
+// nothing else. For each run one lane issues one bulk asynchronous copy
+// (TMA, `cp.async.bulk` on an mbarrier: the stage helpers of hier_walk.cuh)
+// of the chunk's rows 0-9 (the pack chunk's on an instanced scene; g2c, g2i
+// and the instance's 12 floats are read once a run) into the warp's stage in
+// shared memory. A run's pairs go in batches of 32: a full batch takes one
+// pair a lane, each lane running all 256 tests against the staged rows in
+// slot order, every lane on the same prims (16-byte broadcast loads, 4 prims
+// a row); a short batch (a run of g < 32 pairs, or a long run's tail) takes
+// the whole warp per member, lane i testing prims 4i .. 4i + 3 and
+// 128 + 4i .. 131 + 4i of the member's ray (broadcast by shuffles), then
+// `__reduce_min_sync` of the keys, or a xor butterfly of the least
+// (t, slot) with u, v from the winner's lane. Both reductions are
+// order-free, so every grouping gives the per-pair loop's answer bit for
+// bit; the work per pair is the same in both (256 tests over 32 lanes), so
+// a tile's cost follows its pair count. The shape was chosen on the H100 by
+// a sweep (tools/hier_ab.py --sweep): 2 warps of 32 pairs a block, one
+// stage a warp. The stage's 10 KiB cap the kernel at 20 resident warps/SM;
+// a second stage a warp, to overlap the next run's copy with this run's
+// tests, halved them and lost 15-28% on every input, as it did for the walk
+// (hier_walk.cu); 16 pairs a warp won 6-7% on the instanced keyed inputs
+// and lost 5-19% on the others, 64 lost on all.
 // Built with -fmad=false, so every float op rounds as in the plain version.
-// C interface (loaded with ctypes); each function returns cudaGetLastError().
+// C interface (loaded with ctypes); each launch returns cudaGetLastError();
+// binned_seg_occupancy reports a seg form's resident blocks for chip_smoke.py.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "intersect.cuh"
+#include "hier_walk.cuh"
 
 namespace {
 
@@ -163,18 +181,24 @@ select_kernel(int* __restrict__ cand, int w, int n, const int* __restrict__ nk,
   mink_out[i] = mink;
 }
 
-// KEYED: out is int (M,), the packed key of each pair; else float (4, M):
-// rows t, prim (sorted slot as a float), u, v
-template <bool HAS_TRI, bool HAS_SPH, bool INSTANCED, bool KEYED>
-__global__ void seg_kernel(const float* __restrict__ rec, const int* __restrict__ chunk_of, int m,
-                           const float* __restrict__ chunks, const int* __restrict__ g2c,
-                           const int* __restrict__ g2i, const float* __restrict__ inst_f32,
-                           int n_chunks, void* __restrict__ out) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= m) return;
+// ---------------------------------------------------------------------------
+// seg_kernel: one warp a tile of kSegTile consecutive pairs, taken run by run
+// ---------------------------------------------------------------------------
+
+constexpr int kSegWarps = 2;   // warps a block
+constexpr int kSegTile = 32;   // consecutive pairs a warp takes
+constexpr int kSegUnroll = 2;  // 4-prim groups of a full batch's loop unrolled together
+constexpr int kSegPairs = kSegWarps * kSegTile;  // pairs a block (binned_trace.ROW)
+constexpr size_t kSegSmem = echo::hier_smem_bytes(kSegWarps);
+using echo::kFullWarp;
+
+// Pair q's record: flat, 8 floats read as two float4; instanced, 9 floats
+// (column 8, the ignore's instance, into ign_inst).
+template <bool INSTANCED>
+__device__ __forceinline__ echo::Ray load_pair(const float* __restrict__ rec, int q,
+                                               float& ign_inst) {
   echo::Ray r;
-  float ign_inst = -1.0f;
-  if (INSTANCED) {  // 9-float records
+  if (INSTANCED) {
     const float* f = rec + 9 * (size_t)q;
     r.ox = f[0];
     r.oy = f[1];
@@ -197,51 +221,257 @@ __global__ void seg_kernel(const float* __restrict__ rec, const int* __restrict_
     r.tmax = b.z;
     r.ignore = static_cast<int>(b.w);
   }
-  int c = chunk_of[q];
-  int best = kIntInf;                        // keyed
-  float bt = r.tmax, bu = 0.0f, bv = 0.0f;   // exact
-  int bslot = -1;
-  if (r.tmax > 0.0f && c >= 0 && c < n_chunks) {  // dead pairs read nothing
-    if (INSTANCED) {  // global chunk -> (pack chunk, instance); the ray into its space
-      const int inst = __ldg(g2i + c);
-      c = __ldg(g2c + c);
-      const float* a = inst_f32 + 12 * (size_t)inst;
-      const float a0 = __ldg(a + 0), a1 = __ldg(a + 1), a2 = __ldg(a + 2);
-      const float a3 = __ldg(a + 3), a4 = __ldg(a + 4), a5 = __ldg(a + 5);
-      const float a6 = __ldg(a + 6), a7 = __ldg(a + 7), a8 = __ldg(a + 8);
-      const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
-      r.ox = a0 * ox + a1 * oy + a2 * oz + __ldg(a + 9);
-      r.oy = a3 * ox + a4 * oy + a5 * oz + __ldg(a + 10);
-      r.oz = a6 * ox + a7 * oy + a8 * oz + __ldg(a + 11);
-      r.dx = a0 * dx + a1 * dy + a2 * dz;
-      r.dy = a3 * dx + a4 * dy + a5 * dz;
-      r.dz = a6 * dx + a7 * dy + a8 * dz;
-      if (ign_inst != static_cast<float>(inst)) r.ignore = -1;
-    }
-    const float* rows = chunks + (size_t)c * kRows * kChunk;
-    const int base = c * kChunk;
-    for (int j = 0; j < kChunk; ++j) {
-      float t, u, v;
-      if (!echo::prim_hit<HAS_TRI, HAS_SPH, !INSTANCED>(rows, kChunk, j, base + j, r, t, u, v))
-        continue;
+  return r;
+}
+
+// The end of the run of chunk c that starts at pair s: the first pair of
+// (s, end) with another chunk, else end. Every lane calls it.
+__device__ __forceinline__ int run_end(const int* __restrict__ chunk_of, int s, int c, int end,
+                                       int lane) {
+  for (int b = s + 1; b < end; b += 32) {
+    const int q = b + lane;
+    const unsigned other = __ballot_sync(kFullWarp, q < end && __ldg(chunk_of + q) != c);
+    if (other) return b + __ffs(other) - 1;
+  }
+  return end;
+}
+
+// Prims j0 .. j0 + 3 of the staged rows, in registers: q[4 f + i] is row f
+// of prim j0 + i (one 16-byte shared-memory load a row; the rows the test
+// of this form reads: 9 for triangles, 6 for spheres, 10 for both).
+template <bool HAS_TRI, bool HAS_SPH>
+__device__ __forceinline__ void load4(const float* rows, int j0, float (&q)[40]) {
+  constexpr int kUsed = HAS_TRI ? (HAS_SPH ? 10 : 9) : 6;
+#pragma unroll
+  for (int f = 0; f < kUsed; ++f) {
+    const float4 x = *reinterpret_cast<const float4*>(rows + f * kChunk + j0);
+    q[4 * f] = x.x;
+    q[4 * f + 1] = x.y;
+    q[4 * f + 2] = x.z;
+    q[4 * f + 3] = x.w;
+  }
+}
+
+struct SegArgs {
+  const float* rec;
+  const int* chunk_of;
+  int m;
+  const float* chunks;
+  const int* g2c;
+  const int* g2i;
+  const float* inst_f32;
+  int n_chunks;
+  void* out;
+};
+
+// The rows of pair chunk c (its pack chunk's on an instanced scene), or
+// null when c is no valid chunk.
+template <bool INSTANCED>
+__device__ __forceinline__ const float* seg_rows(const SegArgs& a, int c) {
+  if (c < 0 || c >= a.n_chunks) return nullptr;
+  const int pc = INSTANCED ? __ldg(a.g2c + c) : c;
+  return a.chunks + (size_t)pc * kRows * kChunk;
+}
+
+// Lane 0: copy rows 0-9 of pair chunk c into the warp's stage, if c is a
+// valid chunk.
+template <bool INSTANCED>
+__device__ __forceinline__ void seg_stage(const SegArgs& a, const echo::HierStage& st, int c,
+                                          int lane) {
+  const float* src = seg_rows<INSTANCED>(a, c);
+  if (lane == 0 && src != nullptr) echo::hier_stage_load(st, src);
+}
+
+// The warp's run [s, e) of chunk c, whose rows the stage holds (or is
+// receiving); after its tests the stage takes the next run's copy. Returns
+// true at the end of the warp's tile; else moves (s, c, e) to the next run.
+template <bool HAS_TRI, bool HAS_SPH, bool INSTANCED, bool KEYED>
+__device__ __forceinline__ bool seg_run(const SegArgs& a, int& s, int& c, int& e, int end,
+                                        echo::HierStage& st, int lane) {
+  const int m = a.m;
+  int* keys = static_cast<int*>(a.out);
+  float* o = static_cast<float*>(a.out);
+  if (c < 0 || c >= a.n_chunks) {  // no chunk (dead pairs): sentinels only
+    for (int q = s + lane; q < e; q += 32) {
       if (KEYED) {
-        if (t < r.tmax && t < kFarT) best = min(best, (__float_as_int(t) & -(1 << kPBits)) | j);
-      } else if (t < bt && t < kFarT) {  // strict: an equal t keeps the lower slot
-        bt = t;
-        bslot = base + j;
-        bu = u;
-        bv = v;
+        keys[q] = kIntInf;
+      } else {
+        o[q] = a.rec[(INSTANCED ? 9 : 8) * (size_t)q + 6];
+        o[(size_t)m + q] = -1.0f;
+        o[2 * (size_t)m + q] = 0.0f;
+        o[3 * (size_t)m + q] = 0.0f;
       }
     }
-  }
-  if (KEYED) {
-    static_cast<int*>(out)[q] = best;
   } else {
-    float* o = static_cast<float*>(out);
-    o[q] = bt;
-    o[(size_t)m + q] = bslot >= 0 ? static_cast<float>(bslot) : -1.0f;
-    o[2 * (size_t)m + q] = bu;
-    o[3 * (size_t)m + q] = bv;
+    // one instance a run: its pack chunk and 12 floats (A row-major, then b)
+    int pc = c;
+    float inst_f = 0.0f;
+    float A[12];
+    if (INSTANCED) {
+      const int inst = __ldg(a.g2i + c);
+      pc = __ldg(a.g2c + c);
+      inst_f = static_cast<float>(inst);
+#pragma unroll
+      for (int i = 0; i < 12; ++i) A[i] = __ldg(a.inst_f32 + 12 * (size_t)inst + i);
+    }
+    const int base = pc * kChunk;
+    echo::hier_stage_wait(st);
+    const float* rows = st.rows;
+    for (int b = s; b < e; b += 32) {  // batches of up to 32 pairs, lane i on pair b + i
+      const int nb = min(32, e - b);
+      const int q = b + lane;
+      echo::Ray r{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, -1};
+      float ign_inst = -1.0f;
+      if (lane < nb) r = load_pair<INSTANCED>(a.rec, q, ign_inst);
+      const bool live = lane < nb && r.tmax > 0.0f;
+      if (INSTANCED) {  // the world ray into the instance's space (pallas_hier.to_instance)
+        const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
+        r.ox = A[0] * ox + A[1] * oy + A[2] * oz + A[9];
+        r.oy = A[3] * ox + A[4] * oy + A[5] * oz + A[10];
+        r.oz = A[6] * ox + A[7] * oy + A[8] * oz + A[11];
+        r.dx = A[0] * dx + A[1] * dy + A[2] * dz;
+        r.dy = A[3] * dx + A[4] * dy + A[5] * dz;
+        r.dz = A[6] * dx + A[7] * dy + A[8] * dz;
+        if (ign_inst != inst_f) r.ignore = -1;
+      }
+      int key = kIntInf;                         // keyed
+      float bt = r.tmax, bu = 0.0f, bv = 0.0f;   // exact
+      int bslot = -1;
+      if (nb == 32) {
+        // a full batch: each lane tests its own pair against all 256 staged
+        // prims in slot order, every lane on the same prims (broadcasts)
+        if (live) {
+#pragma unroll kSegUnroll
+          for (int j0 = 0; j0 < kChunk; j0 += 4) {
+            float pr[40];
+            load4<HAS_TRI, HAS_SPH>(rows, j0, pr);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int j = j0 + i;
+              float t, u, v;
+              if (!echo::prim_hit<HAS_TRI, HAS_SPH, !INSTANCED>(pr, 4, i, base + j, r, t, u, v))
+                continue;
+              if (KEYED) {
+                if (t < r.tmax && t < kFarT)
+                  key = min(key, (__float_as_int(t) & -(1 << kPBits)) | j);
+              } else if (t < bt && t < kFarT) {  // strict: an equal t keeps the lower slot
+                bt = t;
+                bslot = base + j;
+                bu = u;
+                bv = v;
+              }
+            }
+          }
+        }
+      } else {
+        // a short batch: the whole warp on one member at a time, lane i on
+        // prims 4i .. 4i + 3 and 128 + 4i .. 131 + 4i, the member's ray
+        // broadcast by shuffles
+        unsigned members = __ballot_sync(kFullWarp, live);
+        while (members) {
+          const int mm = __ffs(members) - 1;
+          members &= members - 1;
+          echo::Ray rm;
+          rm.ox = __shfl_sync(kFullWarp, r.ox, mm);
+          rm.oy = __shfl_sync(kFullWarp, r.oy, mm);
+          rm.oz = __shfl_sync(kFullWarp, r.oz, mm);
+          rm.dx = __shfl_sync(kFullWarp, r.dx, mm);
+          rm.dy = __shfl_sync(kFullWarp, r.dy, mm);
+          rm.dz = __shfl_sync(kFullWarp, r.dz, mm);
+          rm.tmax = __shfl_sync(kFullWarp, r.tmax, mm);
+          rm.ignore = __shfl_sync(kFullWarp, r.ignore, mm);
+          int best = kIntInf;                              // keyed: min is order-free
+          float lt = rm.tmax, lu = 0.0f, lv = 0.0f;        // exact: this lane's least
+          int ls = INT_MAX;                                // (t, slot), slots ascending
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int j0 = kChunk / 2 * half + 4 * lane;
+            float pr[40];
+            load4<HAS_TRI, HAS_SPH>(rows, j0, pr);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int k = j0 + i;
+              float t, u, v;
+              if (!echo::prim_hit<HAS_TRI, HAS_SPH, !INSTANCED>(pr, 4, i, base + k, rm, t, u, v))
+                continue;
+              if (KEYED) {
+                if (t < rm.tmax && t < kFarT)
+                  best = min(best, (__float_as_int(t) & -(1 << kPBits)) | k);
+              } else if (t < lt && t < kFarT) {
+                lt = t;
+                ls = k;
+                lu = u;
+                lv = v;
+              }
+            }
+          }
+          if (KEYED) {
+            best = __reduce_min_sync(kFullWarp, best);
+            if (lane == mm) key = best;
+          } else {  // the least (t, slot) by a butterfly; u, v from the lane that tested it
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) {
+              const float ot = __shfl_xor_sync(kFullWarp, lt, off);
+              const int os = __shfl_xor_sync(kFullWarp, ls, off);
+              if (ot < lt || (ot == lt && os < ls)) {
+                lt = ot;
+                ls = os;
+              }
+            }
+            if (ls != INT_MAX) {
+              const float wu = __shfl_sync(kFullWarp, lu, (ls >> 2) & 31);
+              const float wv = __shfl_sync(kFullWarp, lv, (ls >> 2) & 31);
+              if (lane == mm) {
+                bt = lt;
+                bslot = base + ls;
+                bu = wu;
+                bv = wv;
+              }
+            }
+          }
+        }
+      }
+      if (lane < nb) {
+        if (KEYED) {
+          keys[q] = key;
+        } else {
+          o[q] = bt;
+          o[(size_t)m + q] = bslot >= 0 ? static_cast<float>(bslot) : -1.0f;
+          o[2 * (size_t)m + q] = bu;
+          o[3 * (size_t)m + q] = bv;
+        }
+      }
+    }
+    __syncwarp();  // the stage is read: it may take the next run's copy
+  }
+  if (e >= end) return true;
+  s = e;
+  c = __ldg(a.chunk_of + s);
+  e = run_end(a.chunk_of, s, c, end, lane);
+  seg_stage<INSTANCED>(a, st, c, lane);
+  return false;
+}
+
+// KEYED: out is int (M,), the packed key of each pair; else float (4, M):
+// rows t, prim (sorted slot as a float), u, v
+template <bool HAS_TRI, bool HAS_SPH, bool INSTANCED, bool KEYED>
+__global__ void __launch_bounds__(kSegWarps * 32)
+seg_kernel(SegArgs a) {
+  extern __shared__ __align__(16) float seg_smem[];
+  const int lane = threadIdx.x & 31;
+  const long long begin =
+      ((long long)blockIdx.x * kSegWarps + (threadIdx.x >> 5)) * (long long)kSegTile;
+  if (begin >= a.m) return;  // the whole warp
+  const int end = static_cast<int>(min(begin + kSegTile, (long long)a.m));
+  int s = static_cast<int>(begin);
+  int c = __ldg(a.chunk_of + s);
+  int e = run_end(a.chunk_of, s, c, end, lane);
+  echo::HierStage st{};
+  if (e < end || seg_rows<INSTANCED>(a, c) != nullptr) {  // not a tile of dead pairs alone
+    st = echo::hier_stage_init(seg_smem, kSegWarps);
+    seg_stage<INSTANCED>(a, st, c, lane);
+  }
+  while (!seg_run<HAS_TRI, HAS_SPH, INSTANCED, KEYED>(a, s, c, e, end, st, lane)) {
   }
 }
 
@@ -253,31 +483,36 @@ int smem_opt_in(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
+static_assert(kSegSmem <= 48 * 1024, "the seg kernel's stages fit the default dynamic smem");
+
+// The seg kernel's form for a scene's kinds of prims.
+template <bool KEYED>
+const void* seg_form(int instanced, int has_tri, int has_sph) {
+#define ECHO_SEG_FORM(TRI, SPH, INST) \
+  reinterpret_cast<const void*>(seg_kernel<TRI, SPH, INST, KEYED>)
+  if (instanced) {
+    if (has_tri && has_sph) return ECHO_SEG_FORM(true, true, true);
+    if (has_tri) return ECHO_SEG_FORM(true, false, true);
+    return ECHO_SEG_FORM(false, true, true);
+  }
+  if (has_tri && has_sph) return ECHO_SEG_FORM(true, true, false);
+  if (has_tri) return ECHO_SEG_FORM(true, false, false);
+  return ECHO_SEG_FORM(false, true, false);
+#undef ECHO_SEG_FORM
+}
+
 template <bool KEYED>
 int launch_seg(const float* rec, const int* chunk, int m, const float* chunks, int n_chunks,
                int has_tri, int has_sph, int block, const int* g2c, const int* g2i,
                const float* inst_f32, void* out, void* stream) {
-  const dim3 grid((m + block - 1) / block);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ECHO_SEG_LAUNCH(TRI, SPH, INST)                                                    \
-  seg_kernel<TRI, SPH, INST, KEYED><<<grid, block, 0, s>>>(rec, chunk, m, chunks, g2c, g2i, \
-                                                           inst_f32, n_chunks, out)
-  if (g2c != nullptr) {
-    if (has_tri && has_sph)
-      ECHO_SEG_LAUNCH(true, true, true);
-    else if (has_tri)
-      ECHO_SEG_LAUNCH(true, false, true);
-    else
-      ECHO_SEG_LAUNCH(false, true, true);
-  } else if (has_tri && has_sph) {
-    ECHO_SEG_LAUNCH(true, true, false);
-  } else if (has_tri) {
-    ECHO_SEG_LAUNCH(true, false, false);
-  } else {
-    ECHO_SEG_LAUNCH(false, true, false);
-  }
-#undef ECHO_SEG_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  if (block != kSegPairs) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = seg_form<KEYED>(g2c != nullptr, has_tri, has_sph);
+  SegArgs a{rec, chunk, m, chunks, g2c, g2i, inst_f32, n_chunks, out};
+  void* args[] = {&a};
+  const dim3 grid((m + kSegPairs - 1) / kSegPairs), threads(kSegWarps * 32);
+  const cudaError_t err = cudaLaunchKernel(fn, grid, threads, args, kSegSmem,
+                                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -302,7 +537,9 @@ extern "C" int binned_select(int* cand, int w, int n, const int* nk, const float
 }
 
 // g2c, g2i and inst_f32 are null for a non-instanced scene; n_chunks is the
-// count of valid pair chunks (the scene's chunks, or the global chunks)
+// count of valid pair chunks (the scene's chunks, or the global chunks);
+// block is the pairs a block takes, kSegPairs (the launch refuses another);
+// chunks must be 16-byte aligned (each run's rows arrive by a bulk copy)
 extern "C" int binned_seg(const float* rec, const int* chunk, int m, const float* chunks,
                           int n_chunks, int has_tri, int has_sph, int block, const int* g2c,
                           const int* g2i, const float* inst_f32, int* out, void* stream) {
@@ -317,4 +554,19 @@ extern "C" int binned_seg_exact(const float* rec, const int* chunk, int m, const
                                 float* out, void* stream) {
   return launch_seg<false>(rec, chunk, m, chunks, n_chunks, has_tri, has_sph, block, g2c, g2i,
                            inst_f32, out, stream);
+}
+
+// One seg form's resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// its threads a block and its dynamic shared memory a block, into out[0..2].
+extern "C" int binned_seg_occupancy(int keyed, int instanced, int has_tri, int has_sph,
+                                    int* out) {
+  const void* fn = keyed ? seg_form<true>(instanced, has_tri, has_sph)
+                         : seg_form<false>(instanced, has_tri, has_sph);
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kSegWarps * 32, kSegSmem);
+  out[0] = blocks;
+  out[1] = kSegWarps * 32;
+  out[2] = static_cast<int>(kSegSmem);
+  return static_cast<int>(err);
 }

@@ -70,7 +70,9 @@ from .pallas_intersect import _chunk_hits, _safe_inv, ray_columns
 _INF = 3.4e38
 _INT_INF = 2**31 - 1  # key-space sentinel: empty candidate / consumed super
 _PBITS = 8  # prim-in-chunk bits in a result key (HCHUNK == 256)
-ROW = 128  # pairs per block of the seg kernel
+# pairs a block of the seg kernel: csrc/binned.cu's kSegPairs (2 warps, each
+# taking a tile of 32 consecutive pairs run by run); the launch refuses another
+ROW = 64
 SUP = 16  # chunks per superchunk (two-level selection)
 KSUP = 4  # superchunks examined per ray per refill (full-width phase)
 TAIL_KSUP = 16  # ... final straggler phase
@@ -297,10 +299,13 @@ def _load():
         lib.binned_setup.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr, ptr]
         lib.binned_select.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr]
         # rec, chunk, m, prim_chunks, valid chunk ids, has_tri, has_sph,
-        # block, g2c, g2i, inst_f32 (null for a flat scene), out, stream
+        # pairs a block (ROW), g2c, g2i, inst_f32 (null for a flat scene),
+        # out, stream
         seg = [ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
         lib.binned_seg.argtypes = lib.binned_seg_exact.argtypes = seg
-        for fn in (lib.binned_setup, lib.binned_select, lib.binned_seg, lib.binned_seg_exact):
+        lib.binned_seg_occupancy.argtypes = [i32, i32, i32, i32, ptr]
+        for fn in (lib.binned_setup, lib.binned_select, lib.binned_seg, lib.binned_seg_exact,
+                   lib.binned_seg_occupancy):
             fn.restype = i32
         _lib = lib
     return _lib
@@ -416,7 +421,21 @@ def _seg_route(name, rec, chunk, prim_chunks, inst):
     route = _route(name, rec, tensors)
     if route == "cuda" and inst is None and rec.data_ptr() % 16:
         raise ValueError(f"{name} reads each record as two float4: rec must be 16-byte aligned")
+    if route == "cuda" and prim_chunks.data_ptr() % 16:
+        raise ValueError(f"{name} copies each run's chunk by a bulk asynchronous copy: "
+                         "prim_chunks must be 16-byte aligned")
     return route
+
+
+def seg_occupancy(keyed: bool, instanced: bool, has_tri: bool, has_sph: bool) -> dict:
+    """One seg kernel form's resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its block size,
+    dynamic shared memory per block and resident warps per SM."""
+    out = (ctypes.c_int * 3)()
+    err = _load().binned_seg_occupancy(int(keyed), int(instanced), int(has_tri), int(has_sph),
+                                       out)
+    _raise_on("binned_seg_occupancy", err)
+    return dict(blocks=out[0], block=out[1], smem=out[2], warps=out[0] * out[1] // 32)
 
 
 def _launch_seg(name, rec, chunk, prim_chunks, has_tri, has_sph, inst, out):
