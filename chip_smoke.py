@@ -32,11 +32,19 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        ~42k-prim BVH-ordered scene of 329 chunks: identical prim ids and
        blocked flags, t/u/v to rtol 1e-6;
      - the megakernel on sphere_field(80) 960x540, the Cornell box 128x128,
-       material_ball and many_lights(96) at 320x180, 8 spp, bounce 16, and
+       material_ball, many_lights(96) and sphere_grid(1900) (1,924
+       triangles, 2048 padded prims: the top of the envelope) at 320x180,
+       8 spp, bounce 16, and
        on the main path's bench launch (sphere_field(80) 960x540, 64 spp),
-       against the wavefront: per-pixel sums to atol/rtol 2e-3 and sums of
-       squares to atol 4e-2 / rtol 2e-3 on at least 99.99% of pixels, mean
-       image to 1e-4 per channel; k_slots 1 and 4 bitwise equal;
+       against the wavefront: every pixel's sums bitwise equal (the path
+       pool runs the plain version's ops in its order), and, as before,
+       per-pixel sums to atol/rtol 2e-3 and sums of squares to atol 4e-2 /
+       rtol 2e-3 on at least 99.99% of pixels, mean image to 1e-4 per
+       channel; k_slots 1 and 4 bitwise equal; each launch's report of its
+       form (ptxas registers, stack frame, spills and static smem, dynamic
+       smem a block, resident warps/SM and what caps them, the lanes or the
+       split form, ms, bound, % of bound), printed again, "[mega]", before
+       the kernels line;
      - the megakernel's textured form the same way on the showcase
        (scenes/showcase.echo, transcribed in `showcase_scene`), on
        tests/test_megakernel.py's cloud-and-gradient scene and sphere-texture
@@ -349,6 +357,11 @@ WALK_REPORTS: list = []
 # has_sph), row), for the "[seg]" lines before the kernels line
 SEG_PTXAS: dict = {}
 SEG_LAUNCHES: list = []
+# ptxas reports of the megakernel's untextured and textured forms (the path
+# pool) by form, filled by main(); and the report line of every launch of
+# them measured, printed again, "[mega]", before the kernels line
+MEGA_PTXAS: dict = {}
+MEGA_REPORTS: list = []
 
 
 def occupancy_cap(occ, ptxas) -> str:
@@ -356,8 +369,10 @@ def occupancy_cap(occ, ptxas) -> str:
     registers (256 a warp at a time, from each of the SM's four 16,384-
     register quarters), or the 64 warps of an SM."""
     regs = int(ptxas.split(" registers")[0])
+    static = re.search(r"(\d+) bytes static smem", ptxas)
+    smem = occ["smem"] + (int(static.group(1)) if static else 0)
     wpb = occ["block"] // 32
-    caps = {"shared memory": H100_SMEM_SM // (occ["smem"] + 1024),
+    caps = {"shared memory": H100_SMEM_SM // (smem + 1024),
             "registers": 4 * (16384 // (-(-regs * 32 // 256) * 256)) // wpb,
             "the 64 warps of an SM": 64 // wpb}
     held = [name for name, blocks in caps.items() if blocks == occ["blocks"]]
@@ -402,6 +417,29 @@ def walk_form_report(label, ms, bound, occ, ptxas) -> str:
             f"{occ['blocks']} blocks = {occ['warps']} resident warps/SM; {ms:.4f} ms against a "
             f"bound of {bound:.6f} ms: {100.0 * bound / ms:.3f}% of bound")
     WALK_REPORTS.append(line)
+    return line
+
+
+def mega_form_report(label, scene, n, spp, ms, bound) -> str:
+    """One launch of the megakernel's untextured or textured form: ptxas
+    registers / stack frame / spills / static smem (the pool), dynamic smem
+    a block (the prim records), resident warps/SM and what caps them, the
+    form the launch took (ops/megakernel.split_form), ms, bound and % of
+    bound."""
+    from echorenderer_tpu_torch.ops import megakernel as mk
+
+    textured = scene.tex_atlas.shape[0] > 0
+    form = "textured" if textured else "untextured"
+    ptxas = MEGA_PTXAS[form]
+    occ = mk.occupancy(textured, scene.prim_soa.padded)
+    split = mk.split_form(scene, n, spp)
+    line = (f"mega_kernel<{str(textured).lower()}, false> ({form}), {label}: {ptxas}; "
+            f"{occ['smem']} bytes dynamic smem a {occ['block']}-thread block, {occ['blocks']} "
+            f"blocks = {occ['warps']} resident warps/SM, capped by {occupancy_cap(occ, ptxas)}; "
+            f"{n} pixels against {occ['paths']} resident paths: the "
+            f"{'split form, (pixel, sample) paths' if split else 'lanes form'}; {ms:.4f} ms "
+            f"against a bound of {bound:.6f} ms: {100.0 * bound / ms:.3f}% of bound")
+    MEGA_REPORTS.append(line)
     return line
 
 
@@ -1412,6 +1450,9 @@ def compare_mega(label, scene, res, spp, bounce, dev, plain_runs, seed=0):
         f"{first_s:.3f} s incl. load")
     if share < t["share"] or not mean_diff < t["mean"]:
         raise AssertionError(f"megakernel {label} disagrees with the wavefront")
+    if not bool(exact_px.all()):  # the path pool runs the plain version's ops in its order
+        raise AssertionError(f"megakernel {label}: {n - int(exact_px.sum())} pixels not "
+                             f"bitwise equal to the wavefront")
     ms = median_ms(lambda: mk.sample_frame_mega(scene, pid, pxy, res, seed, 0, spp, **kw))
     plain_ms = median_ms(lambda: run_wavefront(scene, pid, pxy, res, seed, 0, spp, **kw),
                          plain_runs, False)
@@ -1424,6 +1465,8 @@ def compare_mega(label, scene, res, spp, bounce, dev, plain_runs, seed=0):
         f"counters {stats['Ray/Traced']:.0f} + {stats['Ray/Shadow']:.0f}); least prim-test "
         f"work {work.flops['trace']:.6g} + {work.flops['occlude']:.6g} flops; bound "
         f"{bound[0]:.6f} ms ({bound[1]}); {n * spp / ms / 1e3:.3f} Mspps in the kernel alone")
+    log(f"[kernels] megakernel {label}: " + mega_form_report(label, scene, n, spp, ms,
+                                                              bound[0]))
     return err, dict(ms=ms, plain_ms=plain_ms), bound
 
 
@@ -2050,6 +2093,7 @@ def main() -> int:
         log(f"[build] megakernel {form} form ({name}): {report}")
     if set(named) != set(MEGA_FORMS.values()):
         return fail(f"expected the megakernel's three forms in the ptxas report, got {forms}")
+    MEGA_PTXAS.update(untextured=named["untextured"], textured=named["textured"])
     hier_forms = ptxas_forms(builds["hier_walk"].ptxas, "hier_kernel")
     for name, report in hier_forms.items():
         log(f"[build] hier_kernel form ({name}): {report}")
@@ -2110,6 +2154,9 @@ def main() -> int:
         ("cornell 128x128", prepare_scene(scenes.cornell_box(), device=dev), (128, 128)),
         ("material_ball 320x180", prepare_scene(scenes.material_ball(), device=dev), (320, 180)),
         ("many_lights(96) 320x180", prepare_scene(scenes.many_lights(96), device=dev),
+         (320, 180)),
+        # the top of the envelope: 1,924 triangles, 2048 padded prims
+        ("sphere_grid(1900) 320x180", prepare_scene(scenes.sphere_grid(1900), device=dev),
          (320, 180)),
     ]
     mega_err = 0.0
@@ -2467,6 +2514,8 @@ def main() -> int:
              bound_ms=b_out["seg_exact"]["bound_ms"], bound_by=b_out["seg_exact"]["bound_by"],
              library_ms=None),
     ] + inst_rows + plk_rows
+    for line in MEGA_REPORTS:
+        log(f"[mega] {line} | {smi}")
     for line in WALK_REPORTS:
         log(f"[walk] {line} | {smi}")
     for line in seg_form_reports(smi):

@@ -41,24 +41,33 @@
 // which hold the resident warps to 16 a SM (4 blocks; the warps' stages,
 // 40 KiB a block, would allow 5).
 //
-// What bounds it on the H100: float work. Every traced and shadow ray tests
-// every prim of the scene (the chunk-tree form: the prims of every chunk
-// the walk enters) (about 45 flops a triangle, 21 a sphere), and
-// every bounce runs the shading (BSDF, light sample, RNG hashes); the only
+// What bounds it on the H100. Every traced and shadow ray tests every prim
+// of the scene (the chunk-tree form: the prims of every chunk the walk
+// enters; about 45 flops a triangle, 21 a sphere), and every bounce runs the
+// shading (BSDF, light sample, RNG hashes), whose chains of dependent table
+// loads and per-material branches cost more than its flops; the only
 // device-memory traffic is the pixel identities in and the sums out, plus
-// table rows that stay in L1/L2. Design, against that:
-//   - one thread per lane; the lane runs its pixel's samples one after the
-//     other, regenerating a camera ray when a path ends, and then its next
-//     pixel slot (slot j of lane L is pixel j * n_lanes + L). No loop
-//     condition is shared across threads (the chunk-tree form: across
-//     warps): a thread (warp) returns when its slots are done, so the TPU
-//     kernel's block-wide "any lane live" test and its K-slot tail
-//     averaging become the warp scheduler's business;
-//   - the whole path state and the pixel's sums stay in registers; the sums
-//     are written once per pixel;
-//   - the 10 prim rows are staged once per block in dynamic shared memory
-//     (at most 10 x 2048 x 4 B = 80 KB) and read as broadcasts: every
-//     thread of a warp tests the same prim at the same time;
+// table rows that stay in L1/L2. A stage breakdown of the one-thread-a-pixel
+// loop (tools/hier_ab.py --mega-stages, PERF.md §5) put the bench launch's
+// warp cycles at 33% trace, 35% interaction, 13% NEE, 11% banking and
+// regeneration, with 16 resident warps/SM at 116 registers. Design of the
+// untextured and textured forms, against that:
+//   - a block-resident path pool (run_pool below): a block keeps one path a
+//     thread in shared memory and runs each bounce as stages over queues,
+//     the hits sorted by material type so that a warp shades one material,
+//     the shadow rays compacted into their own queue; each stage keeps only
+//     its own values in registers (93 registers, 20 resident warps/SM,
+//     against 116-117 and 16 for the loop);
+//   - persistent blocks (as many as the card holds) take lanes, or in the
+//     split form (a launch with fewer pixels than the card holds paths)
+//     (pixel, sample) units, from a work counter; a pixel's samples are
+//     banked in sample order either way, so the sums are bitwise the
+//     one-thread-a-lane loop's;
+//   - the prims are staged once per block as 16-byte records (three
+//     broadcast loads a prim instead of up to ten), leaving out the slots
+//     that no ray can hit, and read by every thread of a warp at once; a
+//     sphere test stops at a negative discriminant, so a warp whose lanes
+//     all miss the sphere skips its square root and roots;
 //   - the shading tables (prim rows, materials, lights, emitters, light
 //     tree) stay in device memory behind the read-only cache: an indexed
 //     load replaces the TPU's one-hot matrix lookup, and is just as exact;
@@ -74,19 +83,27 @@
 //     -fmad=false, IEEE division/sqrt and the libdevice sinf/cosf/rsqrtf
 //     that PyTorch's CUDA kernels call: each op rounds as one PyTorch
 //     launch of the plain version does, so the sums match it bit for bit.
+// The chunk-tree form keeps the one-thread-a-lane loop (run_lane), its
+// path state in registers. Its shading is run_lane's own copy of the pool's
+// (shade_path): one shared function changed the chunk-tree form's register
+// allocation (a 608-byte stack with 84 bytes of spills) and raised the
+// textured form to 104 registers.
 //
 // C interface (loaded with ctypes): `megakernel(ptrs, ints, survivability,
 // stream)`, with the table pointers and integer settings in the order of
-// `Params` below, and `megakernel_hier(ptrs, ints, hier_ptrs, root_code,
-// survivability, stream)` for the chunk-tree form (hier_ptrs: chunks,
-// node bounds, node codes); each returns cudaGetLastError() after the
-// launch.
+// `Params` below (ptrs[14]: the pool's work counter; ptrs[15]: the split
+// form's per-sample buffer or null), and `megakernel_hier(ptrs, ints,
+// hier_ptrs, root_code, survivability, stream)` for the chunk-tree form
+// (hier_ptrs: chunks, node bounds, node codes); each returns the CUDA error
+// of its launch. `megakernel_occupancy` and `megakernel_hier_occupancy`
+// report the forms' resident blocks.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "hier_walk.cuh"
+#include "mega_stages.cuh"
 
 namespace {
 
@@ -147,6 +164,8 @@ struct Params {
   int n_tex, tex_res, has_ntex, has_rtex;
   float survivability;
   echo::HierTables hier;  // the chunk tree (the chunk-tree form only)
+  int* work;              // the pool's work counter (one int, zeroed by the launch)
+  float* samples;         // (n, count, 3) per-sample radiance: the split form, or null
 };
 
 // ---------------------------------------------------------------------------
@@ -920,21 +939,27 @@ __device__ LightSample sample_light(const Params& p, const float* cam, int rec, 
   return ls;
 }
 
+constexpr int kPool = 128;  // threads a block of the path pool, one path each
+
 // ---------------------------------------------------------------------------
-// closest hit and any hit over the block's shared prim rows
+// closest hit and any hit over the block's prim records (the untextured and
+// textured forms)
 // ---------------------------------------------------------------------------
 
+// records in slot order: the least t wins, the first of equal ones
 template <bool HAS_TRI, bool HAS_SPH>
-__device__ __forceinline__ int trace_rows(const float* rows, int padded, const Ray& r,
-                                          float& best_t, float& best_u, float& best_v) {
+__device__ __forceinline__ int trace_records(const float4* recs, int n_rec, const Ray& r,
+                                             float& best_t, float& best_u, float& best_v) {
   best_t = r.tmax;
   best_u = best_v = 0.0f;
   int best_p = -1;
-  for (int k = 0; k < padded; ++k) {
+  for (int k = 0; k < n_rec; ++k) {
     float t, u, v;
-    if (echo::prim_hit<HAS_TRI, HAS_SPH>(rows, padded, k, k, r, t, u, v) && t < best_t) {
+    int slot;
+    if (echo::record_hit<HAS_TRI, HAS_SPH>(recs + echo::kRecordWords * k, r, t, u, v, slot) &&
+        t < best_t) {
       best_t = t;
-      best_p = k;
+      best_p = slot;
       best_u = u;
       best_v = v;
     }
@@ -943,15 +968,29 @@ __device__ __forceinline__ int trace_rows(const float* rows, int padded, const R
 }
 
 template <bool HAS_TRI, bool HAS_SPH>
-__device__ __forceinline__ bool occlude_rows(const float* rows, int padded, const Ray& r) {
-  for (int k = 0; k < padded; ++k) {
+__device__ __forceinline__ bool occlude_records(const float4* recs, int n_rec, const Ray& r) {
+  for (int k = 0; k < n_rec; ++k) {
     float t, u, v;
-    if (echo::prim_hit<HAS_TRI, HAS_SPH>(rows, padded, k, k, r, t, u, v) && t < r.tmax)
+    int slot;
+    if (echo::record_hit<HAS_TRI, HAS_SPH>(recs + echo::kRecordWords * k, r, t, u, v, slot) &&
+        t < r.tmax)
       return true;
   }
   return false;
 }
 
+__device__ int trace(const Params& p, const float4* recs, int n_rec, const Ray& r, float& t,
+                     float& u, float& v) {
+  if (p.has_tri && p.has_sph) return trace_records<true, true>(recs, n_rec, r, t, u, v);
+  if (p.has_tri) return trace_records<true, false>(recs, n_rec, r, t, u, v);
+  return trace_records<false, true>(recs, n_rec, r, t, u, v);
+}
+
+__device__ bool occlude(const Params& p, const float4* recs, int n_rec, const Ray& r) {
+  if (p.has_tri && p.has_sph) return occlude_records<true, true>(recs, n_rec, r);
+  if (p.has_tri) return occlude_records<true, false>(recs, n_rec, r);
+  return occlude_records<false, true>(recs, n_rec, r);
+}
 // closest hit and any hit over the chunk tree (the chunk-tree form)
 template <bool HAS_TRI, bool HAS_SPH>
 __device__ __forceinline__ int trace_tree(const Params& p, const Ray& r, float& best_t,
@@ -967,21 +1006,6 @@ template <bool HAS_TRI, bool HAS_SPH>
 __device__ __forceinline__ bool occlude_tree(const Params& p, const Ray& r,
                                              echo::HierStage& st) {
   return echo::hier_walk<HAS_TRI, HAS_SPH, true, false>(p.hier, r, -1, st).blocked;
-}
-
-// closest hit and any hit over the staged prims (the untextured and
-// textured forms)
-__device__ int trace(const Params& p, const float* rows, const Ray& r, float& t, float& u,
-                     float& v) {
-  if (p.has_tri && p.has_sph) return trace_rows<true, true>(rows, p.padded, r, t, u, v);
-  if (p.has_tri) return trace_rows<true, false>(rows, p.padded, r, t, u, v);
-  return trace_rows<false, true>(rows, p.padded, r, t, u, v);
-}
-
-__device__ bool occlude(const Params& p, const float* rows, const Ray& r) {
-  if (p.has_tri && p.has_sph) return occlude_rows<true, true>(rows, p.padded, r);
-  if (p.has_tri) return occlude_rows<true, false>(rows, p.padded, r);
-  return occlude_rows<false, true>(rows, p.padded, r);
 }
 
 // the chunk-tree form's trace and occlude: every lane of the warp calls
@@ -1072,15 +1096,17 @@ __device__ void spawn(const Params& p, const float* cam, const Pixel& q, uint32_
   d = d / lo_clamp(sqrtf(dot(d, d)), 1e-20f);
 }
 
-// HIER: every lane of the warp runs the loop until the warp is done, a lane
-// whose slots are done (or that has none) tracing dead rays (t_max = 0), and
-// the NEE shadow ray is walked after the interaction by every lane (t_max =
-// 0 where there is none), so that the walk is called warp-wide. The draws
-// are a pure function of (seed, pixel, sample, dimension), so no number
-// changes.
+// The chunk-tree form's loop. Every lane of the warp runs it until the warp
+// is done, a lane whose slots are done (or that has none) tracing dead rays
+// (t_max = 0), and the NEE shadow ray is walked after the interaction by
+// every lane (t_max = 0 where there is none), so that the walk is called
+// warp-wide. The draws are a pure function of (seed, pixel, sample,
+// dimension), so no number changes. (TEX and HIER stay template arguments:
+// the form is run_lane<false, true>.)
 template <bool TEX, bool HIER>
 __device__ void run_lane(const Params& p, const float* rows, int lane,
                          echo::HierStage* st = nullptr) {
+  static_assert(HIER && !TEX, "the untextured and textured forms run the path pool");
   constexpr int SPW = TEX ? SP_TEX : SP, MTW = TEX ? MT_TEX : MT;
   const float* cam = p.cam;
   const V3 amb_all = load3(cam + C_AMB_ALL);
@@ -1094,12 +1120,7 @@ __device__ void run_lane(const Params& p, const float* rows, int lane,
 
   int slot = 0;
   int pix = lane;
-  bool live = true;  // this lane still has samples to take
-  if constexpr (HIER) {
-    live = lane < p.n_lanes && pix < p.n;
-  } else {
-    if (pix >= p.n) return;
-  }
+  bool live = lane < p.n_lanes && pix < p.n;  // this lane still has samples to take
   Pixel q = load_pixel(p, live ? pix : 0);  // (a lane with nothing to do never uses it)
   uint32_t sample = 0;
   V3 s_sum = mk(0.0f, 0.0f, 0.0f), s_sq = s_sum;
@@ -1114,20 +1135,14 @@ __device__ void run_lane(const Params& p, const float* rows, int lane,
   int ignore = -1;
 
   for (;;) {
-    if constexpr (HIER) {
-      if (!__any_sync(echo::kFullWarp, live)) return;
-    }
+    if (!__any_sync(echo::kFullWarp, live)) return;
     const uint32_t sid = q.s0 + sample;
     float hit_t, hit_u, hit_v;
     int hit;
-    if constexpr (HIER) {
-      hit = trace_hier(p, make_ray(o, d, live ? kInf : 0.0f, ignore), hit_t, hit_u, hit_v, *st);
-    } else {
-      hit = trace(p, rows, make_ray(o, d, kInf, ignore), hit_t, hit_u, hit_v);
-    }
+    hit = trace_hier(p, make_ray(o, d, live ? kInf : 0.0f, ignore), hit_t, hit_u, hit_v, *st);
     bool continues = false;
-    Ray shadow = make_ray(o, d, 0.0f, -1);  // HIER: the NEE shadow ray (none: t_max = 0)
-    V3 nee_term = mk(0.0f, 0.0f, 0.0f);     // HIER: its radiance unless shadowed
+    Ray shadow = make_ray(o, d, 0.0f, -1);  // the NEE shadow ray (none: t_max = 0)
+    V3 nee_term = mk(0.0f, 0.0f, 0.0f);     // its radiance unless shadowed
     bool nee_live = false;
     V3 new_tp, cont_o, wi_world, point;
     float bs_pdf = 0.0f;
@@ -1157,36 +1172,6 @@ __device__ void run_lane(const Params& p, const float* rows, int lane,
       m.extra = load3(mr + 7);
       m.type = (int)ldg(mr + 10);
       if (has_invisible && dot(geo_n, -d) < 0.0f && ldg(mr + 11) > 0.5f) m.type = INVISIBLE;
-
-      if constexpr (TEX) {
-        // --- the texture stage: uv, then albedo, normal map, roughness ---
-        float su, sv;
-        if (ldg(sr + 14) > 0.5f) {
-          sphere_uv(point, load3(sr), ldg(sr + 3), su, sv);
-        } else {
-          su = w * ldg(sr + 17) + hit_u * ldg(sr + 19) + hit_v * ldg(sr + 21);
-          sv = w * ldg(sr + 18) + hit_u * ldg(sr + 20) + hit_v * ldg(sr + 22);
-        }
-        const int tid = (int)ldg(mr + 12);
-        if (tid >= 0) m.albedo = tex_sample(p, tid, su, sv);
-        const int ntid = p.has_ntex ? (int)ldg(mr + 13) : -1;
-        if (ntid >= 0) {
-          const V3 s = tex_sample(p, ntid, su, sv);
-          const V3 tn = mk(s.x * 2.0f - 1.0f, s.y * 2.0f - 1.0f, s.z * 2.0f - 1.0f);
-          const float inten = ldg(mr + 14);
-          const float nz = lo_clamp(tn.z, (float)0.1);
-          V3 tg, bt;
-          frame(shade_n, tg, bt);
-          shade_n = normalize(mk(tg.x * tn.x * inten + bt.x * tn.y * inten + shade_n.x * nz,
-                                 tg.y * tn.x * inten + bt.y * tn.y * inten + shade_n.y * nz,
-                                 tg.z * tn.x * inten + bt.z * tn.y * inten + shade_n.z * nz));
-        }
-        const int rtid = p.has_rtex ? (int)ldg(mr + 15) : -1;
-        if (rtid >= 0) {
-          const V3 s = tex_sample(p, rtid, su, sv);
-          m.p0 = (s.x + s.y + s.z) * kThird;
-        }
-      }
 
       // --- emission at the hit, MIS against NEE ---
       const V3 wo = -d;
@@ -1255,19 +1240,13 @@ __device__ void run_lane(const Params& p, const float* rows, int lane,
         const bool candidate = nee_pdf > 1e-12f &&
                                (f_l.x * ls.radiant.x > 0.0f || f_l.y * ls.radiant.y > 0.0f ||
                                 f_l.z * ls.radiant.z > 0.0f);
-        if (candidate) {
+        if (candidate) {  // walked below, by the whole warp
           const V3 shadow_o = offset_origin(point, geo_n, ls.incident);
           const float shadow_t = ls.travel >= kInf ? kInf : ls.travel * kShadowScale;
-          if constexpr (HIER) {  // walked below, by the whole warp
-            shadow = make_ray(shadow_o, ls.incident, shadow_t, hit);
-            float mis_w = ls.use_mis ? power_heuristic(nee_pdf, scatter_pdf) : 1.0f;
-            nee_term = ls.radiant * f_l * (mis_w / lo_clamp(nee_pdf, 1e-20f));
-            nee_live = true;
-          } else if (!occlude(p, rows, make_ray(shadow_o, ls.incident, shadow_t, hit))) {
-            float mis_w = ls.use_mis ? power_heuristic(nee_pdf, scatter_pdf) : 1.0f;
-            V3 nee = ls.radiant * f_l * (mis_w / lo_clamp(nee_pdf, 1e-20f));
-            radiance = radiance + throughput * nee;
-          }
+          shadow = make_ray(shadow_o, ls.incident, shadow_t, hit);
+          float mis_w = ls.use_mis ? power_heuristic(nee_pdf, scatter_pdf) : 1.0f;
+          nee_term = ls.radiant * f_l * (mis_w / lo_clamp(nee_pdf, 1e-20f));
+          nee_live = true;
         }
       }
 
@@ -1286,11 +1265,9 @@ __device__ void run_lane(const Params& p, const float* rows, int lane,
       }
     }
 
-    if constexpr (HIER) {
-      const bool shadowed = occlude_hier(p, shadow, *st);
-      if (nee_live && !shadowed) radiance = radiance + throughput * nee_term;
-      if (!live) continue;
-    }
+    const bool shadowed = occlude_hier(p, shadow, *st);
+    if (nee_live && !shadowed) radiance = radiance + throughput * nee_term;
+    if (!live) continue;
 
     if (continues) {
       throughput = new_tp;
@@ -1323,12 +1300,8 @@ __device__ void run_lane(const Params& p, const float* rows, int lane,
       slot += 1;
       pix = slot * p.n_lanes + lane;
       if (slot >= p.k_slots || pix >= p.n) {
-        if constexpr (HIER) {
-          live = false;  // on with dead rays until the warp is done
-          continue;
-        } else {
-          return;
-        }
+        live = false;  // on with dead rays until the warp is done
+        continue;
       }
       q = load_pixel(p, pix);
       sample = 0;
@@ -1345,41 +1318,596 @@ __device__ void run_lane(const Params& p, const float* rows, int lane,
   }
 }
 
-// TEX: the texture stage; HIER: the chunk-tree form, which stages no prims
-// but gives each warp its walk's stage (used with TEX = false only)
-template <bool TEX, bool HIER>
-__global__ void __launch_bounds__(kBlock) mega_kernel(Params p) {
-  extern __shared__ float rows[];  // (dynamic shared memory starts 16-byte aligned)
-  if constexpr (!HIER) {
-    const int total = 10 * p.padded;
-    for (int i = threadIdx.x; i < total; i += kBlock) rows[i] = p.prims[i];
+// ---------------------------------------------------------------------------
+// the untextured and textured forms: a block-resident path pool
+// ---------------------------------------------------------------------------
+//
+// A block keeps one path a thread in shared memory (struct Pool, columns of
+// kPool entries) and runs the bounce as stages over queues, with a barrier
+// between them (Laine, Karras and Aila, "Megakernels Considered Harmful",
+// HPG 2013):
+//   1. trace: every live path, one thread a path, over the block's prim
+//      records; a miss adds the ambient term and ends its path; a hit
+//      counts its material type;
+//   2. the hits are placed by material type (a counting sort: the counts'
+//      prefix plus each path's rank), so that a warp shades one material;
+//   3. shade: interaction, the texture stage, emission, the draws, the BSDF
+//      sample, the NEE light pick, sample and BSDF evaluation, Russian
+//      roulette; a path with a shadow ray queues it;
+//   4. shadow: the queued shadow rays, one thread a ray; an unblocked one
+//      adds its radiance;
+//   5. end: a thread's own entry banks its ended path and regenerates: its
+//      pixel's next sample, its lane's next slot, or a new item from the
+//      launch's work counter.
+// Each path runs run_lane's arithmetic in its order, and a pixel's samples
+// are banked in sample order on one entry, so the sums are bitwise the same
+// whichever thread runs which path at which moment. An entry takes a lane
+// (slot j of lane L is pixel j * n_lanes + L) and keeps it until its slots
+// are done. The split form (`samples` set: a launch with fewer pixels than
+// the card holds threads) takes (pixel, sample) units instead and writes each
+// sample's radiance to `samples`; bank_kernel then sums each pixel's samples
+// in sample order.
+
+constexpr int kTypes = 8;  // sort buckets: the material types (0-5)
+// an entry's flags
+constexpr int F_PREV_SPEC = 1, F_ENDED = 2, F_SHADOW = 4, F_ALIVE = 8;
+
+struct Pool {
+  float ox[kPool], oy[kPool], oz[kPool], dx[kPool], dy[kPool], dz[kPool];
+  float tx[kPool], ty[kPool], tz[kPool];  // throughput
+  float rx[kPool], ry[kPool], rz[kPool];  // radiance
+  float qx[kPool], qy[kPool], qz[kPool];  // previous point
+  float prev_pdf[kPool];
+  int depth[kPool], ignore[kPool], flags[kPool];
+  uint32_t base[kPool], sid[kPool];  // the pixel's hash prefix, the sample's index
+  int item[kPool], slot[kPool], sample[kPool], pix[kPool];
+  float sum[3][kPool], sq[3][kPool];  // the pixel's banked samples
+  int hit[kPool];  // the traced ray's hit
+  float ht[kPool], hu[kPool], hv[kPool];
+  float so[3][kPool], sd[3][kPool], stmax[kPool], sc[3][kPool];  // the shadow ray, its term
+  int live[kPool], order[kPool], shadow[kPool];  // the stages' queues
+  int bucket[kTypes];
+  int n_live, n_shadow;
+};
+
+__device__ __forceinline__ V3 col3(const float* x, const float* y, const float* z, int e) {
+  return mk(x[e], y[e], z[e]);
+}
+__device__ __forceinline__ void put3(float* x, float* y, float* z, int e, V3 v) {
+  x[e] = v.x;
+  y[e] = v.y;
+  z[e] = v.z;
+}
+
+// the block's prims as records (echo::record_hit), in slot order, leaving out
+// the slots that no ray can hit: a slot tested as a triangle whose b or c
+// rows are zero has det = 0 (padding, zero-area triangles). Returns how many.
+__device__ int stage_records(const Params& p, float4* recs, int* counts) {
+  const int P = p.padded;
+  const float* r = p.prims;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int n = 0;
+  for (int b = 0; b < P; b += kPool) {
+    const int k = b + threadIdx.x;
+    bool keep = false;
+    if (k < P) {
+      const bool as_tri = p.has_tri && !(p.has_sph && r[9 * P + k] > 0.5f);
+      const bool b_zero = r[3 * P + k] == 0.0f && r[4 * P + k] == 0.0f && r[5 * P + k] == 0.0f;
+      const bool c_zero = r[6 * P + k] == 0.0f && r[7 * P + k] == 0.0f && r[8 * P + k] == 0.0f;
+      keep = !as_tri || !(b_zero || c_zero);
+    }
+    const unsigned ballot = __ballot_sync(echo::kFullWarp, keep);
+    if (lane == 0) counts[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < kPool / 32; ++w) {
+      before += w < warp ? counts[w] : 0;
+      total += counts[w];
+    }
+    if (keep)
+      echo::make_record(r, P, k, k,
+                        recs + echo::kRecordWords * (n + before + __popc(ballot & ((1u << lane) - 1))));
+    n += total;
     __syncthreads();
   }
-  const int lane = blockIdx.x * kBlock + threadIdx.x;
+  return n;
+}
+
+// a fresh camera ray for entry e's pixel and sample
+__device__ void spawn_path(const Params& p, Pool& s, int e) {
+  const int pix = s.pix[e];
+  Pixel q;
+  q.base = s.base[e];
+  q.s0 = 0;
+  q.px = (float)p.pxy[2 * pix];
+  q.py = (float)p.pxy[2 * pix + 1];
+  V3 o, d;
+  spawn(p, p.cam, q, s.sid[e], o, d);
+  put3(s.ox, s.oy, s.oz, e, o);
+  put3(s.dx, s.dy, s.dz, e, d);
+  put3(s.rx, s.ry, s.rz, e, mk(0.0f, 0.0f, 0.0f));
+  put3(s.tx, s.ty, s.tz, e, mk(1.0f, 1.0f, 1.0f));
+  put3(s.qx, s.qy, s.qz, e, o);
+  s.prev_pdf[e] = 0.0f;
+  s.depth[e] = 0;
+  s.ignore[e] = -1;
+  s.flags[e] = F_ALIVE | F_PREV_SPEC;
+}
+
+__device__ void start_pixel(const Params& p, Pool& s, int e, int pix, int sample) {
+  s.pix[e] = pix;
+  s.sample[e] = sample;
+  s.base[e] = pixel_base(p.seed, (uint32_t)p.pid[pix]);
+  s.sid[e] = (uint32_t)p.s0[pix] + (uint32_t)sample;
+  for (int c = 0; c < 3; ++c) s.sum[c][e] = s.sq[c][e] = 0.0f;
+}
+
+// entry e's next item from the launch's work counter: a lane (its first
+// slot), or in the split form a (pixel, sample) unit; false when none is left
+__device__ bool take_item(const Params& p, Pool& s, int e) {
+  const int item = atomicAdd(p.work, 1);
+  if (p.samples) {
+    if (item >= p.n * p.count) return false;
+    start_pixel(p, s, e, item % p.n, item / p.n);
+  } else {
+    if (item >= p.n_lanes) return false;
+    s.slot[e] = 0;
+    start_pixel(p, s, e, item, 0);
+  }
+  s.item[e] = item;
+  spawn_path(p, s, e);
+  return true;
+}
+
+// entry e's path ended: bank it and regenerate (run_lane's banking)
+__device__ void end_path(const Params& p, Pool& s, int e) {
+  const V3 radiance = col3(s.rx, s.ry, s.rz, e);
+  const int pix = s.pix[e];
+  if (p.samples) {  // the split form: bank_kernel sums the samples in order
+    float* out = p.samples + ((size_t)pix * p.count + s.sample[e]) * 3;
+    out[0] = radiance.x;
+    out[1] = radiance.y;
+    out[2] = radiance.z;
+    if (!take_item(p, s, e)) s.flags[e] = 0;
+    return;
+  }
+  V3 s_sum = mk(s.sum[0][e], s.sum[1][e], s.sum[2][e]);
+  V3 s_sq = mk(s.sq[0][e], s.sq[1][e], s.sq[2][e]);
+  const float total = radiance.x + radiance.y + radiance.z;
+  if (isfinite(total)) {
+    s_sum = s_sum + radiance;
+    s_sq = s_sq + radiance * radiance;
+  }
+  const int sample = s.sample[e] + 1;
+  if (sample >= p.count) {
+    float* out = p.s_sum + 3 * (size_t)pix;
+    out[0] = s_sum.x;
+    out[1] = s_sum.y;
+    out[2] = s_sum.z;
+    out = p.s_sq + 3 * (size_t)pix;
+    out[0] = s_sq.x;
+    out[1] = s_sq.y;
+    out[2] = s_sq.z;
+    const int slot = s.slot[e] + 1;
+    const int next = slot * p.n_lanes + s.item[e];
+    if (slot >= p.k_slots || next >= p.n) {
+      if (!take_item(p, s, e)) s.flags[e] = 0;
+      return;
+    }
+    s.slot[e] = slot;
+    start_pixel(p, s, e, next, 0);
+  } else {
+    s.sample[e] = sample;
+    s.sid[e] = s.sid[e] + 1u;
+    s.sum[0][e] = s_sum.x;
+    s.sum[1][e] = s_sum.y;
+    s.sum[2][e] = s_sum.z;
+    s.sq[0][e] = s_sq.x;
+    s.sq[1][e] = s_sq.y;
+    s.sq[2][e] = s_sq.z;
+  }
+  spawn_path(p, s, e);
+}
+
+// the trace stage of path e: its hit, or on a miss the ambient term (its
+// path ends); returns the hit's material type, -1 on a miss
+template <bool TEX>
+__device__ int trace_path(const Params& p, Pool& s, const float4* recs, int n_rec, int e) {
+  constexpr int SPW = TEX ? SP_TEX : SP, MTW = TEX ? MT_TEX : MT;
+  const V3 d = col3(s.dx, s.dy, s.dz, e);
+  float hit_t, hit_u, hit_v;
+  const int hit = trace(p, recs, n_rec, make_ray(col3(s.ox, s.oy, s.oz, e), d, kInf, s.ignore[e]),
+                        hit_t, hit_u, hit_v);
+  s.hit[e] = hit;
+  if (hit < 0) {
+    // miss: constant ambient, MIS against ambient NEE
+    const float* cam = p.cam;
+    const float inf_pdf = ldg(cam + C_AMB_PMF) * kInv4Pi;
+    const int f = s.flags[e];
+    const bool prev_spec = f & F_PREV_SPEC;
+    const float inf_w = prev_spec ? 1.0f : power_heuristic(s.prev_pdf[e], inf_pdf);
+    const V3 throughput = col3(s.tx, s.ty, s.tz, e);
+    V3 radiance = col3(s.rx, s.ry, s.rz, e);
+    radiance = radiance + throughput * (s.depth[e] == 0 ? load3(cam + C_AMB_CAM)
+                                                          : load3(cam + C_AMB_ALL) * inf_w);
+    put3(s.rx, s.ry, s.rz, e, radiance);
+    s.flags[e] = f | F_ENDED;
+    return -1;
+  }
+  s.ht[e] = hit_t;
+  s.hu[e] = hit_u;
+  s.hv[e] = hit_v;
+  const int type = (int)ldg(p.mat + (size_t)(int)ldg(p.sp + (size_t)hit * SPW + 12) * MTW + 10);
+  return type < 0 ? 0 : (type >= kTypes ? kTypes - 1 : type);
+}
+
+// the shade stage of path e, which hit s.hit[e]: run_lane's interaction,
+// texture stage, emission, draws, BSDF sample, NEE and Russian roulette; the
+// shadow ray goes to the entry's shadow columns (F_SHADOW)
+template <bool TEX>
+__device__ void shade_path(const Params& p, Pool& s, int e ECHO_STAGE_PARAM) {
+  ECHO_STAGE(ECHO_STAGE_INTERACT);
+  constexpr int SPW = TEX ? SP_TEX : SP, MTW = TEX ? MT_TEX : MT;
+  const float* cam = p.cam;
+  const int hit = s.hit[e];
+  const float hit_t = s.ht[e], hit_u = s.hu[e], hit_v = s.hv[e];
+  const V3 d = col3(s.dx, s.dy, s.dz, e);
+  const int depth = s.depth[e];
+  int flags = s.flags[e];
+  const bool prev_spec = flags & F_PREV_SPEC;
+  const V3 throughput = col3(s.tx, s.ty, s.tz, e);
+  V3 radiance = col3(s.rx, s.ry, s.rz, e);
+
+  // --- interaction ---
+  const float* sr = p.sp + (size_t)hit * SPW;
+  const V3 point = col3(s.ox, s.oy, s.oz, e) + d * hit_t;
+  const float w = 1.0f - hit_u - hit_v;
+  V3 geo_n = load3(sr), shade_n;
+  if (ldg(sr + 14) > 0.5f) {  // sphere: rows 0:3 hold the center
+    geo_n = normalize(point - geo_n);
+    shade_n = geo_n;
+  } else {
+    shade_n = normalize(load3(sr + 3) * w + load3(sr + 6) * hit_u + load3(sr + 9) * hit_v);
+  }
+  const float* mr = p.mat + (size_t)(int)ldg(sr + 12) * MTW;
+  Mat m;
+  m.albedo = load3(mr);
+  m.p0 = ldg(mr + 3);
+  m.p1 = ldg(mr + 4);
+  m.extra = load3(mr + 7);
+  m.type = (int)ldg(mr + 10);
+  if ((p.present & (1 << INVISIBLE)) && dot(geo_n, -d) < 0.0f && ldg(mr + 11) > 0.5f)
+    m.type = INVISIBLE;
+
+  if constexpr (TEX) {
+    // --- the texture stage: uv, then albedo, normal map, roughness ---
+    ECHO_STAGE(ECHO_STAGE_TEXTURE);
+    float su, sv;
+    if (ldg(sr + 14) > 0.5f) {
+      sphere_uv(point, load3(sr), ldg(sr + 3), su, sv);
+    } else {
+      su = w * ldg(sr + 17) + hit_u * ldg(sr + 19) + hit_v * ldg(sr + 21);
+      sv = w * ldg(sr + 18) + hit_u * ldg(sr + 20) + hit_v * ldg(sr + 22);
+    }
+    const int tid = (int)ldg(mr + 12);
+    if (tid >= 0) m.albedo = tex_sample(p, tid, su, sv);
+    const int ntid = p.has_ntex ? (int)ldg(mr + 13) : -1;
+    if (ntid >= 0) {
+      const V3 t = tex_sample(p, ntid, su, sv);
+      const V3 tn = mk(t.x * 2.0f - 1.0f, t.y * 2.0f - 1.0f, t.z * 2.0f - 1.0f);
+      const float inten = ldg(mr + 14);
+      const float nz = lo_clamp(tn.z, (float)0.1);
+      V3 tg, bt;
+      frame(shade_n, tg, bt);
+      shade_n = normalize(mk(tg.x * tn.x * inten + bt.x * tn.y * inten + shade_n.x * nz,
+                             tg.y * tn.x * inten + bt.y * tn.y * inten + shade_n.y * nz,
+                             tg.z * tn.x * inten + bt.z * tn.y * inten + shade_n.z * nz));
+    }
+    const int rtid = p.has_rtex ? (int)ldg(mr + 15) : -1;
+    if (rtid >= 0) {
+      const V3 t = tex_sample(p, rtid, su, sv);
+      m.p0 = (t.x + t.y + t.z) * kThird;
+    }
+    ECHO_STAGE(ECHO_STAGE_INTERACT);
+  }
+
+  // --- emission at the hit, MIS against NEE ---
+  const V3 wo = -d;
+  const float total_power = ldg(cam + C_TOTAL_POWER);
+  const float p_inf = ldg(cam + C_P_INF);
+  const float sum_inf = ldg(cam + C_SUM_INF);
+  const bool has_tree = p.tree_depth > 0;
+  if (dot(geo_n, wo) > 0.0f && m.type == EMISSIVE) {
+    const V3 prev_point = col3(s.qx, s.qy, s.qz, e);
+    const int rec = (int)ldg(sr + 15);
+    float light_pm = 0.0f;
+    if (rec >= 0) {
+      if (!has_tree) {
+        light_pm = ldg(sr + 16) / total_power;
+      } else {
+        const float* lr = p.light + (size_t)rec * LT;
+        float w_inf = ldg(lr + 10);
+        light_pm = w_inf > 0.0f ? w_inf / sum_inf * p_inf
+                                : tree_pmf(p, (int)ldg(lr + 12), prev_point) * (1.0f - p_inf);
+      }
+    }
+    V3 delta = point - prev_point;
+    float dist2 = lo_clamp(dot(delta, delta), 1e-12f);
+    float cos_l = fabsf(dot(geo_n, d));
+    float area_pdf = dist2 / lo_clamp(cos_l * ldg(sr + 13), 1e-12f);
+    float em_w = prev_spec ? 1.0f : power_heuristic(s.prev_pdf[e], light_pm * area_pdf);
+    radiance = radiance + throughput * m.albedo * em_w;
+  }
+
+  // --- shading frame and draws ---
+  ECHO_STAGE(ECHO_STAGE_BSDF);
+  V3 tangent, bitangent;
+  frame(shade_n, tangent, bitangent);
+  const V3 wo_local = mk(dot(wo, tangent), dot(wo, bitangent), dot(wo, shade_n));
+  const uint32_t base = s.base[e], sid = s.sid[e];
+  const uint32_t dim = CAMERA_DIMS + BOUNCE_DIM_STRIDE * (uint32_t)depth;
+  float ubx, uby, ulx, uly;
+  next_2d(base, sid, dim + DIM_BSDF, ubx, uby);
+  const float u_lobe = next_1d(base, sid, dim + DIM_LOBE);
+  const float u_pick = next_1d(base, sid, dim + DIM_LIGHT_PICK);
+  next_2d(base, sid, dim + DIM_LIGHT_SAMPLE, ulx, uly);
+  const float u_rr = next_1d(base, sid, dim + DIM_RR);
+
+  const BsdfSample bs = bsdf_sample(m, wo_local, ubx, uby, u_lobe);
+  const bool has_bounce = bs.pdf > 0.0f && depth < p.bounce_limit;
+
+  // --- NEE: pick a light, sample it, queue the shadow ray, MIS ---
+  ECHO_STAGE(ECHO_STAGE_NEE);
+  flags &= ~F_SHADOW;
+  if (!bs.spec) {
+    int rec;
+    float pick_pmf;
+    if (!has_tree) {
+      rec = upper_bound(p.light, 1, p.n_lights, u_pick);
+      pick_pmf = ldg(p.light + (size_t)rec * LT + 2) / total_power;
+    } else if (u_pick < p_inf) {
+      float u_inf = clampf(u_pick / lo_clamp(p_inf, 1e-12f), 0.0f, kBelowOne);
+      rec = upper_bound(p.light, 11, p.n_lights, u_inf);
+      pick_pmf = ldg(p.light + (size_t)rec * LT + 10) / sum_inf * p_inf;
+    } else {
+      float u_fin = clampf((u_pick - p_inf) / lo_clamp(1.0f - p_inf, 1e-12f), 0.0f, kBelowOne);
+      float pmf_tree;
+      int leaf = tree_pick(p, point, u_fin, pmf_tree);
+      rec = (int)ldg(p.tl + (size_t)leaf * TL);
+      pick_pmf = pmf_tree * (1.0f - p_inf);
+    }
+    const LightSample ls = sample_light(p, cam, rec, point, ulx, uly);
+    const V3 wi_l = mk(dot(ls.incident, tangent), dot(ls.incident, bitangent),
+                       dot(ls.incident, shade_n));
+    V3 f_l;
+    float scatter_pdf;
+    bsdf_eval_pdf(m, wo_local, wi_l, f_l, scatter_pdf);
+    f_l = f_l * fabsf(dot(shade_n, ls.incident));
+    const float nee_pdf = pick_pmf * ls.pdf;
+    const bool candidate = nee_pdf > 1e-12f &&
+                           (f_l.x * ls.radiant.x > 0.0f || f_l.y * ls.radiant.y > 0.0f ||
+                            f_l.z * ls.radiant.z > 0.0f);
+    if (candidate) {  // traced in the shadow stage
+      put3(s.so[0], s.so[1], s.so[2], e, offset_origin(point, geo_n, ls.incident));
+      put3(s.sd[0], s.sd[1], s.sd[2], e, ls.incident);
+      s.stmax[e] = ls.travel >= kInf ? kInf : ls.travel * kShadowScale;
+      float mis_w = ls.use_mis ? power_heuristic(nee_pdf, scatter_pdf) : 1.0f;
+      V3 nee = ls.radiant * f_l * (mis_w / lo_clamp(nee_pdf, 1e-20f));
+      put3(s.sc[0], s.sc[1], s.sc[2], e, throughput * nee);
+      flags |= F_SHADOW;
+    }
+  }
+
+  // --- Russian roulette and the bounce ---
+  ECHO_STAGE(ECHO_STAGE_END);
+  put3(s.rx, s.ry, s.rz, e, radiance);
+  V3 new_tp = has_bounce ? throughput * (bs.value * (fabsf(bs.wi.z) / lo_clamp(bs.pdf, 1e-20f)))
+                         : throughput;
+  const float lum = new_tp.x * 0.212671f + new_tp.y * 0.715160f + new_tp.z * 0.072169f;
+  const float rr = clampf(p.survivability * lum, 0.0f, 1.0f);
+  if (has_bounce && (u_rr < rr)) {
+    new_tp = new_tp / lo_clamp(rr, 1e-20f);
+    const V3 wi_world = tangent * bs.wi.x + bitangent * bs.wi.y + shade_n * bs.wi.z;
+    put3(s.tx, s.ty, s.tz, e, new_tp);
+    put3(s.ox, s.oy, s.oz, e, offset_origin(point, geo_n, wi_world));
+    put3(s.dx, s.dy, s.dz, e, wi_world);
+    put3(s.qx, s.qy, s.qz, e, point);
+    s.depth[e] = depth + 1;
+    s.prev_pdf[e] = bs.pdf;
+    s.ignore[e] = hit;
+    flags = bs.spec ? (flags | F_PREV_SPEC) : (flags & ~F_PREV_SPEC);
+  } else {
+    flags |= F_ENDED;
+  }
+  s.flags[e] = flags;
+}
+
+// path h's shadow ray: its NEE term unless blocked
+__device__ __forceinline__ void shadow_ray(const Params& p, Pool& s, const float4* recs,
+                                           int n_rec, int h) {
+  const Ray r = make_ray(mk(s.so[0][h], s.so[1][h], s.so[2][h]),
+                         mk(s.sd[0][h], s.sd[1][h], s.sd[2][h]), s.stmax[h], s.hit[h]);
+  if (!occlude(p, recs, n_rec, r))
+    put3(s.rx, s.ry, s.rz, h, col3(s.rx, s.ry, s.rz, h) + mk(s.sc[0][h], s.sc[1][h], s.sc[2][h]));
+}
+
+// a warp-aggregated push onto a shared-memory queue counter
+__device__ __forceinline__ int push(int* counter) {
+  const unsigned mask = __activemask();
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(mask) - 1;
+  int at = 0;
+  if (lane == leader) at = atomicAdd(counter, __popc(mask));
+  return __shfl_sync(mask, at, leader) + __popc(mask & ((1u << lane) - 1));
+}
+
+template <bool TEX>
+__device__ void run_pool(const Params& p) {
+  extern __shared__ float4 prim_recs[];  // (dynamic shared memory starts 16-byte aligned)
+  __shared__ Pool s;
+  const int e = threadIdx.x;  // this thread's own entry (the end stage)
+  ECHO_STAGE_CLOCK(ECHO_STAGE_POOL);
+  const int n_rec = stage_records(p, prim_recs, s.live);
+  if (e < kTypes) s.bucket[e] = 0;
+  if (e == 0) s.n_live = s.n_shadow = 0;
+  __syncthreads();
+  if (take_item(p, s, e)) s.live[push(&s.n_live)] = e;
+  else s.flags[e] = 0;
+  __syncthreads();
+  for (;;) {
+    const int n_live = s.n_live;
+    if (n_live == 0) break;
+    // --- 1. trace every live path ---
+    ECHO_STAGE(ECHO_STAGE_TRACE);
+    int path = -1, type = -1, rank = 0;
+    if (e < n_live) {
+      path = s.live[e];
+      type = trace_path<TEX>(p, s, prim_recs, n_rec, path);
+      if (type >= 0) rank = atomicAdd(&s.bucket[type], 1);
+    }
+    ECHO_STAGE(ECHO_STAGE_POOL);  // (a barrier's wait is the pool's)
+    __syncthreads();
+    // --- 2. the hits in material order ---
+    int n_hit = 0, at = 0;
+    for (int b = 0; b < kTypes; ++b) {
+      const int c = s.bucket[b];
+      at += b < type ? c : 0;
+      n_hit += c;
+    }
+    if (type >= 0) s.order[at + rank] = path;
+    if (e == 0) s.n_live = 0;
+    __syncthreads();
+    // --- 3. shade every hit ---
+    if (e < kTypes) s.bucket[e] = 0;
+    if (e < n_hit) {
+      const int h = s.order[e];
+      shade_path<TEX>(p, s, h ECHO_STAGE_ARG);
+      ECHO_STAGE(ECHO_STAGE_POOL);
+      if (s.flags[h] & F_SHADOW) s.shadow[push(&s.n_shadow)] = h;
+    }
+    __syncthreads();
+    // --- 4. the shadow rays ---
+    if (e < s.n_shadow) {
+      ECHO_STAGE(ECHO_STAGE_SHADOW);
+      shadow_ray(p, s, prim_recs, n_rec, s.shadow[e]);
+      ECHO_STAGE(ECHO_STAGE_POOL);
+    }
+    __syncthreads();
+    // --- 5. bank ended paths, regenerate, queue the live ones ---
+    if (e == 0) s.n_shadow = 0;
+    const int f = s.flags[e];
+    if ((f & F_ALIVE) && (f & F_ENDED)) {
+      ECHO_STAGE(ECHO_STAGE_END);
+      end_path(p, s, e);
+      ECHO_STAGE(ECHO_STAGE_POOL);
+    }
+    if (s.flags[e] & F_ALIVE) s.live[push(&s.n_live)] = e;
+    __syncthreads();
+  }
+}
+
+// the split form's banking: each pixel's samples summed in sample order,
+// non-finite ones left out (run_lane's banking, bit for bit)
+__global__ void bank_kernel(const float* samples, int n, int count, float* s_sum, float* s_sq) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= n) return;
+  V3 sum = mk(0.0f, 0.0f, 0.0f), sq = sum;
+  const float* r = samples + (size_t)pix * count * 3;
+  for (int k = 0; k < count; ++k, r += 3) {
+    const V3 radiance = mk(r[0], r[1], r[2]);
+    const float total = radiance.x + radiance.y + radiance.z;
+    if (isfinite(total)) {
+      sum = sum + radiance;
+      sq = sq + radiance * radiance;
+    }
+  }
+  s_sum[3 * pix] = sum.x;
+  s_sum[3 * pix + 1] = sum.y;
+  s_sum[3 * pix + 2] = sum.z;
+  s_sq[3 * pix] = sq.x;
+  s_sq[3 * pix + 1] = sq.y;
+  s_sq[3 * pix + 2] = sq.z;
+}
+
+// TEX: the texture stage; HIER: the chunk-tree form (run_lane), which stages
+// no prims but gives each warp its walk's stage (used with TEX = false only);
+// the untextured and textured forms run the path pool
+template <bool TEX, bool HIER>
+__global__ void __launch_bounds__(HIER ? kBlock : kPool) mega_kernel(Params p) {
   if constexpr (HIER) {  // every thread runs: the walk is called warp-wide
+    extern __shared__ float rows[];
+    const int lane = blockIdx.x * kBlock + threadIdx.x;
     echo::HierStage st = echo::hier_stage_init(rows, kBlock / 32);
     run_lane<TEX, HIER>(p, rows, lane, &st);
   } else {
-    if (lane < p.n_lanes) run_lane<TEX, HIER>(p, rows, lane);
+    run_pool<TEX>(p);
   }
+}
+
+// dynamic shared memory of a form: the chunk-tree form's walk stages, or the
+// prim records (at most `padded` of them) beside the static pool
+template <bool TEX, bool HIER>
+size_t smem_bytes(int padded) {
+  return HIER ? echo::hier_smem_bytes(kBlock / 32)
+              : sizeof(float4) * echo::kRecordWords * (size_t)padded;
+}
+
+// the form's resident blocks a SM at `padded` prims (the occupancy query)
+// and the SMs. The form's dynamic shared memory limit is raised to what the
+// envelope's largest table needs (ops/megakernel.MEGA_PRIM_LIMIT padded
+// prims), never lowered: a query for a small scene leaves room for a launch
+// of a larger one.
+constexpr int kMaxPadded = 2048;
+template <bool TEX, bool HIER>
+cudaError_t occupancy(int padded, int& blocks, int& sms) {
+  const size_t smem = smem_bytes<TEX, HIER>(padded);
+  const size_t room = smem_bytes<TEX, HIER>(padded > kMaxPadded ? padded : kMaxPadded);
+  cudaError_t err = cudaFuncSetAttribute(mega_kernel<TEX, HIER>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(room));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mega_kernel<TEX, HIER>,
+                                                        HIER ? kBlock : kPool,
+                                                        smem);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 template <bool TEX, bool HIER>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = HIER ? echo::hier_smem_bytes(kBlock / 32)
-                           : sizeof(float) * 10 * (size_t)p.padded;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(mega_kernel<TEX, HIER>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+  const size_t smem = smem_bytes<TEX, HIER>(p.padded);
+  if constexpr (HIER) {
+    static_assert(echo::hier_smem_bytes(kBlock / 32) <= 48 * 1024, "default dynamic smem");
+    const dim3 grid((p.n_lanes + kBlock - 1) / kBlock), block(kBlock);
+    mega_kernel<TEX, HIER><<<grid, block, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    // as many blocks as the card holds at once, each taking items from the
+    // work counter until none is left
+    int blocks = 0, sms = 0;
+    cudaError_t err = occupancy<TEX, HIER>(p.padded, blocks, sms);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const long long items = p.samples ? (long long)p.n * p.count : p.n_lanes;
+    const long long need = (items + kPool - 1) / kPool;
+    const int grid = (int)(need < (long long)blocks * sms ? need : (long long)blocks * sms);
+    err = cudaMemsetAsync(p.work, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mega_kernel<TEX, HIER><<<grid, kPool, smem, stream>>>(p);
+    err = cudaGetLastError();
+    if (err == cudaSuccess && p.samples) {
+      bank_kernel<<<(p.n + 255) / 256, 256, 0, stream>>>(p.samples, p.n, p.count, p.s_sum,
+                                                          p.s_sq);
+      err = cudaGetLastError();
+    }
+    return static_cast<int>(err);
   }
-  const dim3 grid((p.n_lanes + kBlock - 1) / kBlock), block(kBlock);
-  mega_kernel<TEX, HIER><<<grid, block, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: prims sp mat light epack tree tl cam pid pxy s0 s_sum s_sq atlas
+// ptrs: prims sp mat light epack tree tl cam pid pxy s0 s_sum s_sq atlas work
+//       samples
 // ints: n n_lanes k_slots count bounce_limit width height seed padded
 //       has_tri has_sph present n_lights n_emissive tree_depth n_tex tex_res
 //       has_ntex has_rtex
@@ -1399,6 +1927,8 @@ Params params(void* const* ptrs, const int* ints, float survivability) {
   p.s_sum = static_cast<float*>(ptrs[11]);
   p.s_sq = static_cast<float*>(ptrs[12]);
   p.atlas = static_cast<const float*>(ptrs[13]);
+  p.work = static_cast<int*>(ptrs[14]);
+  p.samples = static_cast<float*>(ptrs[15]);
   p.n = ints[0];
   p.n_lanes = ints[1];
   p.k_slots = ints[2];
@@ -1425,7 +1955,9 @@ Params params(void* const* ptrs, const int* ints, float survivability) {
 
 }  // namespace
 
-// A scene with atlas textures (n_tex > 0) runs the textured form.
+// A scene with atlas textures (n_tex > 0) runs the textured form. With
+// `samples` set (ptrs[15]) the launch runs the split form: (pixel, sample)
+// units, then bank_kernel.
 extern "C" int megakernel(void* const* ptrs, const int* ints, float survivability,
                           void* stream) {
   const Params p = params(ptrs, ints, survivability);
@@ -1458,5 +1990,19 @@ extern "C" int megakernel_hier_occupancy(int* out) {
   out[0] = blocks;
   out[1] = kBlock;
   out[2] = static_cast<int>(smem);
+  return static_cast<int>(err);
+}
+
+// The untextured (textured = 0) or textured form's resident blocks per SM at
+// `padded` prims, its block size (= pool entries), its dynamic shared memory
+// per block and the SMs, in out[0..3]; returns the CUDA error.
+extern "C" int megakernel_occupancy(int textured, int padded, int* out) {
+  int blocks = 0, sms = 0;
+  const cudaError_t err = textured ? occupancy<true, false>(padded, blocks, sms)
+                                   : occupancy<false, false>(padded, blocks, sms);
+  out[0] = blocks;
+  out[1] = kPool;
+  out[2] = static_cast<int>(smem_bytes<false, false>(padded));
+  out[3] = sms;
   return static_cast<int>(err);
 }

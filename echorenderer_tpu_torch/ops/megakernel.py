@@ -4,9 +4,9 @@ echorenderer_tpu/ops/megakernel.py).
 `sample_frame_mega` has the contract of `evaluation.wavefront.
 sample_frame_wavefront`: per-lane (sum, sum²) of `count` path samples. On
 a CUDA scene it launches the hand-written kernel of csrc/megakernel.cu,
-which runs the whole regenerating path loop of a lane (camera spawn,
-trace, shading, NEE with a shadow ray, MIS, Russian roulette) in one
-thread with the path state in registers; on a CPU scene it runs
+which runs the whole regenerating path loop (camera spawn, trace,
+shading, NEE with a shadow ray, MIS, Russian roulette) over a block-
+resident pool of paths, stage by stage; on a CPU scene it runs
 `sample_frame_mega_plain`, which is the port's wavefront itself: the one
 physics function `path_step` stays the reference the kernel is held to.
 
@@ -281,8 +281,30 @@ def _load():
         lib.megakernel_hier.restype = ctypes.c_int
         lib.megakernel_hier_occupancy.argtypes = [ctypes.c_void_p]
         lib.megakernel_hier_occupancy.restype = ctypes.c_int
+        lib.megakernel_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.megakernel_occupancy.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def occupancy(textured: bool, padded: int) -> dict:
+    """The untextured or textured form's resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at `padded` prims, its
+    block size (the pool's paths a block), dynamic shared memory per block,
+    the card's SMs, its resident warps per SM and the paths the card holds
+    at once."""
+    key = (_load(), bool(textured), int(padded))
+    if key not in _OCCUPANCY:
+        out = (ctypes.c_int * 4)()
+        err = _load().megakernel_occupancy(int(textured), int(padded), out)
+        if err:
+            raise RuntimeError(f"megakernel_occupancy failed: cudaError {err}")
+        _OCCUPANCY[key] = dict(blocks=out[0], block=out[1], smem=out[2], sms=out[3],
+                               warps=out[0] * out[1] // 32, paths=out[0] * out[1] * out[3])
+    return _OCCUPANCY[key]
+
+
+_OCCUPANCY: dict = {}  # by (library, textured, padded)
 
 
 def hier_occupancy() -> dict:
@@ -374,10 +396,13 @@ def sample_frame_mega(scene, pixel_id, pixel_xy, resolution, seed, sample_start,
     (N,), pixel coordinates (N, 2), first sample index scalar or (N,),
     wrapping as a 32-bit word). Returns (sum, sum_sq), each (N, 3).
 
-    `k_slots`: pixels each kernel thread serves one after the other (slot
-    j of thread L is pixel j * ceil(N / K) + L). None means 1: the card's
-    warp scheduler balances the per-thread tail that K slots averaged on
-    the TPU. Per-pixel sums are bitwise the same for every K.
+    `k_slots`: pixels each lane serves one after the other (slot j of
+    lane L is pixel j * ceil(N / K) + L); a pool entry takes a lane and
+    keeps it until its slots are done (the chunk-tree form: a thread a
+    lane). None means 1: the pool's work counter balances the tail that K
+    slots averaged on the TPU. Per-pixel sums are bitwise the same for
+    every K, and in the split form (fewer pixels than the card holds paths,
+    count >= 2) K is not used.
 
     `hier`: the kernel's chunk-tree form (the JAX package's fat-chunk
     variant), for scenes inside `supported_hier`.
@@ -395,30 +420,68 @@ def sample_frame_mega(scene, pixel_id, pixel_xy, resolution, seed, sample_start,
     if reason is not None:
         form = "chunk-tree form's" if hier else "megakernel's"
         raise ValueError(f"scene outside the {form} envelope: {reason}")
-    args = _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
-                        bounce_limit, k_slots, hier)
-    s_sum, s_sq = args.s_sum, args.s_sq
+    launch = _prepare_launch(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
+                             bounce_limit, k_slots, hier)
+    s_sum, s_sq = launch.args.s_sum, launch.args.s_sq
     if s_sum.shape[0] == 0:
         return s_sum, s_sq
-    ptrs, ints = args.ptrs, args.ints
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    c_ints = (ctypes.c_int * len(ints))(*ints)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if hier:
-        c_hier = (ctypes.c_void_p * 3)(*args.hier_ptrs)
-        err = _load().megakernel_hier(c_ptrs, c_ints, c_hier, scene.hier_soa.root_code,
-                                      float(survivability), stream)
-    else:
-        err = _load().megakernel(c_ptrs, c_ints, float(survivability), stream)
+    err = _run_launch(scene, launch, survivability)
     if err:
         raise RuntimeError(f"megakernel launch failed: cudaError {err}")
     if hier:
         sample_frame_mega.launches_hier += 1
-    elif args.ints[15]:  # atlas textures: the textured form ran
+    elif launch.args.ints[15]:  # atlas textures: the textured form ran
         sample_frame_mega.launches_textured += 1
     else:
         sample_frame_mega.launches += 1
     return s_sum, s_sq
+
+
+def split_form(scene, n: int, count: int, hier: bool = False) -> bool:
+    """Whether a launch of `n` pixels at `count` samples takes the split
+    form: (pixel, sample) paths into a per-sample buffer, then each pixel's
+    samples summed in order. It does where the untextured or textured form
+    has fewer pixels than the card holds paths at once (the occupancy
+    query) and at least two samples a pixel."""
+    if hier or count < 2 or n == 0:
+        return False
+    occ = occupancy(scene.tex_atlas.shape[0] > 0, scene.prim_soa.padded)
+    return n < occ["paths"] and n * count + occ["paths"] < 2 ** 31
+
+
+class _Launch(NamedTuple):
+    args: KernelArgs
+    keep: list  # the work counter and the split form's buffer, alive as long as the launch
+    c_ptrs: object  # ptrs, then the work counter and the split form's buffer (or 0)
+    c_ints: object
+    hier: bool
+
+
+def _prepare_launch(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
+                    bounce_limit, k_slots, hier: bool = False) -> _Launch:
+    """Everything `sample_frame_mega` hands the C entry, on a CUDA scene
+    (tools/hier_ab.py times the C entry alone through this and
+    `_run_launch`)."""
+    args = _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
+                        bounce_limit, k_slots, hier)
+    dev, n, ints = scene.device, args.s_sum.shape[0], args.ints
+    work = torch.empty(1, dtype=torch.int32, device=dev)  # the pool's work counter
+    samples = (torch.empty((n, count, 3), dtype=torch.float32, device=dev)
+               if split_form(scene, n, count, hier) else None)
+    ptrs = args.ptrs + [work.data_ptr(), 0 if samples is None else samples.data_ptr()]
+    return _Launch(args, [work, samples], (ctypes.c_void_p * len(ptrs))(*ptrs),
+                   (ctypes.c_int * len(ints))(*ints), hier)
+
+
+def _run_launch(scene, launch: _Launch, survivability: float) -> int:
+    """Launch a prepared megakernel call on the current stream; returns the
+    C entry's CUDA error."""
+    stream = torch.cuda.current_stream(scene.device).cuda_stream
+    if launch.hier:
+        c_hier = (ctypes.c_void_p * 3)(*launch.args.hier_ptrs)
+        return _load().megakernel_hier(launch.c_ptrs, launch.c_ints, c_hier,
+                                       scene.hier_soa.root_code, float(survivability), stream)
+    return _load().megakernel(launch.c_ptrs, launch.c_ints, float(survivability), stream)
 
 
 # launches of the kernel: the untextured, the textured and the chunk-tree form

@@ -6,6 +6,7 @@ process, in turns (other, this, this, other).
 
     python3 tools/hier_ab.py --other DIR
     python3 tools/hier_ab.py --sweep   # the seg kernel's shapes, no other checkout
+    python3 tools/hier_ab.py --mega-stages [--other DIR] [--dump DIR]
 
 Inputs, made on the card from fixed seeds:
   - sphere_grid(1_000_000) (bench.py's large scene) at 1920x1080, 1 spp,
@@ -17,7 +18,9 @@ Inputs, made on the card from fixed seeds:
   - the megakernel's chunk-tree form on the 1M frame (one launch, first
     sample 1), and its untextured and textured forms' launches of the
     bench scene (sphere_field(80)) and the showcase at 960x540, 64 spp,
-    bounce 16, whose code shares megakernel.cu;
+    bounce 16, whose code shares megakernel.cu, and of the Cornell box at
+    128x128, material_ball and sphere_grid(1900) (2048 padded prims, the
+    top of the envelope) at 320x180, 8 spp, bounce 16;
   - the seg kernel (csrc/binned.cu), keyed and exact, on the pair lists of
     every seg_keys launch recorded from the 1M program's binned waves
     (first sample 1), from the TLAS program's, and from one trace and one
@@ -36,14 +39,29 @@ program under ECHO_MEGA_HIER. The other checkout's csrc/hier_walk.cu,
 csrc/megakernel.cu and csrc/binned.cu are built with this tree's nvcc
 flags into DIR/echorenderer_tpu_torch/_build/ab/ and bound in place of
 this tree's libraries (their C interfaces are the same; the seg launches
-pass each checkout's own `binned_trace.ROW`). Prints the card's name and
-power limit beside every table.
+pass each checkout's own `binned_trace.ROW`; a megakernel.cu from before
+the path pool, without the occupancy query, gets PARENT_OCCUPANCY). The dense kernels', hier_kernel's,
+the seg kernel's and the chunk-tree megakernel's SASS (cuobjdump -sass) is
+held against the other checkout's, kernel by kernel. Prints the card's name and power limit
+beside every table.
 
 --sweep builds this tree's binned.cu once for each seg kernel shape of
 SWEEP (kSegWarps warps a block, kSegTile pairs a warp, kSegUnroll), times
 the seg items on each in two passes (the list, then reversed), holds
 every output bitwise to this tree's, and prints each shape's resident
 warps/SM; the walk, the megakernel and the render paths are not timed.
+
+--mega-stages breaks the megakernel's untextured and textured forms down by
+stage on the bench, showcase, Cornell, material_ball and sphere_grid(1900)
+launches: this tree's megakernel.cu, or with --other DIR that checkout's
+(which must hold the stage marks of csrc/mega_stages.cuh). It builds the source twice with this tree's flags: with
+-lineinfo alone, the same code as the library the port loads, for ptxas's
+registers and stack frame, the occupancy query, the launch's ms and the
+static SASS instructions of each stage (cuobjdump -xelf, then nvdisasm's
+line information mapped to the stage marks that precede each source line);
+and with -DECHO_MEGA_STAGES, whose threads sum clock() cycles a stage
+(csrc/mega_stages.cuh), read after one launch. --dump DIR keeps the
+disassembly.
 """
 
 from __future__ import annotations
@@ -69,6 +87,36 @@ RES = (1920, 1080)
 # batch's 4-prim groups unrolled together)
 SWEEP = [dict(kSegWarps=w, kSegTile=t, kSegUnroll=u)
          for w in (1, 2, 4) for t in (16, 32, 64) for u in (1, 2)]
+
+# the megakernel's stages, in csrc/mega_stages.cuh's order
+STAGES = ("trace", "shadow trace", "interaction", "texture stage", "RNG + BSDF sample",
+          "light pick / sample / BSDF eval", "RR + banking + regeneration",
+          "pool: queues, sort, barriers")
+# the occupancy query of the untextured and textured forms, for a
+# megakernel.cu from before the path pool, which has none (its forms stage
+# 10 rows of padded prims in 128-thread blocks); the A/B against such a
+# checkout needs it, one with a path pool does not
+PARENT_OCCUPANCY = """
+extern "C" int megakernel_occupancy(int textured, int padded, int* out) {
+  const void* fn = textured ? reinterpret_cast<const void*>(mega_kernel<true, false>)
+                            : reinterpret_cast<const void*>(mega_kernel<false, false>);
+  const size_t smem = sizeof(float) * 10 * (size_t)padded;
+  // (raised to the envelope's 2048 padded prims, never lowered below what a
+  // later launch of a larger scene needs)
+  const size_t room = smem > 10 * 2048 * sizeof(float) ? smem : 10 * 2048 * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(room));
+  int blocks = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBlock, smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  out[0] = blocks;
+  out[1] = kBlock;
+  out[2] = static_cast<int>(smem);
+  out[3] = sms;
+  return static_cast<int>(err);
+}
+"""
 
 
 def bind_binned(lib) -> None:
@@ -96,23 +144,29 @@ def build_other(root: Path) -> dict:
     seg kernel's pairs a block (`row`)."""
     out = root / "echorenderer_tpu_torch" / "_build" / "ab"
     out.mkdir(parents=True, exist_ok=True)
-    procs = {stem: nvcc(root / "echorenderer_tpu_torch" / "csrc" / f"{stem}.cu",
-                        out / f"lib{stem}.so") for stem in ("hier_walk", "megakernel", "binned")}
+    csrc = root / "echorenderer_tpu_torch" / "csrc"
+    mega = csrc / "megakernel.cu"
+    if "megakernel_occupancy" not in mega.read_text():  # from before the pool redesign
+        for header in csrc.glob("*.cuh"):
+            shutil.copy(header, out)
+        mega = out / "megakernel.cu"
+        mega.write_text((csrc / "megakernel.cu").read_text() + PARENT_OCCUPANCY)
+    procs = {stem: nvcc(mega if stem == "megakernel" else csrc / f"{stem}.cu",
+                        out / f"lib{stem}.so")
+             for stem in ("hier_walk", "megakernel", "binned", "dense_intersect")}
     libs = {}
     for stem, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the other checkout's {stem}.cu:\n{err}")
         libs[stem] = ctypes.CDLL(str(out / f"lib{stem}.so"))
+        libs[f"{stem}_path"] = out / f"lib{stem}.so"
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     common = [ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, i32, i32, i32]
     h = libs["hier_walk"]
     h.hier_trace.argtypes, h.hier_trace.restype = common + [ptr] * 6, i32
     h.hier_occlude.argtypes, h.hier_occlude.restype = common + [ptr, ptr], i32
-    m = libs["megakernel"]
-    m.megakernel.argtypes, m.megakernel.restype = [ptr, ptr, ctypes.c_float, ptr], i32
-    m.megakernel_hier.argtypes = [ptr, ptr, ptr, i32, ctypes.c_float, ptr]
-    m.megakernel_hier.restype = i32
+    bind_mega(libs["megakernel"])
     bind_binned(libs["binned"])
     row = re.search(r"^ROW = (\d+)", (root / "echorenderer_tpu_torch" / "ops" /
                                       "binned_trace.py").read_text(), re.M)
@@ -152,6 +206,310 @@ def build_shapes(dest: Path) -> dict:
     return shapes
 
 
+def marked_source(root: Path) -> str:
+    """`root`'s megakernel.cu, which must hold the stage marks."""
+    text = (root / "echorenderer_tpu_torch" / "csrc" / "megakernel.cu").read_text()
+    if "ECHO_STAGE(" not in text:
+        raise RuntimeError(f"{root}: megakernel.cu has no stage marks (csrc/mega_stages.cuh)")
+    return text
+
+
+def build_stage_libs(root: Path, dest: Path) -> dict:
+    """`root`'s marked megakernel.cu built into `dest` twice with this
+    tree's flags plus -lineinfo: as the port builds it ("plain") and with
+    the stage clocks ("clocks"). Returns {"plain": lib, "clocks": lib,
+    "source": text, "ptxas": the plain build's report}."""
+    dest.mkdir(parents=True, exist_ok=True)
+    csrc = root / "echorenderer_tpu_torch" / "csrc"
+    for header in csrc.glob("*.cuh"):
+        shutil.copy(header, dest)
+    text = marked_source(root)
+    (dest / "megakernel.cu").write_text(text)
+    from echorenderer_tpu_torch.ops import cuda_build
+
+    procs = {}
+    for name, extra in (("plain", []), ("clocks", ["-DECHO_MEGA_STAGES"])):
+        lib = dest / f"libmegakernel_{name}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-lineinfo", *extra, "-o", str(lib),
+             str(dest / "megakernel.cu")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    out = dict(source=text)
+    for name, (lib, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {dest / 'megakernel.cu'} ({name}):\n{err}")
+        out[name] = lib
+        if name == "plain":
+            out["ptxas"] = err
+    return out
+
+
+def bind_mega(lib):
+    """ctypes handle of a megakernel library with its C functions typed."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.megakernel.argtypes, lib.megakernel.restype = [ptr, ptr, ctypes.c_float, ptr], i32
+    lib.megakernel_hier.argtypes = [ptr, ptr, ptr, i32, ctypes.c_float, ptr]
+    lib.megakernel_hier.restype = i32
+    lib.megakernel_occupancy.argtypes, lib.megakernel_occupancy.restype = [i32, i32, ptr], i32
+    if hasattr(lib, "megakernel_stages"):
+        lib.megakernel_stages.argtypes, lib.megakernel_stages.restype = [ptr, i32], i32
+    return lib
+
+
+def mega_occupancy(lib, padded: int) -> str:
+    """The untextured form's residency at `padded` prims, by the library's
+    occupancy query."""
+    occ = (ctypes.c_int * 4)()
+    err = lib.megakernel_occupancy(0, padded, occ)
+    if err:
+        raise RuntimeError(f"megakernel_occupancy failed: cudaError {err}")
+    return (f"{occ[2]} bytes dynamic smem a {occ[1]}-thread block, {occ[0]} blocks = "
+            f"{occ[0] * occ[1] // 32} resident warps/SM")
+
+
+def stage_of_lines(source: str) -> dict:
+    """{source line: stage index} of every line of a top-level definition
+    that holds stage marks, from its first mark on: the stage of the last
+    mark at or before the line."""
+    names = {f"ECHO_STAGE_{k}": i for i, k in enumerate(
+        ("TRACE", "SHADOW", "INTERACT", "TEXTURE", "BSDF", "NEE", "END", "POOL"))}
+    out, block, cur = {}, {}, None
+    for no, line in enumerate(source.splitlines(), 1):
+        if line[:1] not in ("", " ", "}", "/", "#"):  # a top-level definition starts
+            out.update(block)
+            block, cur = {}, None
+        m = re.search(r"ECHO_STAGE(?:_CLOCK)?\((ECHO_STAGE_[A-Z]+)\)", line)
+        if m and m.group(1) in names:
+            cur = names[m.group(1)]
+        if cur is not None:
+            block[no] = cur
+    out.update(block)
+    return out
+
+
+def sass_by_stage(lib: Path, source: str, dump: Path | None) -> dict:
+    """{kernel form: [static SASS instructions of each stage] + [the rest]}
+    of the untextured and textured forms in `lib`: each instruction is
+    charged to the innermost frame of its nvdisasm line information (with
+    inlining) that lies on a marked line of megakernel.cu."""
+    from echorenderer_tpu_torch.ops import cuda_build
+
+    bindir = Path(cuda_build._nvcc()).parent
+    work = lib.parent / (lib.stem + "_sass")
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    subprocess.run([str(bindir / "cuobjdump"), "-xelf", "all", str(lib)], cwd=work, check=True,
+                   capture_output=True)
+    cubins = sorted(work.glob("*.cubin"))
+    text = "".join(subprocess.run([str(bindir / "nvdisasm"), "-gi", "-c", str(c)],
+                                  capture_output=True, text=True, check=True).stdout
+                   for c in cubins)
+    if dump is not None:
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        dump.write_text(text)
+    return count_sass(text, source)
+
+
+def called_stages(source: str, stage_at: dict) -> dict:
+    """{source line: stage index, or -1 for several} of the functions that
+    the marked lines call, directly or through other functions: a function
+    that the compiler keeps out of line has only its own lines in its
+    instructions' line information."""
+    lines = source.splitlines()
+    starts = [no for no, line in enumerate(lines, 1)
+              if line[:1] not in ("", " ", "}", "/", "#")] + [len(lines) + 1]
+    spans, name = [], None  # (name, first line, last line) of each top-level definition
+    for a, b in zip(starts, starts[1:]):
+        head = " ".join(lines[a - 1:min(a + 2, b - 1)])
+        got = re.search(r"([A-Za-z_]\w*)\s*\(", head.split("{")[0])
+        if got:
+            spans.append((got.group(1), a, b - 1))
+    names = {n for n, _, _ in spans}
+    call = re.compile(r"\b([A-Za-z_]\w*)\s*(?:<[^;()]*?>)?\s*\(")
+    stages = {n: set() for n in names}
+    calls = {n: set() for n in names}
+    for n, a, b in spans:
+        for no in range(a + 1, b + 1):
+            for callee in call.findall(lines[no - 1]):
+                if callee in names and callee != n:
+                    if no in stage_at:
+                        stages[callee].add(stage_at[no])
+                    else:
+                        calls[n].add(callee)
+    changed = True
+    while changed:  # a callee inherits its callers' stages
+        changed = False
+        for n, callees in calls.items():
+            for c in callees:
+                if not stages[n] <= stages[c]:
+                    stages[c] |= stages[n]
+                    changed = True
+    out = {}
+    for n, a, b in spans:
+        if stages[n]:
+            for no in range(a, b + 1):
+                out[no] = next(iter(stages[n])) if len(stages[n]) == 1 else -1
+    return out
+
+
+def count_sass(text: str, source: str) -> dict:
+    """count_sass of an nvdisasm -gi listing: see sass_by_stage. A list of
+    len(STAGES) + 2: the stages, code shared by several stages (a function
+    kept out of line that several stages call), the rest."""
+    stage_at = stage_of_lines(source)
+    called = called_stages(source, stage_at)
+    forms = {"ILb0ELb0E": "untextured", "ILb1ELb0E": "textured"}
+    counts, form, frames, fresh = {}, None, [], False
+    for line in text.splitlines():
+        head = re.match(r"\s*\.text\.(\S+):", line) or re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            form = next((f for key, f in forms.items() if "mega_kernel" in name and key in name),
+                        None)
+            if form:
+                counts.setdefault(form, [0] * (len(STAGES) + 2))
+            frames = []
+            continue
+        if "//##" in line:  # one line a frame, innermost first, where the frames change
+            got = re.search(r'File "([^"]+)", line (\d+)', line)
+            if fresh:
+                frames, fresh = [], False
+            if got:
+                frames.append((got.group(1), int(got.group(2))))
+            continue
+        if not re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            continue
+        fresh = True  # the frames hold until the next annotation
+        if form is not None:
+            own = [n for f, n in frames if f.endswith("megakernel.cu")]
+            stage = next((stage_at[n] for n in own if n in stage_at), None)
+            if stage is None and own:
+                stage = called.get(own[-1])
+                stage = len(STAGES) if stage == -1 else stage
+            counts[form][len(STAGES) + 1 if stage is None else stage] += 1
+    return counts
+
+
+def stage_launches(dev) -> dict:
+    """{label: (scene, res, spp)} of the launches the stage breakdown reads."""
+    from chip_smoke import showcase_scene
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+
+    return {
+        "bench sphere_field(80) 960x540 64 spp": (
+            prepare_scene(scenes.sphere_field(80), device=dev), (960, 540), 64),
+        "showcase 960x540 64 spp (textured)": (
+            prepare_scene(showcase_scene(), device=dev), (960, 540), 64),
+        "cornell 128x128 8 spp": (prepare_scene(scenes.cornell_box(), device=dev), (128, 128), 8),
+        "material_ball 320x180 8 spp": (
+            prepare_scene(scenes.material_ball(), device=dev), (320, 180), 8),
+        "sphere_grid(1900) 320x180 8 spp (2048 padded prims)": (
+            prepare_scene(scenes.sphere_grid(1900), device=dev), (320, 180), 8),
+    }
+
+
+def mega_stages(root: Path, label: str, dump: Path | None, smi: str) -> None:
+    """The stage breakdown of `root`'s untextured and textured megakernel
+    forms (see the module's docstring)."""
+    import torch
+
+    from chip_smoke import occupancy_cap, ptxas_forms, tile_lanes
+    from echorenderer_tpu_torch.ops import megakernel as mk
+
+    dev = torch.device("cuda")
+    libs = build_stage_libs(root, REPO / "echorenderer_tpu_torch" / "_build" / "stages" / label)
+    plain, clocks = bind_mega(ctypes.CDLL(str(libs["plain"]))), bind_mega(
+        ctypes.CDLL(str(libs["clocks"])))
+    ptxas = {f: r for n, r in ptxas_forms(libs["ptxas"], "mega_kernel").items()
+             for key, f in (("ILb0ELb0E", "untextured"), ("ILb1ELb0E", "textured")) if key in n}
+    sass = sass_by_stage(libs["plain"], libs["source"],
+                         None if dump is None else dump / f"{label}.sass.txt")
+    for form in ("untextured", "textured"):
+        got = sass.get(form, [])
+        print(f"[stages] {smi} | {label} {form} form: ptxas {ptxas.get(form)}; static SASS "
+              f"instructions a stage: " + ", ".join(
+                  f"{s} {c}" for s, c in zip(STAGES + ("shared by several stages",
+                                                       "outside the stages"), got)))
+    real = mk._lib
+    for name, (scene, res, spp) in stage_launches(dev).items():
+        textured = scene.tex_atlas.shape[0] > 0
+        form = "textured" if textured else "untextured"
+        pid, pxy = tile_lanes(res, dev)
+        launch = lambda: mk.sample_frame_mega(scene, pid, pxy, res, 0, 0, spp, bounce_limit=16,
+                                              survivability=2.5)
+        occ = (ctypes.c_int * 4)()
+        err = plain.megakernel_occupancy(int(textured), scene.prim_soa.padded, occ)
+        if err:
+            raise RuntimeError(f"megakernel_occupancy failed: cudaError {err}")
+        occ_d = dict(blocks=occ[0], block=occ[1], smem=occ[2], warps=occ[0] * occ[1] // 32)
+        prepared = mk._prepare_launch(scene, pid, pxy, res, 0, 0, spp, 16, None)
+        alone = lambda: mk._run_launch(scene, prepared, 2.5)  # the C entry alone
+        try:
+            mk._lib = plain
+            ms = median_ms(launch)
+            kernel_ms = median_ms(alone)
+            mk._lib = clocks
+            launch()
+            cyc = (ctypes.c_ulonglong * (len(STAGES) + 1))()
+            clocks.megakernel_stages(cyc, 1)  # zero after the warm-up
+            clk_ms = median_ms(launch, runs=1, warm=False)
+            err = clocks.megakernel_stages(cyc, 1)
+            if err:
+                raise RuntimeError(f"megakernel_stages failed: cudaError {err}")
+        finally:
+            mk._lib = real
+        total = sum(cyc[:len(STAGES)])
+        print(f"[stages] {smi} | {label}, {name} ({form} form): {ms:.4f} ms a call of "
+              f"sample_frame_mega, {kernel_ms:.4f} ms the C entry alone (medians of 10; a call "
+              f"with the clocks {clk_ms:.4f} ms, {cyc[len(STAGES)]} threads); {occ_d['smem']} bytes "
+              f"dynamic smem a {occ_d['block']}-thread block, {occ_d['blocks']} blocks = "
+              f"{occ_d['warps']} resident warps/SM on {occ[3]} SMs, capped by "
+              f"{occupancy_cap(occ_d, ptxas[form])}; warp cycles a stage (sum over threads / 32), "
+              f"share, share x the C entry's ms: " + "; ".join(
+                  f"{s} {c / 32:.4g}, {100.0 * c / max(total, 1):.2f}%, "
+                  f"{kernel_ms * c / max(total, 1):.4f} ms" for s, c in zip(STAGES, cyc)))
+
+
+def sass(lib: Path) -> dict:
+    """{kernel: [instructions]} of a library, by cuobjdump -sass, with the
+    addresses, encodings and the translation unit's hash left out."""
+    from echorenderer_tpu_torch.ops import cuda_build
+
+    text = subprocess.run([str(Path(cuda_build._nvcc()).parent / "cuobjdump"), "-sass",
+                           str(lib)], capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        got = re.search(r"Function : (\S+)", line)
+        if got:
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N_", got.group(1))
+            out[name] = []
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            out[name].append(re.sub(r"/\*.*?\*/", "", line).split(";")[0].strip())
+    return out
+
+
+def compare_sass(other: dict, smi: str) -> None:
+    """The dense kernels', hier_kernel's, the seg kernel's and the
+    megakernel's chunk-tree form's SASS against the other checkout's (a
+    change to intersect.cuh, hier_walk.cuh or the shading the chunk-tree
+    form shares must leave them as they were)."""
+    from echorenderer_tpu_torch.ops import cuda_build
+
+    built = cuda_build.build()
+    for stem, kernels in (("dense_intersect", ("trace_kernel", "occlude_kernel")),
+                          ("hier_walk", ("hier_kernel",)), ("binned", ("seg_kernel",)),
+                          ("megakernel", ("mega_kernelILb0ELb1E",))):
+        mine, theirs = sass(built[stem].path), sass(other[f"{stem}_path"])
+        for name in sorted(n for n in mine if any(k in n for k in kernels)):
+            a, b = mine[name], theirs.get(name)
+            verdict = ("not in the other checkout" if b is None else "identical" if a == b else
+                       f"differs: {sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))} of "
+                       f"{len(a)} instructions ({len(b)} there)")
+            print(f"[sass] {smi} | {stem} {name}: {verdict}")
+
+
 def use(libs: dict):
     from echorenderer_tpu_torch.ops import binned_trace as bt
     from echorenderer_tpu_torch.ops import megakernel as mk
@@ -162,10 +520,10 @@ def use(libs: dict):
     bt._lib, bt.ROW = libs["binned"], libs["row"]
 
 
-def median_ms(fn, runs: int = 10) -> float:
+def median_ms(fn, runs: int = 10, warm: bool = True) -> float:
     from chip_smoke import run_ms
 
-    return statistics.median(run_ms(fn, runs))
+    return statistics.median(run_ms(fn, runs, warm))
 
 
 def first_wave(scene, seed_start: int = 1):
@@ -271,7 +629,12 @@ def inputs(dev):
     pid, pxy = tile_lanes(RES, dev)
     bench = prepare_scene(scenes.sphere_field(80), device=dev)
     show = prepare_scene(showcase_scene(), device=dev)
+    cornell = prepare_scene(scenes.cornell_box(), device=dev)
+    ball = prepare_scene(scenes.material_ball(), device=dev)
+    top = prepare_scene(scenes.sphere_grid(1900), device=dev)  # 2048 padded prims
     spid, spxy = tile_lanes((960, 540), dev)
+    cpid, cpxy = tile_lanes((128, 128), dev)
+    bpid, bpxy = tile_lanes((320, 180), dev)
 
     def calls(kernel, table, cs):
         return lambda: [kernel(c[0], c[1], table, *c[2:]) for c in cs]
@@ -289,6 +652,13 @@ def inputs(dev):
             bench, spid, spxy, (960, 540), 0, 0, 64, bounce_limit=16, survivability=2.5),
         "textured megakernel showcase launch": lambda: mk.sample_frame_mega(
             show, spid, spxy, (960, 540), 0, 0, 64, bounce_limit=16, survivability=2.5),
+        "untextured megakernel cornell 128x128 8 spp launch": lambda: mk.sample_frame_mega(
+            cornell, cpid, cpxy, (128, 128), 0, 0, 8, bounce_limit=16, survivability=2.5),
+        "untextured megakernel material_ball 320x180 8 spp launch": lambda: mk.sample_frame_mega(
+            ball, bpid, bpxy, (320, 180), 0, 0, 8, bounce_limit=16, survivability=2.5),
+        "untextured megakernel sphere_grid(1900) 320x180 8 spp launch": lambda: (
+            mk.sample_frame_mega(top, bpid, bpxy, (320, 180), 0, 0, 8, bounce_limit=16,
+                                 survivability=2.5)),
     }
     counts = {"first-wave trace": len(flat["trace"]), "first-wave occlude": len(flat["occlude"]),
               "instanced first-wave trace": len(inst["trace"]),
@@ -296,7 +666,7 @@ def inputs(dev):
     seg, seg_counts = seg_items(dev, grid, tlas, rnd, rs)
     items.update(seg)
     counts.update(seg_counts)
-    return items, counts, dict(grid=grid, tlas=tlas, bench=bench, show=show)
+    return items, counts, dict(grid=grid, tlas=tlas, bench=bench, show=show, top=top)
 
 
 def same(a, b) -> bool:
@@ -406,9 +776,12 @@ def main() -> int:
     ap.add_argument("--other", type=Path, help="a checkout to time against (the parent)")
     ap.add_argument("--sweep", action="store_true",
                     help="time the seg kernel's shapes of SWEEP instead")
+    ap.add_argument("--mega-stages", action="store_true",
+                    help="the megakernel's stage breakdown, of this tree or of --other DIR")
+    ap.add_argument("--dump", type=Path, help="with --mega-stages: keep the disassembly here")
     a = ap.parse_args()
-    if (a.other is not None) == a.sweep:
-        ap.error("give --other DIR or --sweep")
+    if not a.mega_stages and (a.other is not None) == a.sweep:
+        ap.error("give --other DIR, --sweep or --mega-stages")
     import torch
 
     if not torch.cuda.is_available():
@@ -421,6 +794,10 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if a.mega_stages:
+        root = REPO if a.other is None else a.other.resolve()
+        mega_stages(root, "this" if a.other is None else "other", a.dump, smi)
+        return 0
     this = dict(hier_walk=ph._load(), megakernel=mk._load(), binned=bt._load(), row=bt.ROW)
     t0 = time.perf_counter()
     items, counts, scenes_ = inputs(dev)
@@ -434,6 +811,12 @@ def main() -> int:
         sweep(items, want, counts, smi)
         return 0
     other = build_other(a.other.resolve())
+    compare_sass(other, smi)
+    for key in ("bench", "top"):  # the untextured form's residency in each checkout
+        padded = scenes_[key].prim_soa.padded
+        print(f"[ab] {smi} | untextured megakernel at {padded} padded prims: " + "; ".join(
+            f"{label} {mega_occupancy(libs['megakernel'], padded)}"
+            for label, libs in (("other", other), ("this", this))))
     paths = render_paths(scenes_)
     kturns, pturns = [], []
     for label, libs in (("other", other), ("this", this), ("this", this), ("other", other)):
