@@ -23,7 +23,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      keyed and exact, triangle-only and mixed, and any other form checked):
      its ptxas report, dynamic shared memory a block, resident warps/SM and
      what caps them, and over every checked launch of it the mean ms, the
-     mean bound and its share.
+     mean bound and its share. Setup's and select's forms (setup_kernel,
+     setup_group<lanes, threads>, select_group<lanes, keys a lane,
+     threads>, select_kernel) with their ptxas reports; before the kernels
+     line, one "[setup]" or "[select]" line a shape the checks launched
+     (setup: supers and s_out; select: w and k): the form the C entry takes
+     for it, its ptxas report, dynamic shared memory a block, resident
+     warps/SM and what caps them (binned_trace.setup_occupancy /
+     select_occupancy), and over its checked launches their rays, mean ms,
+     mean bound, % of bound and launches x (ms - bound).
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, on the same inputs:
      - dense_trace / dense_occlude on every call the wavefront path makes
@@ -68,7 +76,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        the bytes each launch needs: the records of live pairs, the new keys
        of refilling rays) and the median per call, the plain version's,
        launches, rounds and host reads per call, and torch.sort of setup's
-       key matrix as its yardstick (the ranking step only); the seg
+       key matrix as its yardstick (the ranking step only) and torch.topk of
+       select's purged and merged buffer as select's (the pop step alone,
+       without the distinct rule); setup's and select's launches also by
+       shape (launches, rays, mean ms and bound, launches x (ms - bound));
+       the seg
        launches bucketed by live pairs (< 2^14, < 2^18, the rest), each
        bucket's launches, share of the seg time, mean ms and share of its
        bound; every seg
@@ -362,6 +374,11 @@ SEG_LAUNCHES: list = []
 # them measured, printed again, "[mega]", before the kernels line
 MEGA_PTXAS: dict = {}
 MEGA_REPORTS: list = []
+# the binned library's ptxas report, filled by main(); and every checked setup
+# and select launch: (kind, shape, row), shape (supers, s_out) or (w, k), for
+# the "[setup]" and "[select]" lines before the kernels line
+BINNED_PTXAS: list = [""]
+SHAPE_LAUNCHES: list = []
 
 
 def occupancy_cap(occ, ptxas) -> str:
@@ -407,6 +424,42 @@ def seg_form_reports(smi) -> list:
         lines.append(f"{name}: {ptxas}; {occ['smem']} bytes dynamic smem a {occ['block']}-thread "
                      f"block, {occ['blocks']} blocks = {occ['warps']} resident warps/SM, capped "
                      f"by {occupancy_cap(occ, ptxas)}; {timing} | {smi}")
+    return lines
+
+
+def shape_form_reports(smi) -> list:
+    """One "[setup]" or "[select]" line a shape the checks launched (setup:
+    supers and s_out; select: w and k): the form the C entry takes for it
+    (csrc/binned.cu kSetupForms / kSelectForms), its ptxas registers / stack
+    frame / spills, dynamic shared memory a block, resident warps/SM and
+    what caps them; over the checked launches of the shape, their count,
+    rays, mean ms and bound, % of bound and launches x (ms - bound)."""
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+
+    lines = []
+    for kind, shape in sorted({(k, s) for k, s, _ in SHAPE_LAUNCHES}):
+        occ = (bt.setup_occupancy if kind == "setup" else bt.select_occupancy)(*shape)
+        g, t = occ["group"], occ["block"]
+        if kind == "setup":
+            what = f"setup, {shape[0]} supers, s_out {shape[1]}"
+            tag, form = (("setup_kernel", "setup_kernel (a thread a ray)") if g == 1 else
+                         (f"setup_groupILi{g}ELi{t}E", f"setup_group ({g} lanes a ray)"))
+        else:
+            what = f"select, w {shape[0]}, k {shape[1]}"
+            tag, form = (("select_kernel", "select_kernel (a thread a ray, shared-memory column)")
+                         if g == 0 else (f"select_groupILi{g}ELi{occ['keys']}ELi{t}E",
+                                         f"select_group ({g} lanes a ray, {occ['keys']} keys a "
+                                         f"lane)"))
+        ptxas = next(iter(ptxas_forms(BINNED_PTXAS[0], tag).values()))
+        rows = [r for k, s, r in SHAPE_LAUNCHES if (k, s) == (kind, shape)]
+        ms, bound = sum(r["ms"] for r in rows), sum(r["bound"][0] for r in rows)
+        n = [r["n"] for r in rows]
+        lines.append(f"{what}: {form}: {ptxas}; {occ['smem']} bytes dynamic smem a {t}-thread "
+                     f"block, {occ['blocks']} blocks = {occ['warps']} resident warps/SM, capped by "
+                     f"{occupancy_cap(occ, ptxas)}; {len(rows)} checked launches on "
+                     f"{min(n)}-{max(n)} rays: mean {ms / len(rows):.4f} ms against a mean bound "
+                     f"of {bound / len(rows):.6f} ms, {100.0 * bound / ms:.2f}% of bound, launches "
+                     f"x (ms - bound) {ms - bound:.4f} ms | {smi}")
     return lines
 
 
@@ -469,6 +522,20 @@ def median_ms(fn, runs: int = 10, warm: bool = True) -> float:
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def setup_work(n: int, s_count: int, s_out: int) -> tuple[float, int]:
+    """(least float ops, bytes) of a setup launch: every ray's slab test of
+    every super; each ray's 7 columns read, its s_out keys written, the super
+    table read."""
+    return float(n) * s_count * FLOPS_SLAB, n * 28 + s_out * n * 4 + s_count * 24
+
+
+def select_work(w: int, n: int, k: int, refills: int) -> tuple[float, int]:
+    """(least float ops, bytes) of a select launch: no float work; the buffer
+    read and written, the new keys of refilling rays only, the pops, and per
+    ray best_t, the flag, live and mink."""
+    return 0.0, 2 * w * n * 4 + (w - k + 1) * refills * 4 + k * n * 4 + n * (4 + 1 + 8)
 
 
 def slot_flops(soa):
@@ -691,6 +758,24 @@ def chunk_flops(soa):
     return per_slot.view(-1, ph.HCHUNK).sum(1)
 
 
+# the one PyTorch call timed beside setup and select: what it computes
+LIBRARY_CALLS = dict(setup="torch.sort of the same key matrix (the ranking step alone)",
+                     select="torch.topk(merged, k, dim=0, largest=False) over the purged and "
+                            "merged buffer (the pop step alone)")
+
+
+def shape_groups(kind, rows) -> list:
+    """[(name, rows, summed ms, summed bound)] of setup or select rows by
+    their shape; [] for another kind."""
+    groups = {}
+    for r in rows:
+        if kind in ("setup", "select"):
+            groups.setdefault(r["shape"], []).append(r)
+    return [((f"{a} supers s_out {b}" if kind == "setup" else f"w {a} k {b}"), rs,
+             sum(r["ms"] for r in rs), sum(r["bound"][0] for r in rs))
+            for (a, b), rs in sorted(groups.items())]
+
+
 class BinnedCheck:
     """While open, every launch of the binned traversal's three kernels
     (ops/binned_trace.setup_rank / select / seg_keys) first runs the plain
@@ -747,23 +832,28 @@ class BinnedCheck:
                 torch.sort(keys, dim=1)
                 lib = timed(lambda: torch.sort(keys, dim=1))[1]
                 del keys
-            record("setup", k_ms, p_ms, float(n) * s * FLOPS_SLAB,
-                   n * 28 + got.numel() * 4 + sup_cb.numel() * 4, library_ms=lib)
+            record("setup", k_ms, p_ms, *setup_work(n, s, got.shape[0]), library_ms=lib,
+                   shape=(s, got.shape[0]), n=n)
+            SHAPE_LAUNCHES.append(("setup", (s, got.shape[0]), self.rows["setup"][-1]))
             return got
 
         def select(cand, new_keys, best_t, do_refill, k, cbits):
             copy = cand.clone()
+            lib = None
+            if self.library and cand.shape[1]:  # the pop step alone, without the distinct rule
+                merged = bt._select_merge(copy, new_keys, best_t, do_refill, k, cbits)
+                torch.topk(merged, k, dim=0, largest=False)
+                lib = timed(lambda: torch.topk(merged, k, dim=0, largest=False))[1]
+                del merged
             want, p_ms = timed(lambda: bt.select_plain(copy, new_keys, best_t, do_refill, k,
                                                        cbits))
             got, k_ms = timed(lambda: select_k(cand, new_keys, best_t, do_refill, k, cbits))
             differ("select", (cand,) + tuple(got), (copy,) + tuple(want))
             w, n = cand.shape
-            # the buffer read and written, the new keys of refilling rays
-            # only, the pops, and per ray best_t, the flag, live and mink
             refills = int(do_refill.sum())
-            record("select", k_ms, p_ms, 0.0,
-                   2 * cand.numel() * 4 + new_keys.shape[0] * refills * 4 + k * n * 4
-                   + n * (4 + 1 + 8), rays=n, refills=refills)
+            record("select", k_ms, p_ms, *select_work(w, n, k, refills), rays=n, refills=refills,
+                   library_ms=lib, shape=(w, k), n=n)
+            SHAPE_LAUNCHES.append(("select", (w, k), self.rows["select"][-1]))
             return got
 
         def seg(rec, chunk, prim_chunks, has_tri, has_sph, inst=None):
@@ -888,8 +978,12 @@ class BinnedCheck:
                 f"of it from launches bound by {o['bound_by']}), "
                 f"{100 * o['share']:.2f}% of the kernel's time"
                 + "".join(f"; {name} {a} of {b}" for name, (a, b) in shares.items())
-                + (f"; torch.sort of the same key matrix (ranking step only) "
-                   f"{o['library_ms']:.4f} ms per launch" if lib else "")
+                + (f"; {LIBRARY_CALLS[kind]} {o['library_ms']:.4f} ms per launch" if lib else "")
+                + "".join(f"; {name}: {len(rs)} launches on {min(r['n'] for r in rs)}-"
+                          f"{max(r['n'] for r in rs)} rays, mean {st_ms / len(rs):.4f} ms, mean "
+                          f"bound {st_b / len(rs):.6f} ms, launches x (ms - bound) "
+                          f"{st_ms - st_b:.4f} ms"
+                          for name, rs, st_ms, st_b in shape_groups(kind, rows))
                 + "".join(f"; live pairs {b['live']}: {b['launches']} launches, "
                           f"{100 * b['share']:.1f}% of the time, mean {b['ms']:.4f} ms, "
                           f"{100 * b['bound_share']:.2f}% of bound"
@@ -2103,6 +2197,10 @@ def main() -> int:
         WALK_PTXAS[key] = next(r for n, r in hier_forms.items() if tag in n)
     WALK_PTXAS["mega"] = named["chunk-tree"]
     seg_forms = ptxas_forms(builds["binned"].ptxas, "seg_kernel")
+    BINNED_PTXAS[0] = builds["binned"].ptxas
+    for kernel in ("setup_", "select_"):
+        for name, report in ptxas_forms(builds["binned"].ptxas, kernel).items():
+            log(f"[build] binned form ({name}): {report}")
     for key in [(t, s, i, k) for t in (True, False) for s in (True, False) if t or s
                 for i in (True, False) for k in (True, False)]:
         tag = "I" + "".join(f"Lb{int(b)}E" for b in key) + "E"  # its template arguments
@@ -2520,6 +2618,8 @@ def main() -> int:
         log(f"[walk] {line} | {smi}")
     for line in seg_form_reports(smi):
         log(f"[seg] {line}")
+    for line in shape_form_reports(smi):
+        log(f"[{line.split(',')[0]}] {line}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

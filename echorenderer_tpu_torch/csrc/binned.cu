@@ -3,33 +3,66 @@
 // Replace the Pallas TPU kernels of echorenderer_tpu/ops/binned_trace.py,
 // which the JAX package's `trace_binned` / `occlude_binned` reach through
 // `_trace_binned_impl`:
-//   setup_kernel  <- `_setup_kernel`  (line 552, via `_setup_rank`)
-//   select_kernel <- `_select_kernel` (line 402, via `_run_select`)
-//   seg_kernel    <- `_seg_kernel`    (line 117, via `_run_rows`; keyed and exact, both forms)
+//   setup_kernel, setup_group   <- `_setup_kernel`  (line 552, via `_setup_rank`)
+//   select_group, select_kernel <- `_select_kernel` (line 402, via `_run_select`)
+//   seg_kernel <- `_seg_kernel` (line 117, via `_run_rows`; keyed and exact, both forms)
 // Each computes what its plain PyTorch version in ops/binned_trace.py computes
 // (`setup_rank_plain`, `select_plain`, `seg_keys_plain`, `seg_hits_plain`), bit
 // for bit.
 //
-// setup_kernel: per ray, the slab test of every super box (`echo::slab`, the
-// JAX kernel's op order, NaN-propagating min/max; strict `tn < limit`, no
-// cull slack), each eligible super packed as (bits(tn > 0 ? tn : 0) with
-// the low sbits cleared) | super id, and the s_out smallest keys written
-// ascending, _INT_INF after. Keys are unique, so this equals a sort of all
-// of them. Bound on the H100 by the slab tests (rays x supers); design: one
-// thread per ray, the super table read through the read-only cache (every
-// thread reads the same super: a broadcast), the ray's s_out nearest keys
-// kept sorted by insertion in its own column of shared memory
-// ([slot][thread], no bank conflicts), so a ray that enters few supers does
-// little sorting; no bitonic network over the padded super count.
+// setup: per ray, the slab test of every super box (`echo::slab`'s op
+// order, the JAX kernel's, NaN-propagating min/max, here one PTX min.NaN /
+// max.NaN each; strict `tn < limit`, no cull slack), each eligible super
+// packed as (bits(tn > 0 ? tn : 0) with the low sbits cleared) | super id,
+// and the s_out smallest keys written ascending, _INT_INF after. Keys are
+// unique, so this equals a sort of all of them. Rays enter few supers (2-4
+// on average on the 1M and TLAS programs, at most ~54), so the slab tests
+// (rays x supers) are the work; the full-width launch (up to 2M rays) is
+// bound by issuing them, the cascade's narrower launches (s_out the padded
+// super count, 64 KiB of columns a 64-ray block in a one-thread form) by
+// latency. Two forms, by s_out (kSetupForms, chosen on the H100 by
+// tools/hier_ab.py --sweep select-setup):
+//  - setup_kernel, a thread a ray (s_out <= 32: the full-width launch,
+//    capped at ORD_CAP): the super table through the read-only cache (every
+//    thread reads the same super: a broadcast), the ray's s_out nearest keys
+//    kept sorted by insertion in its own column of shared memory
+//    ([slot][thread]). Every lane-group form took 1.7-2.4x its time.
+//  - setup_group<G, THREADS> (the uncapped launches; 16 lanes a ray, 8 rays
+//    a block): the super table goes into shared memory once a block,
+//    component-major (lo_x[S], lo_y[S], ..., the JAX kernel's SMEM row),
+//    and the block walks its share of the rays. Lane l tests supers l,
+//    l + G, ...; the eligible keys are compacted by ballot and popcount into
+//    the ray's row of shared memory; then each key's rank is counted against
+//    the whole row (no serial chain, 16-byte broadcast loads), and the key
+//    lands at its rank in an (s_out, rays) tile, which the block writes row
+//    by row, rays consecutive. Taking the row's minima one by one (a group
+//    reduction a key) instead was 0-10% slower on every shape.
 //
-// select_kernel: per ray, all integer: purge the candidate keys at or past
-// the best t, then for a refilling ray take its k-1 smallest (remove-by-
-// equality passes, as the TPU kernel) ahead of the new keys, then pop the k
-// smallest and count what is left. Bound by the bytes of the (w, N)
-// buffer; design: one thread per ray, its w slots loaded once into its
-// shared-memory column, every pass run there, the buffer written back in
-// place. A ray that does not refill skips the extract passes: on the TPU
-// their removals are gated off and their results unused.
+// select: per ray, all integer: purge the candidate keys at or past the best
+// t, then for a refilling ray take its k-1 smallest distinct keys (the TPU
+// kernel's remove-by-equality passes drop every copy of a minimum) ahead of
+// the new keys, then pop the k smallest distinct keys and clear every key
+// at or below the last pop. The full-width launch (w 67) is bound by the
+// bytes of the (w, N) buffer; the cascade's narrower, deeper launches (w 143
+// and 287, up to 63 passes) by the passes' latency. Forms, by w
+// (kSelectForms, chosen by the same sweep):
+//  - select_group<G, R, THREADS>, a group of G lanes a ray, its w slots in
+//    registers: slot j in lane j % G, register j / G (R a lane, unrolled).
+//    No slot is rewritten by a pass: each step takes the lane's least key at
+//    or above a bound, then the group's minimum (__reduce_min_sync for a
+//    warp, else a xor butterfly), and raises the bound past it; the refill's
+//    extracted keys and the pops wait in shared memory. A group's steps stop
+//    at the first empty minimum. 4 lanes a ray up to w 160 (a warp's load of
+//    one register is 4 rows of 8 consecutive rays: whole 32-byte sectors, so
+//    the full-width launch needs no staging), 8 to w 320, 16 to w 512; a
+//    warp a ray took 2x the time of 8 lanes at w 287, a thread a ray (72
+//    registers) tied 4 lanes at w 67.
+//  - select_kernel, one thread a ray over a shared-memory column, for
+//    buffers wider than 512 slots: the passes of the TPU kernel (min scans
+//    and removals) on the column, the buffer written back in place; a ray
+//    that does not refill skips the extract passes.
+// Dead rays (past n) run their group's reductions on empty keys: every lane
+// of a group mask takes part.
 //
 // seg_kernel: per (ray, chunk) pair of the chunk-sorted pair list, the least
 // packed key (bits(t) & ~0xFF) | prim-in-chunk over the chunk's prims hit
@@ -72,10 +105,14 @@
 // (hier_walk.cu); 16 pairs a warp won 6-7% on the instanced keyed inputs
 // and lost 5-19% on the others, 64 lost on all.
 // Built with -fmad=false, so every float op rounds as in the plain version.
+// The forms of setup and select for each shape were chosen on the H100 by a
+// sweep (tools/hier_ab.py --sweep) and are constants below.
 // C interface (loaded with ctypes); each launch returns cudaGetLastError();
-// binned_seg_occupancy reports a seg form's resident blocks for chip_smoke.py.
+// binned_seg_occupancy, binned_setup_occupancy and binned_select_occupancy
+// report a form's resident blocks for chip_smoke.py.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "hier_walk.cuh"
@@ -87,7 +124,38 @@ constexpr float kFarT = 3.4e38f;  // _INF
 constexpr int kChunk = 256;       // prims per chunk (HCHUNK)
 constexpr int kRows = 16;         // float rows per chunk record
 constexpr int kPBits = 8;         // prim-in-chunk bits of a pair key
-constexpr int kBlock = 64;        // rays per block of setup and select
+constexpr int kBlock = 64;        // rays per block of setup_kernel and select_kernel
+
+// echo::slab with each NaN-propagating min / max one instruction (PTX
+// min.NaN / max.NaN, sm_80 on) where echo::pmin / pmax take three: the same
+// tn and tf but for the sign of a zero result, which no output of setup
+// reads (its tests compare, and a key clamps t at +0).
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// Does the ray (origin o, inverse direction i, limit) enter the box before
+// limit? Its key t in tn (`echo::slab`'s op order).
+__device__ __forceinline__ bool super_hit(float lox, float loy, float loz, float hix, float hiy,
+                                          float hiz, float ox, float oy, float oz, float ix,
+                                          float iy, float iz, float limit, float& tn) {
+  const float t0x = (lox - ox) * ix;
+  const float t1x = (hix - ox) * ix;
+  const float t0y = (loy - oy) * iy;
+  const float t1y = (hiy - oy) * iy;
+  const float t0z = (loz - oz) * iz;
+  const float t1z = (hiz - oz) * iz;
+  tn = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)), nan_min(t0z, t1z));
+  const float tf = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)), nan_max(t0z, t1z));
+  return (tn <= tf) && (tf > 0.0f) && (tn < limit);
+}
 
 __global__ void __launch_bounds__(kBlock)
 setup_kernel(const float* __restrict__ rays, int n, const float* __restrict__ sup, int s_count,
@@ -106,10 +174,10 @@ setup_kernel(const float* __restrict__ rays, int n, const float* __restrict__ su
   int len = 0;
   for (int s = 0; s < s_count; ++s) {
     const float* b = sup + 6 * (size_t)s;
-    float tn, tf;
-    echo::slab(__ldg(b), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3), __ldg(b + 4), __ldg(b + 5),
-               ox, oy, oz, ix, iy, iz, tn, tf);
-    if (!((tn <= tf) && (tf > 0.0f) && (tn < limit))) continue;
+    float tn;
+    if (!super_hit(__ldg(b), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3), __ldg(b + 4),
+                   __ldg(b + 5), ox, oy, oz, ix, iy, iz, limit, tn))
+      continue;
     const int key = (__float_as_int(tn > 0.0f ? tn : 0.0f) & idmask) | s;
     int p;
     if (len < s_out) {
@@ -179,6 +247,223 @@ select_kernel(int* __restrict__ cand, int w, int n, const int* __restrict__ nk,
   }
   live_out[i] = live;
   mink_out[i] = mink;
+}
+
+// ---------------------------------------------------------------------------
+// setup and select: a group of G lanes a ray
+// ---------------------------------------------------------------------------
+
+// The lanes of this thread's group of G (a power of two up to 32) in its warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return 0xffffffffu;
+  } else {
+    return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  }
+}
+
+template <int G>
+__device__ __forceinline__ int group_min(int v, unsigned mask) {
+  if constexpr (G == 32) {
+    return __reduce_min_sync(mask, v);
+  } else {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(mask, v, off));
+    return v;
+  }
+}
+
+template <int G>
+__device__ __forceinline__ int group_sum(int v, unsigned mask) {
+  if constexpr (G == 32) {
+    return __reduce_add_sync(mask, v);
+  } else {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(mask, v, off);
+    return v;
+  }
+}
+
+struct SelectArgs {
+  int* cand;
+  int w, n;
+  const int* nk;
+  const float* best_t;
+  const uint8_t* refill;
+  int k, cbits;
+  int* pop;
+  int* live;
+  int* mink;
+};
+
+// The group's least key at or above lo, kIntInf if none.
+template <int G, int R>
+__device__ __forceinline__ int least_from(const int (&v)[R], int lo, unsigned mask) {
+  int m = kIntInf;
+#pragma unroll
+  for (int r = 0; r < R; ++r) m = min(m, v[r] >= lo ? v[r] : kIntInf);
+  return group_min<G>(m, mask);
+}
+
+// Up to `most` least distinct keys of the group, ascending, into keep[0..);
+// returns their count and leaves `lo` just past the last (INT_MIN if none).
+template <int G, int R>
+__device__ __forceinline__ int take_least(const int (&v)[R], int most, int* keep, int lane,
+                                          unsigned mask, int& lo) {
+  int got = 0;
+  lo = INT_MIN;
+  while (got < most) {
+    const int m = least_from<G, R>(v, lo, mask);
+    if (m == kIntInf) break;  // the same in every lane of the group
+    if (lane == 0) keep[got] = m;
+    ++got;
+    lo = m + 1;
+  }
+  return got;
+}
+
+template <int G, int R, int THREADS>
+__global__ void __launch_bounds__(THREADS) select_group(SelectArgs a) {
+  extern __shared__ int sel_keep[];  // k keys a ray: the refill's extracted keys, then the pops
+  constexpr int kRays = THREADS / G;
+  const int lane = threadIdx.x % G, ray = threadIdx.x / G;
+  const int i = blockIdx.x * kRays + ray;
+  const bool valid = i < a.n;
+  const unsigned mask = group_mask<G>();
+  const size_t sn = a.n;
+  int* keep = sel_keep + ray * a.k;
+  const int tmask = -(1 << a.cbits);
+  const int best_bits = valid ? __float_as_int(a.best_t[i]) : 0;
+  int v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {  // purge
+    const int j = r * G + lane;
+    const int x = valid && j < a.w ? a.cand[j * sn + i] : kIntInf;
+    v[r] = (x & tmask) < best_bits ? x : kIntInf;
+  }
+  int lo;
+  if (valid && a.refill[i]) {  // [its k - 1 least distinct keys | the new keys]
+    const int got = take_least<G, R>(v, a.k - 1, keep, lane, mask, lo);
+    __syncwarp(mask);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = r * G + lane;
+      v[r] = j < got ? keep[j]
+             : j < a.k - 1 || j >= a.w ? kIntInf
+                                       : a.nk[(j - (a.k - 1)) * sn + i];
+    }
+    __syncwarp(mask);
+  }
+  const int got = take_least<G, R>(v, a.k, keep, lane, mask, lo);  // the pops
+  __syncwarp(mask);
+  if (valid)
+    for (int p = lane; p < a.k; p += G) a.pop[p * sn + i] = p < got ? keep[p] : kIntInf;
+  int live = 0, mink = kIntInf;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {  // every key at or below the last pop goes
+    const int j = r * G + lane;
+    const int x = v[r] >= lo ? v[r] : kIntInf;
+    if (valid && j < a.w) a.cand[j * sn + i] = x;
+    live += x != kIntInf;
+    mink = min(mink, x);
+  }
+  live = group_sum<G>(live, mask);
+  mink = group_min<G>(mink, mask);
+  if (valid && lane == 0) {
+    a.live[i] = live;
+    a.mink[i] = mink;
+  }
+}
+
+struct SetupArgs {
+  const float* rays;
+  int n;
+  const float* sup;
+  int s_count, sbits, s_out;
+  int* out;
+};
+
+// setup_group's shared memory in ints: the super table (6 rows of
+// setup_table_stride), each ray's eligible keys (a row of setup_row_stride,
+// 16-byte aligned, and rows of neighbouring rays on other banks), the output
+// tile (s_out rows of the block's rays)
+__host__ __device__ constexpr int setup_table_stride(int s_count) { return (s_count + 3) & ~3; }
+__host__ __device__ constexpr int setup_row_stride(int s_count) {
+  return ((s_count + 7) & ~7) + 4;
+}
+constexpr size_t setup_group_smem(int s_count, int s_out, int rays) {
+  return sizeof(int) * (6 * (size_t)setup_table_stride(s_count) +
+                        (size_t)rays * setup_row_stride(s_count) + (size_t)s_out * rays);
+}
+
+template <int G, int THREADS>
+__global__ void __launch_bounds__(THREADS) setup_group(SetupArgs a) {
+  extern __shared__ __align__(16) int set_smem[];
+  constexpr int kRays = THREADS / G;
+  const int ts = setup_table_stride(a.s_count), rs = setup_row_stride(a.s_count);
+  float* tab = reinterpret_cast<float*>(set_smem);
+  int* tile = set_smem + 6 * ts + kRays * rs;
+  for (int t = threadIdx.x; t < 6 * a.s_count; t += THREADS)  // component-major
+    tab[(t % 6) * ts + t / 6] = __ldg(a.sup + t);
+  __syncthreads();
+  const int lane = threadIdx.x % G, ray = threadIdx.x / G;
+  const unsigned mask = group_mask<G>();
+  const unsigned below = mask & ((1u << (threadIdx.x & 31)) - 1u);
+  int* row = set_smem + 6 * ts + ray * rs;  // the ray's eligible keys
+  const size_t sn = a.n;
+  const int idmask = -(1 << a.sbits);
+  const int blocks = (a.n + kRays - 1) / kRays;
+  for (int b = blockIdx.x; b < blocks; b += gridDim.x) {
+    const int i = b * kRays + ray;
+    const bool valid = i < a.n;
+    float ox = 0.0f, oy = 0.0f, oz = 0.0f, ix = 0.0f, iy = 0.0f, iz = 0.0f, limit = 0.0f;
+    if (valid) {
+      ox = a.rays[i];
+      oy = a.rays[sn + i];
+      oz = a.rays[2 * sn + i];
+      ix = echo::safe_inv(a.rays[3 * sn + i]);
+      iy = echo::safe_inv(a.rays[4 * sn + i]);
+      iz = echo::safe_inv(a.rays[5 * sn + i]);
+      limit = a.rays[6 * sn + i];
+    }
+    int len = 0;
+    for (int s0 = 0; s0 < a.s_count; s0 += G) {
+      const int s = s0 + lane;
+      bool ok = false;
+      int key = 0;
+      if (valid && s < a.s_count) {
+        float tn;
+        ok = super_hit(tab[s], tab[ts + s], tab[2 * ts + s], tab[3 * ts + s], tab[4 * ts + s],
+                       tab[5 * ts + s], ox, oy, oz, ix, iy, iz, limit, tn);
+        key = (__float_as_int(tn > 0.0f ? tn : 0.0f) & idmask) | s;
+      }
+      const unsigned got = __ballot_sync(mask, ok) & mask;
+      if (ok) row[len + __popc(got & below)] = key;
+      len += __popc(got);
+    }
+    __syncwarp(mask);
+    int* col = tile + ray;  // the ray's column of the tile: key j at col[j * kRays]
+    const int len4 = (len + 3) & ~3;
+    for (int p = len + lane; p < len4; p += G) row[p] = kIntInf;  // above every key
+    __syncwarp(mask);
+    for (int p = lane; p < len; p += G) {  // keys are unique: their ranks, a permutation
+      const int key = row[p];
+      int rank = 0;
+      for (int x = 0; x < len4; x += 4) {
+        const int4 q = *reinterpret_cast<const int4*>(row + x);
+        rank += (q.x < key) + (q.y < key) + (q.z < key) + (q.w < key);
+      }
+      if (rank < a.s_out) col[rank * kRays] = key;
+    }
+    for (int j = len + lane; j < a.s_out; j += G) col[j * kRays] = kIntInf;
+    __syncthreads();
+    for (int t = threadIdx.x; t < a.s_out * kRays; t += THREADS) {
+      const int ii = b * kRays + t % kRays;
+      if (ii < a.n) a.out[(t / kRays) * sn + ii] = tile[t];
+    }
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -485,6 +770,71 @@ int smem_opt_in(K kernel, size_t bytes) {
 
 static_assert(kSegSmem <= 48 * 1024, "the seg kernel's stages fit the default dynamic smem");
 
+// The form of setup or select a launch takes: its kernel, threads and rays a
+// block, dynamic shared memory, lanes a ray (setup: 1 for setup_kernel;
+// select: 0 for select_kernel) and keys a lane (select's register forms).
+struct Launch {
+  const void* fn;
+  int threads, rays;
+  size_t smem;
+  int group, keys;
+};
+
+// setup's forms by s_out, the first whose max_out holds it: group 1 is
+// setup_kernel (a thread a ray, 64 a block); else setup_group<group,
+// threads>. Every s_out the wrapper passes (<= SETUP_MAX_PAD = 512) has a
+// form.
+struct SetupForm {
+  int max_out, group, threads;
+};
+constexpr SetupForm kSetupForms[] = {{32, 1, 64}, {512, 16, 128}};
+constexpr int kSetupFormCount = sizeof(kSetupForms) / sizeof(kSetupForms[0]);
+constexpr int kSetupGridPerSm = 16;  // setup_group's blocks a SM; each walks its share of the rays
+static_assert(kSetupForms[kSetupFormCount - 1].max_out >= 512, "every s_out has a setup form");
+
+template <int F>
+Launch setup_launch_form(int s_count, int s_out) {
+  constexpr SetupForm f = kSetupForms[F];
+  if constexpr (F + 1 < kSetupFormCount) {
+    if (s_out > f.max_out) return setup_launch_form<F + 1>(s_count, s_out);
+  }
+  if constexpr (f.group == 1) {
+    return Launch{reinterpret_cast<const void*>(setup_kernel), kBlock, kBlock,
+                  (size_t)s_out * kBlock * sizeof(int), 1, 0};
+  } else {
+    constexpr int rays = f.threads / f.group;
+    return Launch{reinterpret_cast<const void*>(setup_group<f.group, f.threads>),
+                  f.threads, rays, setup_group_smem(s_count, s_out, rays), f.group, 0};
+  }
+}
+
+Launch setup_launch(int s_count, int s_out) { return setup_launch_form<0>(s_count, s_out); }
+
+// select's register forms by buffer width w, the first whose max_w holds
+// it: select_group<group, ceil(max_w / group), threads>; a wider buffer
+// takes select_kernel (its shared-memory column).
+struct SelectForm {
+  int max_w, group, threads;
+};
+constexpr SelectForm kSelectForms[] = {{72, 4, 256}, {160, 4, 256}, {320, 8, 128}, {512, 16, 128}};
+constexpr int kSelectFormCount = sizeof(kSelectForms) / sizeof(kSelectForms[0]);
+
+template <int F>
+Launch select_launch_form(int w, int k) {
+  if constexpr (F == kSelectFormCount) {
+    return Launch{reinterpret_cast<const void*>(select_kernel), kBlock, kBlock,
+                  (size_t)(w + k - 1) * kBlock * sizeof(int), 0, 0};
+  } else {
+    constexpr SelectForm f = kSelectForms[F];
+    if (w > f.max_w) return select_launch_form<F + 1>(w, k);
+    constexpr int keys = (f.max_w + f.group - 1) / f.group, rays = f.threads / f.group;
+    return Launch{reinterpret_cast<const void*>(select_group<f.group, keys, f.threads>),
+                  f.threads, rays, (size_t)rays * k * sizeof(int), f.group, keys};
+  }
+}
+
+Launch select_launch(int w, int k) { return select_launch_form<0>(w, k); }
+
 // The seg kernel's form for a scene's kinds of prims.
 template <bool KEYED>
 const void* seg_form(int instanced, int has_tri, int has_sph) {
@@ -515,25 +865,65 @@ int launch_seg(const float* rec, const int* chunk, int m, const float* chunks, i
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// A launch form's resident blocks per SM and layout, into out[0..5]: blocks,
+// threads a block, dynamic shared memory a block, lanes a ray, keys a lane
+// (select's register forms; else 0), SMs.
+int form_occupancy(const Launch& l, int* out) {
+  cudaError_t err = static_cast<cudaError_t>(smem_opt_in(l.fn, l.smem));
+  int blocks = 0, dev = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.fn, l.threads, l.smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  out[0] = blocks;
+  out[1] = l.threads;
+  out[2] = static_cast<int>(l.smem);
+  out[3] = l.group;
+  out[4] = l.keys;
+  out[5] = sms;
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" int binned_setup(const float* rays, int n, const float* sup, int s_count, int sbits,
                             int s_out, int* out, void* stream) {
-  const size_t bytes = (size_t)s_out * kBlock * sizeof(int);
-  if (int err = smem_opt_in(setup_kernel, bytes)) return err;
-  setup_kernel<<<(n + kBlock - 1) / kBlock, kBlock, bytes, static_cast<cudaStream_t>(stream)>>>(
-      rays, n, sup, s_count, sbits, s_out, out);
-  return static_cast<int>(cudaGetLastError());
+  const Launch l = setup_launch(s_count, s_out);
+  if (int err = smem_opt_in(l.fn, l.smem)) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (l.group == 1) {
+    setup_kernel<<<(n + kBlock - 1) / kBlock, kBlock, l.smem, st>>>(rays, n, sup, s_count, sbits,
+                                                                  s_out, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int dev = 0, sms = 0;
+  if (cudaError_t err = cudaGetDevice(&dev)) return static_cast<int>(err);
+  if (cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return static_cast<int>(err);
+  const int blocks = (n + l.rays - 1) / l.rays;  // the grid walks them
+  const int grid = blocks < sms * kSetupGridPerSm ? blocks : sms * kSetupGridPerSm;
+  SetupArgs a{rays, n, sup, s_count, sbits, s_out, out};
+  void* args[] = {&a};
+  const cudaError_t err = cudaLaunchKernel(l.fn, dim3(grid), dim3(l.threads), args, l.smem, st);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int binned_select(int* cand, int w, int n, const int* nk, const float* best_t,
                              const uint8_t* refill, int k, int cbits, int* pop, int* live,
                              int* mink, void* stream) {
-  const size_t bytes = (size_t)(w + k - 1) * kBlock * sizeof(int);
-  if (int err = smem_opt_in(select_kernel, bytes)) return err;
-  select_kernel<<<(n + kBlock - 1) / kBlock, kBlock, bytes, static_cast<cudaStream_t>(stream)>>>(
-      cand, w, n, nk, best_t, refill, k, cbits, pop, live, mink);
-  return static_cast<int>(cudaGetLastError());
+  const Launch l = select_launch(w, k);
+  if (int err = smem_opt_in(l.fn, l.smem)) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (l.group == 0) {
+    select_kernel<<<(n + kBlock - 1) / kBlock, kBlock, l.smem, st>>>(
+        cand, w, n, nk, best_t, refill, k, cbits, pop, live, mink);
+    return static_cast<int>(cudaGetLastError());
+  }
+  SelectArgs a{cand, w, n, nk, best_t, refill, k, cbits, pop, live, mink};
+  void* args[] = {&a};
+  const cudaError_t err =
+      cudaLaunchKernel(l.fn, dim3((n + l.rays - 1) / l.rays), dim3(l.threads), args, l.smem, st);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // g2c, g2i and inst_f32 are null for a non-instanced scene; n_chunks is the
@@ -569,4 +959,14 @@ extern "C" int binned_seg_occupancy(int keyed, int instanced, int has_tri, int h
   out[1] = kSegWarps * 32;
   out[2] = static_cast<int>(kSegSmem);
   return static_cast<int>(err);
+}
+
+// The form binned_setup launches for s_count supers and s_out keys a ray.
+extern "C" int binned_setup_occupancy(int s_count, int s_out, int* out) {
+  return form_occupancy(setup_launch(s_count, s_out), out);
+}
+
+// The form binned_select launches for a buffer of w slots and k pops.
+extern "C" int binned_select_occupancy(int w, int k, int* out) {
+  return form_occupancy(select_launch(w, k), out);
 }

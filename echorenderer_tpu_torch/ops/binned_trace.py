@@ -200,9 +200,10 @@ def setup_rank_plain(rays, sup_cb, sbits, cap=None):
     return torch.cat(outs, dim=1).contiguous()
 
 
-def select_plain(cand, new_keys, best_t, do_refill, k, cbits):
-    """Plain PyTorch candidate maintenance: updates `cand` (w, N) in place,
-    returns (pop (k, N), live (N,), mink (N,)), all int32."""
+def _select_merge(cand, new_keys, best_t, do_refill, k, cbits):
+    """select's buffer (w, N) after its purge and, for a refilling ray, the
+    merge [its k-1 least distinct keys | new_keys]: what the pops take from.
+    `cand` is left as it was."""
     tmask = -(1 << cbits)
     c = torch.where((cand & tmask) < _bits(best_t)[None], cand, _INT_INF)
     refill = do_refill[None]
@@ -212,7 +213,13 @@ def select_plain(cand, new_keys, best_t, do_refill, k, cbits):
         ext.append(mn)
         c = torch.where(refill & (c == mn[None]), _INT_INF, c)
     head = [torch.where(refill, torch.stack(ext), c[:k - 1])] if ext else []
-    c = torch.cat(head + [torch.where(refill, new_keys, c[k - 1:])])
+    return torch.cat(head + [torch.where(refill, new_keys, c[k - 1:])])
+
+
+def select_plain(cand, new_keys, best_t, do_refill, k, cbits):
+    """Plain PyTorch candidate maintenance: updates `cand` (w, N) in place,
+    returns (pop (k, N), live (N,), mink (N,)), all int32."""
+    c = _select_merge(cand, new_keys, best_t, do_refill, k, cbits)
     pops = []
     for _ in range(k):
         mn = c.amin(0)
@@ -304,8 +311,11 @@ def _load():
         seg = [ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
         lib.binned_seg.argtypes = lib.binned_seg_exact.argtypes = seg
         lib.binned_seg_occupancy.argtypes = [i32, i32, i32, i32, ptr]
+        # (s_count, s_out) and (w, k), out[6]
+        lib.binned_setup_occupancy.argtypes = lib.binned_select_occupancy.argtypes = [i32, i32, ptr]
         for fn in (lib.binned_setup, lib.binned_select, lib.binned_seg, lib.binned_seg_exact,
-                   lib.binned_seg_occupancy):
+                   lib.binned_seg_occupancy, lib.binned_setup_occupancy,
+                   lib.binned_select_occupancy):
             fn.restype = i32
         _lib = lib
     return _lib
@@ -436,6 +446,29 @@ def seg_occupancy(keyed: bool, instanced: bool, has_tri: bool, has_sph: bool) ->
                                        out)
     _raise_on("binned_seg_occupancy", err)
     return dict(blocks=out[0], block=out[1], smem=out[2], warps=out[0] * out[1] // 32)
+
+
+def _form_occupancy(query, a, b) -> dict:
+    out = (ctypes.c_int * 6)()
+    _raise_on(query, getattr(_load(), query)(a, b, out))
+    return dict(blocks=out[0], block=out[1], smem=out[2], group=out[3], keys=out[4], sms=out[5],
+                warps=out[0] * out[1] // 32)
+
+
+def setup_occupancy(s_count: int, s_out: int) -> dict:
+    """The setup form a launch of `s_count` supers and `s_out` keys a ray
+    takes (csrc/binned.cu kSetupForms): its resident blocks per SM, block
+    size, dynamic shared memory per block, lanes a ray (1: setup_kernel, a
+    thread a ray), resident warps per SM and the card's SMs."""
+    return _form_occupancy("binned_setup_occupancy", s_count, s_out)
+
+
+def select_occupancy(w: int, k: int) -> dict:
+    """The select form a launch on a buffer of `w` slots popping `k` takes
+    (csrc/binned.cu kSelectForms): as `setup_occupancy`, with lanes a ray 0
+    for select_kernel (the shared-memory column) and `keys`, the keys a lane
+    of a register form."""
+    return _form_occupancy("binned_select_occupancy", w, k)
 
 
 def _launch_seg(name, rec, chunk, prim_chunks, has_tri, has_sph, inst, out):

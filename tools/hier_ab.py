@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Time the chunk-tree walk's kernels, the binned traversal's seg kernel and
-the render paths on one NVIDIA GPU: this tree's against another checkout's
-(the parent commit, unpacked with `git archive`), on the same inputs in one
-process, in turns (other, this, this, other).
+"""Time the chunk-tree walk's kernels, the binned traversal's setup, select
+and seg kernels and the render paths on one NVIDIA GPU: this tree's against
+another checkout's (the parent commit, unpacked with `git archive`), on the
+same inputs in one process, in turns (other, this, this, other).
 
     python3 tools/hier_ab.py --other DIR
+    python3 tools/hier_ab.py --shapes [--other DIR]  # setup/select shape table only
     python3 tools/hier_ab.py --sweep   # the seg kernel's shapes, no other checkout
+    python3 tools/hier_ab.py --sweep select-setup   # setup's and select's forms
     python3 tools/hier_ab.py --mega-stages [--other DIR] [--dump DIR]
 
 Inputs, made on the card from fixed seeds:
@@ -44,6 +46,23 @@ the path pool, without the occupancy query, gets PARENT_OCCUPANCY). The dense ke
 the seg kernel's and the chunk-tree megakernel's SASS (cuobjdump -sass) is
 held against the other checkout's, kernel by kernel. Prints the card's name and power limit
 beside every table.
+
+Setup and select (csrc/binned.cu binned_setup / binned_select) are timed on
+every launch of the same four binned runs (the 1M and TLAS programs, the
+random rays flat and instanced), as it happens (ShapeTimer): the wrapper's
+launch as chip_smoke.py times it (CUDA events around the Python call on an
+idle card), then each checkout's C entry in turns on fresh copies of the
+inputs, the card kept busy while the host makes the call, every output held
+bitwise to the wrapper's. The shape table groups the launches by program
+and shape (select: w and k; setup: supers and s_out) and prints rays,
+refilling rays or eligible supers a ray, ms a launch, bound, % of bound and
+launches x (ms - bound). --shapes prints only that table (this tree's C
+entries, or with --other both checkouts').
+
+--sweep select-setup builds this tree's binned.cu once for each form of
+SHAPE_SWEEP (its kSelectForms and kSetupForms replaced by one form at every
+shape) and prints the shape table with every form's C entry beside this
+tree's, each held bitwise.
 
 --sweep builds this tree's binned.cu once for each seg kernel shape of
 SWEEP (kSegWarps warps a block, kSegTile pairs a warp, kSegUnroll), times
@@ -88,6 +107,16 @@ RES = (1920, 1080)
 SWEEP = [dict(kSegWarps=w, kSegTile=t, kSegUnroll=u)
          for w in (1, 2, 4) for t in (16, 32, 64) for u in (1, 2)]
 
+# setup's and select's forms --sweep select-setup times: each replaces
+# csrc/binned.cu's kSelectForms and kSetupForms by one form at every shape of
+# the traversal: `group` lanes a ray, `threads` a block. group 1 is a thread a
+# ray: select's register form up to 72 slots (the shared-memory column above
+# it) and setup_kernel (64 threads a block, whatever `threads` says).
+SHAPE_SWEEP = [dict(group=g, threads=t) for g in (1, 2, 4, 8, 16, 32) for t in (128, 256)]
+# cycles the card spins (torch.cuda._sleep) before each timed C entry, so
+# that the host's ctypes call ends before the launch's start event: ~60 us
+SLEEP_CYCLES = 100_000
+
 # the megakernel's stages, in csrc/mega_stages.cuh's order
 STAGES = ("trace", "shadow trace", "interaction", "texture stage", "RNG + BSDF sample",
           "light pick / sample / BSDF eval", "RR + banking + regeneration",
@@ -128,6 +157,9 @@ def bind_binned(lib) -> None:
         ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
     for fn in (lib.binned_setup, lib.binned_select, lib.binned_seg, lib.binned_seg_exact):
         fn.restype = i32
+    for name in ("binned_setup_occupancy", "binned_select_occupancy"):  # absent from older checkouts
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = [i32, i32, ptr], i32
 
 
 def nvcc(src: Path, lib: Path):
@@ -204,6 +236,61 @@ def build_shapes(dest: Path) -> dict:
         lib.binned_seg_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         shapes[name] = dict(binned=lib, row=shape["kSegWarps"] * shape["kSegTile"])
     return shapes
+
+
+def shape_sweep_source(text: str, group: int, threads: int) -> str:
+    """binned.cu's text with its form tables replaced by one SHAPE_SWEEP form."""
+    if group == 1:
+        select, setup = f"{{{{72, 1, {threads}}}}}", "{{512, 1, 64}}"
+    else:
+        select = "{" + ", ".join(f"{{{w}, {group}, {threads}}}" for w in (72, 160, 320)) + "}"
+        setup = f"{{{{512, {group}, {threads}}}}}"
+    for table, value in (("kSelectForms", select), ("kSetupForms", setup)):
+        text, n = re.subn(rf"constexpr (\w+) {table}\[\] = \{{.*?\}};",
+                          rf"constexpr \1 {table}[] = {value};", text, flags=re.S)
+        if n != 1:
+            raise RuntimeError(f"binned.cu has no single {table}")
+    return text
+
+
+def build_shape_sweep(dest: Path) -> dict:
+    """This tree's binned.cu built once for each form of SHAPE_SWEEP under
+    `dest`: {name: (ctypes handle, form)}."""
+    csrc = REPO / "echorenderer_tpu_torch" / "csrc"
+    text = (csrc / "binned.cu").read_text()
+    procs, forms = {}, {}
+    for form in SHAPE_SWEEP:
+        name = f"G{form['group']} t{form['threads']}"
+        d = dest / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        for header in csrc.glob("*.cuh"):
+            shutil.copy(header, d)
+        (d / "binned.cu").write_text(shape_sweep_source(text, **form))
+        procs[name] = nvcc(d / "binned.cu", d / "libbinned.so")
+        forms[name] = form
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the select/setup form {name}:\n{err}")
+        lib = ctypes.CDLL(str(dest / name.replace(" ", "_") / "libbinned.so"))
+        bind_binned(lib)
+        libs[name] = (lib, forms[name])
+    return libs
+
+
+def form_fits(form: dict):
+    """fn(kind, shape) -> whether a SHAPE_SWEEP form's launch fits the
+    card's 232,448 bytes of shared memory a block (setup_group's table, rows
+    and tile; every select form and setup_kernel fit the traversal's shapes)."""
+    def fits(kind, shape):
+        if kind != "setup" or form["group"] == 1:
+            return True
+        s_count, s_out = shape
+        rays = form["threads"] // form["group"]
+        ts, rs = (s_count + 3) & ~3, ((s_count + 7) & ~7) + 4
+        return 4 * (6 * ts + rays * rs + s_out * rays) <= 232_448
+    return fits
 
 
 def marked_source(root: Path) -> str:
@@ -556,10 +643,122 @@ def seg_launches(run) -> list:
     return got
 
 
-def seg_items(dev, grid, tlas, rnd, rs) -> tuple:
-    """({name: fn}, {name: launches}) of the seg kernel, keyed and exact, on
-    the recorded launches of the 1M and TLAS programs and of 2^20 random
-    rays, flat and instanced."""
+class ShapeTimer:
+    """While open, every setup_rank and select launch on the card also runs
+    the C entry (binned_setup / binned_select) of each library of `libs`
+    ({label: ctypes handle}) on the same inputs, in turns (the list, then
+    reversed): each on a fresh copy of select's in-place buffer, the card
+    kept busy while the host makes the call (torch.cuda._sleep), timed by
+    CUDA events around the call alone, its outputs held bitwise to the
+    wrapper's. The wrapper's own launch is timed as chip_smoke.timed times
+    it. Each library's first launch at a shape runs once untimed first (CUDA
+    loads a kernel's module at its first launch). `rows` gets one dict a
+    launch, from the program named by `source`:
+    its shape (select: n, w, k, refilling rays; setup: n, supers, s_out and
+    the mean and largest count L of eligible supers a ray), the wrapper's
+    ms, each library's ms a turn, the bound. `fits` ({label: fn(kind,
+    shape) -> bool}) names the launches a sweep's form cannot take (too much
+    shared memory): those are not made, and their ms is nan."""
+
+    def __init__(self, libs: dict, fits=None):
+        self.libs, self.fits, self.source, self.rows = libs, fits or {}, "", []
+
+    def __enter__(self):
+        import torch
+
+        from chip_smoke import bound_ms, select_work, setup_work, timed
+        from echorenderer_tpu_torch.ops import binned_trace as bt
+
+        self._saved = setup_k, select_k = bt.setup_rank, bt.select
+        order = list(self.libs) + list(self.libs)[::-1]
+
+        warm = set()
+
+        def turns(kind, shape, call, check):
+            ms = {label: [] for label in self.libs}
+            stream = torch.cuda.current_stream().cuda_stream
+            for label in order:
+                if not self.fits.get(label, lambda *_: True)(kind, shape):
+                    ms[label].append(float("nan"))
+                    continue
+                if (label, kind, shape) not in warm:  # the kernel's module loads on first use
+                    warm.add((label, kind, shape))
+                    call(self.libs[label], stream)()
+                prepared = call(self.libs[label], stream)
+                torch.cuda._sleep(SLEEP_CYCLES)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                err = prepared()
+                end.record()
+                end.synchronize()
+                if err:
+                    raise RuntimeError(f"{label}'s C entry failed: cudaError {err}")
+                ms[label].append(start.elapsed_time(end))
+                if not check():
+                    raise AssertionError(f"{label}'s C entry differs from the wrapper "
+                                         f"({self.source})")
+            return ms
+
+        def setup(rays, sup_cb, sbits, cap=None):
+            got, w_ms = timed(lambda: setup_k(rays, sup_cb, sbits, cap))
+            (s_out, n), s = got.shape, sup_cb.shape[0]
+            if n == 0:
+                return got
+            out = torch.empty_like(got)
+
+            def call(lib, stream):
+                out.fill_(0)
+                return lambda: lib.binned_setup(rays.data_ptr(), n, sup_cb.data_ptr(), s, sbits,
+                                                s_out, out.data_ptr(), stream)
+
+            ms = turns("setup", (s, s_out), call, lambda: torch.equal(out, got))
+            eligible = torch.cat([(bt._slab_all(r[0:3].T, r[3:6].T, sup_cb, r[6]) < bt._INF).sum(1)
+                                  for r in rays.split(bt.PLAIN_SLICE, dim=1)])
+            self.rows.append(dict(kind="setup", source=self.source, n=n, s_count=s, s_out=s_out,
+                                  l_mean=float(eligible.double().mean()),
+                                  l_max=int(eligible.max()), wrapper_ms=w_ms, ms=ms,
+                                  bound=bound_ms(*setup_work(n, s, s_out))))
+            return got
+
+        def select(cand, new_keys, best_t, do_refill, k, cbits):
+            orig = cand.clone()
+            got, w_ms = timed(lambda: select_k(cand, new_keys, best_t, do_refill, k, cbits))
+            w, n = cand.shape
+            if n == 0:
+                return got
+            buf = torch.empty_like(orig)
+            outs = [torch.empty_like(x) for x in got]
+
+            def call(lib, stream):
+                buf.copy_(orig)
+                for x in outs:
+                    x.fill_(0)
+                return lambda: lib.binned_select(buf.data_ptr(), w, n, new_keys.data_ptr(),
+                                                 best_t.data_ptr(), do_refill.data_ptr(), k, cbits,
+                                                 *(x.data_ptr() for x in outs), stream)
+
+            ms = turns("select", (w, k), call, lambda: torch.equal(buf, cand) and all(
+                torch.equal(a, b) for a, b in zip(outs, got)))
+            refills = int(do_refill.sum())
+            self.rows.append(dict(kind="select", source=self.source, n=n, w=w, k=k,
+                                  refills=refills, wrapper_ms=w_ms, ms=ms,
+                                  bound=bound_ms(*select_work(w, n, k, refills))))
+            return got
+
+        bt.setup_rank, bt.select = setup, select
+        return self
+
+    def __exit__(self, *exc):
+        from echorenderer_tpu_torch.ops import binned_trace as bt
+
+        bt.setup_rank, bt.select = self._saved
+
+
+def binned_runs(dev, grid, tlas, rnd, rs) -> dict:
+    """{label: run} of the binned traversal's inputs: one program of the 1M
+    and of the TLAS scene (first sample 1), and one trace and one occlude
+    call of 2^20 random rays through the binned traversal, flat and
+    instanced (per-instance ignores)."""
     import numpy as np
     import torch
 
@@ -584,12 +783,20 @@ def seg_items(dev, grid, tlas, rnd, rs) -> tuple:
         return lambda: [bt._Walk(*call[:2], table, occ, *call[2:]).traverse()
                         for occ in (False, True)]
 
-    recorded = {
-        "1M program": seg_launches(lambda: _sample_frame(grid, "path", RES, 0, 1, 1, 6, 2.5)),
-        "TLAS program": seg_launches(lambda: _sample_frame(tlas, "path", RES, 0, 1, 1, 6, 2.5)),
-        "random rays": seg_launches(both(soa, rnd)),
-        "instanced random rays": seg_launches(both(isoa, irnd)),
+    return {
+        "1M program": lambda: _sample_frame(grid, "path", RES, 0, 1, 1, 6, 2.5),
+        "TLAS program": lambda: _sample_frame(tlas, "path", RES, 0, 1, 1, 6, 2.5),
+        "random rays": both(soa, rnd),
+        "instanced random rays": both(isoa, irnd),
     }
+
+
+def seg_items(runs) -> tuple:
+    """({name: fn}, {name: launches}) of the seg kernel, keyed and exact, on
+    the recorded launches of `binned_runs`."""
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+
+    recorded = {label: seg_launches(run) for label, run in runs.items()}
     items, counts = {}, {}
     for label, launches in recorded.items():
         for form, fn in (("keyed", "seg_keys"), ("exact", "seg_hits")):
@@ -601,22 +808,21 @@ def seg_items(dev, grid, tlas, rnd, rs) -> tuple:
     return items, counts
 
 
-def inputs(dev):
-    """(kernel items {name: fn}, launches or calls per item, scenes) on this
-    tree's kernels."""
+def large_scenes(dev) -> tuple:
+    """(the 1M scene, the TLAS scene, 2^20 random rays against the 1M scene
+    (ray columns, sorted ignores), the seeded RandomState they came from)."""
     import numpy as np
     import torch
 
-    from chip_smoke import random_rays, showcase_scene, tile_lanes
+    from chip_smoke import random_rays
     from echorenderer_tpu_torch.models import scenes
-    from echorenderer_tpu_torch.ops import megakernel as mk
     from echorenderer_tpu_torch.ops import pallas_hier as ph
     from echorenderer_tpu_torch.ops import pallas_intersect as pi
     from echorenderer_tpu_torch.scene.prepare import prepare_scene
 
     grid = prepare_scene(scenes.sphere_grid(1_000_000), device=dev)
     tlas = prepare_scene(scenes.instanced_sphere_grids(), instancing="tlas", device=dev)
-    soa, isoa = grid.hier_soa, tlas.hier_soa
+    soa = grid.hier_soa
     rs = np.random.RandomState(2024)
     lo = soa.chunk_bounds[:, 0:3].amin(0).tolist()
     hi = soa.chunk_bounds[:, 3:6].amax(0).tolist()
@@ -624,7 +830,20 @@ def inputs(dev):
                            random_rays(rs, 2 ** 20, [lo[0], 0.05, lo[2]],
                                        [hi[0], hi[1] + 1.0, hi[2]],
                                        grid.geometry.num_primitives))
-    rnd = (pi.ray_columns(o, d, t_max), ph._sorted_ignore(soa, ignore))
+    return grid, tlas, (pi.ray_columns(o, d, t_max), ph._sorted_ignore(soa, ignore)), rs
+
+
+def inputs(dev):
+    """(kernel items {name: fn}, launches or calls per item, scenes, the
+    binned traversal's runs) on this tree's kernels."""
+    from chip_smoke import showcase_scene, tile_lanes
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.ops import megakernel as mk
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+
+    grid, tlas, rnd, rs = large_scenes(dev)
+    soa, isoa = grid.hier_soa, tlas.hier_soa
     flat, inst = first_wave(grid), first_wave(tlas)
     pid, pxy = tile_lanes(RES, dev)
     bench = prepare_scene(scenes.sphere_field(80), device=dev)
@@ -663,10 +882,68 @@ def inputs(dev):
     counts = {"first-wave trace": len(flat["trace"]), "first-wave occlude": len(flat["occlude"]),
               "instanced first-wave trace": len(inst["trace"]),
               "instanced first-wave occlude": len(inst["occlude"])}
-    seg, seg_counts = seg_items(dev, grid, tlas, rnd, rs)
+    runs = binned_runs(dev, grid, tlas, rnd, rs)
+    seg, seg_counts = seg_items(runs)
     items.update(seg)
     counts.update(seg_counts)
-    return items, counts, dict(grid=grid, tlas=tlas, bench=bench, show=show, top=top)
+    return items, counts, dict(grid=grid, tlas=tlas, bench=bench, show=show, top=top), runs
+
+
+def select_setup_launches(runs: dict, libs: dict, fits=None) -> list:
+    """ShapeTimer's rows over every run of `runs` ({label: run}), timing the
+    C entries of `libs` in turns (see ShapeTimer for `fits`)."""
+    with ShapeTimer(libs, fits) as timer:
+        for label, run in runs.items():
+            timer.source = label
+            run()
+    return timer.rows
+
+
+def shape_table(rows: list, smi: str) -> None:
+    """The setup/select shape table: one line a (kernel, program, shape),
+    the shape's launches, rays, refills or eligible supers, each library's C
+    entry ms a launch (the mean of its launches, each the mean of its turns),
+    the wrapper's, the bound, % of bound and launches x (ms - bound); then a
+    line a kernel summing launches x (ms - bound) over every launch."""
+    import statistics as st
+
+    groups = {}
+    for r in rows:
+        shape = (r["w"], r["k"]) if r["kind"] == "select" else (r["s_count"], r["s_out"])
+        groups.setdefault((r["kind"], r["source"], shape), []).append(r)
+    labels = list(rows[0]["ms"]) if rows else []
+    for (kind, source, shape), rs_ in groups.items():
+        n = [r["n"] for r in rs_]
+        bound = st.fmean(r["bound"][0] for r in rs_)
+        by = max({r["bound"][1] for r in rs_}, key=lambda b: sum(
+            r["bound"][0] for r in rs_ if r["bound"][1] == b))
+        if kind == "select":
+            what = (f"select w {shape[0]} k {shape[1]}, {source}: {len(rs_)} launches, n "
+                    f"{min(n)}-{max(n)} (mean {st.fmean(n):.0f}), refilling rays "
+                    f"{100.0 * sum(r['refills'] for r in rs_) / max(sum(n), 1):.1f}%")
+        else:
+            what = (f"setup {shape[0]} supers s_out {shape[1]}, {source}: {len(rs_)} launches, n "
+                    f"{min(n)}-{max(n)} (mean {st.fmean(n):.0f}), eligible supers a ray L mean "
+                    f"{st.fmean(r['l_mean'] for r in rs_):.2f}, largest "
+                    f"{max(r['l_max'] for r in rs_)}")
+        per = []
+        for label in labels:
+            ms = st.fmean(st.fmean(r["ms"][label]) for r in rs_)
+            gap = sum(st.fmean(r["ms"][label]) - r["bound"][0] for r in rs_)
+            per.append(f"{label} {ms:.4f} ms = {100.0 * bound / ms:.2f}% of bound, launches x "
+                       f"(ms - bound) {gap:.4f}")
+        print(f"[shapes] {smi} | {what}; C entry a launch: " + "; ".join(per)
+              + f"; the wrapper (this tree) {st.fmean(r['wrapper_ms'] for r in rs_):.4f} ms; "
+              f"bound {bound:.6f} ms ({by})")
+    for kind in ("setup", "select"):
+        rs_ = [r for r in rows if r["kind"] == kind]
+        if rs_:
+            print(f"[shapes] {smi} | {kind}, every recorded launch ({len(rs_)}): launches x "
+                  f"(ms - bound) " + ", ".join(
+                      f"{label} {sum(st.fmean(r['ms'][label]) - r['bound'][0] for r in rs_):.4f} ms"
+                      for label in labels)
+                  + f", the wrapper (this tree) "
+                  f"{sum(r['wrapper_ms'] - r['bound'][0] for r in rs_):.4f} ms")
 
 
 def same(a, b) -> bool:
@@ -774,14 +1051,17 @@ def path_turn(paths) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, help="a checkout to time against (the parent)")
-    ap.add_argument("--sweep", action="store_true",
-                    help="time the seg kernel's shapes of SWEEP instead")
+    ap.add_argument("--sweep", nargs="?", const="seg", choices=("seg", "select-setup"),
+                    help="time the seg kernel's shapes of SWEEP, or setup's and select's forms "
+                         "of SHAPE_SWEEP, instead")
+    ap.add_argument("--shapes", action="store_true",
+                    help="only the setup/select shape table (with --other, both checkouts')")
     ap.add_argument("--mega-stages", action="store_true",
                     help="the megakernel's stage breakdown, of this tree or of --other DIR")
     ap.add_argument("--dump", type=Path, help="with --mega-stages: keep the disassembly here")
     a = ap.parse_args()
-    if not a.mega_stages and (a.other is not None) == a.sweep:
-        ap.error("give --other DIR, --sweep or --mega-stages")
+    if not a.mega_stages and not a.shapes and (a.other is not None) == bool(a.sweep):
+        ap.error("give --other DIR, --sweep, --shapes or --mega-stages")
     import torch
 
     if not torch.cuda.is_available():
@@ -800,7 +1080,20 @@ def main() -> int:
         return 0
     this = dict(hier_walk=ph._load(), megakernel=mk._load(), binned=bt._load(), row=bt.ROW)
     t0 = time.perf_counter()
-    items, counts, scenes_ = inputs(dev)
+    if a.shapes or a.sweep == "select-setup":
+        runs = binned_runs(dev, *large_scenes(dev))
+        libs = {"this": this["binned"]}
+        if a.other is not None and not a.sweep:
+            libs = {"other": build_other(a.other.resolve())["binned"], "this": this["binned"]}
+        print(f"[ab] {smi} | inputs in {time.perf_counter() - t0:.1f} s")
+        fits = {}
+        if a.sweep:
+            forms = build_shape_sweep(REPO / "echorenderer_tpu_torch" / "_build" / "shapes")
+            libs.update({name: lib for name, (lib, _) in forms.items()})
+            fits = {name: form_fits(form) for name, (_, form) in forms.items()}
+        shape_table(select_setup_launches(runs, libs, fits), smi)
+        return 0
+    items, counts, scenes_, runs = inputs(dev)
     if a.sweep:
         items = {k: v for k, v in items.items() if k.startswith("seg ")}
     want = {name: fn() for name, fn in items.items()}
@@ -812,6 +1105,7 @@ def main() -> int:
         return 0
     other = build_other(a.other.resolve())
     compare_sass(other, smi)
+    shape_table(select_setup_launches(runs, {"other": other["binned"], "this": this["binned"]}), smi)
     for key in ("bench", "top"):  # the untextured form's residency in each checkout
         padded = scenes_[key].prim_soa.padded
         print(f"[ab] {smi} | untextured megakernel at {padded} padded prims: " + "; ".join(
