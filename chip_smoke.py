@@ -36,9 +36,17 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      card, on the same inputs:
      - dense_trace / dense_occlude on every call the wavefront path makes
        (sphere_field(2400) 320x180 8 spp through render_layer, recorded),
-       and on 2^20 rays each against the sphere_field(80) table and a
-       ~42k-prim BVH-ordered scene of 329 chunks: identical prim ids and
-       blocked flags, t/u/v to rtol 1e-6;
+       on every call a mid-size triangle mesh makes on it (sphere_grid(
+       50_000): 51,200 triangles, 401 chunks, 320x180 8 spp bounce 6,
+       recorded), and on 2^20 rays each against the sphere_field(80) table
+       and a ~42k-prim BVH-ordered scene of 329 chunks: identical prim ids
+       and blocked flags, t/u/v to rtol 1e-6; each set's C entry alone (its
+       launches back to back, the card kept busy while the host makes the
+       first call) and a call of the wrapper, in ms a launch, beside the
+       bound and the % of bound; one "[dense]" line a kernel form and set,
+       printed again before the kernels line: ptxas registers, dynamic
+       shared memory a block, resident warps/SM and what caps them, ms,
+       bound and launches x (ms - bound);
      - the megakernel on sphere_field(80) 960x540, the Cornell box 128x128,
        material_ball, many_lights(96) and sphere_grid(1900) (1,924
        triangles, 2048 padded prims: the top of the envelope) at 320x180,
@@ -211,6 +219,12 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
 FLOPS_TRI = 45
 FLOPS_SPH = 21
 LEAST_SLICE = 2 ** 16  # rays per pass of the least-work count
+# sphere_grid(MESH_GRID): a mid-size triangle mesh on the dense kernels'
+# path (51,200 triangles, 401 chunks, under scene_ops.HIER_TRACE_MIN)
+MESH_GRID = 50_000
+# cycles the card spins (torch.cuda._sleep) before a timed run of C entries,
+# so that the host's first ctypes call ends before the start event: ~60 us
+SLEEP_CYCLES = 100_000
 HIER_LEAST_SLICE = 2 ** 13  # rays per pass of the chunk-tree least-work count
 HIER_SUBSET = 2 ** 16  # rays of each call the hier kernels' plain versions check
 MEGA_TOL = dict(sum_atol=2e-3, sum_rtol=2e-3, sq_atol=4e-2, sq_rtol=2e-3, share=0.9999,
@@ -374,6 +388,11 @@ SEG_LAUNCHES: list = []
 # them measured, printed again, "[mega]", before the kernels line
 MEGA_PTXAS: dict = {}
 MEGA_REPORTS: list = []
+# the dense kernels' ptxas reports by (any_hit, has_tri, has_sph), filled by
+# main(); and the report line of every checked set of calls, "[dense]",
+# printed again before the kernels line
+DENSE_PTXAS: dict = {}
+DENSE_REPORTS: list = []
 # the binned library's ptxas report, filled by main(); and every checked setup
 # and select launch: (kind, shape, row), shape (supers, s_out) or (w, k), for
 # the "[setup]" and "[select]" lines before the kernels line
@@ -1105,11 +1124,119 @@ def dense_calls(soa, rays_np, dev):
     return dict(trace=[call], occlude=[call])
 
 
-def compare_dense(label, soa, calls, plain_runs):
+def soup_42k(rs, dev):
+    """The ~42k-prim soup (`synthetic_scene`) in BVH order on `dev`, and its
+    2^20 numpy rays: a 1024x512 camera tile-major, then random rays."""
+    import numpy as np
+
+    from echorenderer_tpu_torch.aggregation.bvh import build_bvh, geometry_bounds
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    geom = synthetic_scene(rs)
+    bmin, bmax = geometry_bounds(geom)
+    order = build_bvh(bmin, bmax).prim_order
+    soa = pi.build_prim_soa(geom, order=order,
+                            packed=pi.pack_sorted_prims(geom, order, bounds=(bmin, bmax)),
+                            device=dev)
+    cam = camera_rays(1024, 512, (0.0, 5.0, -40.0))
+    rnd = random_rays(rs, N_RAYS - len(cam[0]), [-20, 2, -20], [20, 8, 20], soa.num_prims)
+    return soa, [np.concatenate([a, b]) for a, b in zip(cam, rnd)]
+
+
+def recorded_calls(scene, res, spp, bounce) -> dict:
+    """The dense (or walk) calls of one render_layer epoch of `scene` at
+    `res`, `spp` samples, bounce limit `bounce`, recorded as RayWork
+    records them."""
+    from echorenderer_tpu_torch.processes.render import EvaluationProfile, render_layer
+
+    prof = EvaluationProfile(samples_per_epoch=spp, max_epoch=1, bounce_limit=bounce,
+                             survivability=2.5, adaptive=False)
+    with RayWork(cull=True, record=True) as rec:
+        render_layer(scene, prof, res)
+    return rec.calls
+
+
+def dense_entry(lib, kind, soa, calls):
+    """fn() running the C entry dense_trace or dense_occlude (`kind`) of
+    `lib` (a csrc/dense_intersect.cu library) on every call of `calls`,
+    back to back, into outputs allocated once; it returns the outputs
+    [(t, prim, u, v)] or [blocked]."""
+    import torch
+
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    stream = torch.cuda.current_stream().cuda_stream
+    prepared = []
+    for rays, ig in calls:
+        n = rays.shape[1]
+        if kind == "trace":
+            outs = (torch.empty(n, device=rays.device), torch.empty(n, dtype=torch.int32,
+                                                                    device=rays.device),
+                    torch.empty(n, device=rays.device), torch.empty(n, device=rays.device))
+        else:
+            outs = (torch.empty(n, dtype=torch.bool, device=rays.device),)
+        prepared.append((pi._kernel_args(rays, ig, soa), outs))
+    entry = lib.dense_trace if kind == "trace" else lib.dense_occlude
+
+    def run():
+        for args, outs in prepared:
+            err = entry(*args, *(x.data_ptr() for x in outs), stream)
+            if err:
+                raise RuntimeError(f"the dense {kind} C entry failed: cudaError {err}")
+        return [outs if kind == "trace" else outs[0] for _, outs in prepared]
+    return run
+
+
+def entry_ms(fn, runs: int = 10) -> float:
+    """Median ms of `runs` runs of fn (a run of C entries), each after a
+    warm-up run and with the card spinning SLEEP_CYCLES first, so that
+    the events time the launches and not the host's first call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def dense_form_report(label, kind, soa, launches, ms, entry, bound, smi) -> str:
+    """One "[dense]" line: a dense kernel form on a set of calls: ptxas
+    registers / stack frame / spills, dynamic smem a block, resident
+    warps/SM and what caps them; the wrapper's and the C entry's ms a
+    launch, the bound, % of bound and launches x (ms - bound)."""
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    kinds = (soa.num_tris > 0, soa.num_prims > soa.num_tris)
+    occ = pi.occupancy(kind == "occlude", *kinds)
+    ptxas = DENSE_PTXAS[(kind == "occlude", *kinds)]
+    name = (f"{kind}_kernel<{', '.join(str(b).lower() for b in kinds)}>")
+    line = (f"{name}, {label}: {ptxas}; {occ['smem']} bytes dynamic smem a {occ['block']}-thread "
+            f"block, {occ['blocks']} blocks = {occ['warps']} resident warps/SM, capped by "
+            f"{occupancy_cap(occ, ptxas)}; {launches} launches: the wrapper {ms:.4f} ms a call "
+            f"= {100.0 * bound / ms:.3f}% of bound, the C entry {entry:.4f} ms a launch = "
+            f"{100.0 * bound / entry:.3f}% of bound, bound {bound:.6f} ms; launches x (ms - "
+            f"bound): wrapper {launches * (ms - bound):.4f} ms, C entry "
+            f"{launches * (entry - bound):.4f} ms | {smi}")
+    DENSE_REPORTS.append(line)
+    return line
+
+
+def compare_dense(label, soa, calls, plain_runs, smi=""):
     """Dense kernels against their plain versions on every call of
     `calls` ({"trace": [(rays, ignore)], "occlude": [...]}): identical ids
-    and flags, t/u/v to RTOL. Returns ({kernel: max_abs_err}, {timing:
-    median ms per call}, {kernel: (mean bound ms per call, by)})."""
+    and flags, t/u/v to RTOL; then the C entry alone on the same calls, its
+    outputs bitwise equal to the wrapper's. Returns ({kernel: max_abs_err},
+    {timing: median ms per call or launch}, {kernel: (mean bound ms per
+    call, by)})."""
     import torch
 
     from echorenderer_tpu_torch.ops import pallas_intersect as pi
@@ -1157,6 +1284,14 @@ def compare_dense(label, soa, calls, plain_runs):
         occlude_plain=median_ms(each(pi.dense_occlude_plain, "occlude"), plain_runs,
                                 False) / per["occlude"],
     )
+    for kind in ("trace", "occlude"):
+        run = dense_entry(pi._load(), kind, soa, calls[kind])
+        got, want = run(), each(getattr(pi, f"dense_{kind}"), kind)()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for g, w in zip(got, want)
+                   for a, b in zip(g if kind == "trace" else (g,), w if kind == "trace" else (w,))):
+            raise AssertionError(f"{label}: the dense {kind} C entry differs from the wrapper")
+        ms[f"{kind}_entry"] = entry_ms(run) / per[kind]
     bounds = {k: (statistics.fmean(b[0] for _, b in v), statistics.mode(b[1] for _, b in v))
               for k, v in least.items()}
     flops = {k: statistics.fmean(f for f, _ in v) for k, v in least.items()}
@@ -1166,11 +1301,15 @@ def compare_dense(label, soa, calls, plain_runs):
         f"prims, {soa.n_chunks} chunks, {soa.n_super} superchunks; {n_hit} hits, {n_blocked} "
         f"blocked; identical ids/flags, max |t,u,v err| {err['trace']:.3g} (rtol {RTOL})")
     log(f"[kernels] {label}: median ms per call (kernels over 10 runs, plain over "
-        f"{plain_runs}): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        f"{plain_runs}; _entry: the C entry alone, a launch): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
         + f"; least prim-test work per call: trace {flops['trace']:.6g}, occlude "
           f"{flops['occlude']:.6g} flops; bound per call: trace {bounds['trace'][0]:.6f} "
           f"({bounds['trace'][1]}), occlude {bounds['occlude'][0]:.6f} "
           f"({bounds['occlude'][1]})")
+    for kind in ("trace", "occlude"):
+        log("[kernels]   " + dense_form_report(label, kind, soa, per[kind], ms[kind],
+                                               ms[f"{kind}_entry"], bounds[kind][0], smi))
     return err, ms, bounds
 
 
@@ -2143,7 +2282,6 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import numpy as np
 
-    from echorenderer_tpu_torch.aggregation.bvh import build_bvh, geometry_bounds
     from echorenderer_tpu_torch.benchmarks import plucker_micro as pm
     from echorenderer_tpu_torch.entry import entry
     from echorenderer_tpu_torch.evaluation.scene_ops import dispatch_summary
@@ -2188,6 +2326,12 @@ def main() -> int:
     if set(named) != set(MEGA_FORMS.values()):
         return fail(f"expected the megakernel's three forms in the ptxas report, got {forms}")
     MEGA_PTXAS.update(untextured=named["untextured"], textured=named["textured"])
+    for kernel in ("trace_kernel", "occlude_kernel"):
+        for name, report in ptxas_forms(builds["dense_intersect"].ptxas, kernel).items():
+            log(f"[build] dense form ({name}): {report}")
+            for tri, sph in ((True, True), (True, False), (False, True)):
+                if f"ILb{int(tri)}ELb{int(sph)}E" in name:
+                    DENSE_PTXAS[(kernel == "occlude_kernel", tri, sph)] = report
     hier_forms = ptxas_forms(builds["hier_walk"].ptxas, "hier_kernel")
     for name, report in hier_forms.items():
         log(f"[build] hier_kernel form ({name}): {report}")
@@ -2220,31 +2364,30 @@ def main() -> int:
     bench = prepare_scene(scenes.sphere_field(80), device=dev)
     rays_a = random_rays(rs, N_RAYS, [-20, 0.05, -20], [20, 4, 20], bench.prim_soa.num_prims)
     err_a, _, _ = compare_dense("sphere_field(80) random rays", bench.prim_soa,
-                                dense_calls(bench.prim_soa, rays_a, dev), plain_runs=5)
-    geom = synthetic_scene(rs)
-    bmin, bmax = geometry_bounds(geom)
+                                dense_calls(bench.prim_soa, rays_a, dev), plain_runs=5, smi=smi)
     t_bvh = time.perf_counter()
-    order = build_bvh(bmin, bmax).prim_order
-    big = pi.build_prim_soa(geom, order=order,
-                            packed=pi.pack_sorted_prims(geom, order, bounds=(bmin, bmax)),
-                            device=dev)
-    log(f"[kernels] synthetic scene: {big.num_prims} prims, BVH order in "
+    big, rays_b = soup_42k(rs, dev)
+    log(f"[kernels] synthetic scene: {big.num_prims} prims, BVH order and rays in "
         f"{time.perf_counter() - t_bvh:.2f} s")
-    cam = camera_rays(1024, 512, (0.0, 5.0, -40.0))
-    rnd = random_rays(rs, N_RAYS - len(cam[0]), [-20, 2, -20], [20, 8, 20], big.num_prims)
-    rays_b = [np.concatenate([a, b]) for a, b in zip(cam, rnd)]
     err_b, _, _ = compare_dense("synthetic 42k", big, dense_calls(big, rays_b, dev),
-                                plain_runs=1)
+                                plain_runs=1, smi=smi)
+    del big, rays_b
     # the calls the wavefront path makes: the slice's render, recorded
     large = prepare_scene(scenes.sphere_field(2400), device=dev)
     prof8 = EvaluationProfile(samples_per_epoch=8, max_epoch=1, bounce_limit=16,
                               survivability=2.5, adaptive=False)
-    with RayWork(cull=True, record=True) as path_rays:
-        render_layer(large, prof8, (320, 180))
     err_c, ms_c, bound_c = compare_dense(
         "sphere_field(2400) 320x180 8 spp, the wavefront path's calls", large.prim_soa,
-        path_rays.calls, plain_runs=5)
-    del path_rays
+        recorded_calls(large, (320, 180), 8, 16), plain_runs=5, smi=smi)
+    # the calls a mid-size triangle mesh makes on the wavefront path: every
+    # call, the plain version on each (about 0.1 s a call on the card)
+    mesh = prepare_scene(scenes.sphere_grid(MESH_GRID), device=dev)
+    if scene_ops._use_hier(mesh) or mk.supported(mesh):
+        return fail(f"sphere_grid({MESH_GRID}) is not on the dense kernels' path")
+    err_d, _, _ = compare_dense(
+        f"sphere_grid({MESH_GRID}) 320x180 8 spp bounce 6, the wavefront path's calls",
+        mesh.prim_soa, recorded_calls(mesh, (320, 180), 8, 6), plain_runs=1, smi=smi)
+    del mesh
 
     # --- kernel phase: the megakernel against the wavefront ---
     mega_cases = [
@@ -2572,12 +2715,13 @@ def main() -> int:
     kernels = [
         dict(name="dense_trace", route="cuda", source=DENSE_SOURCE, replaces=TRACE_SITE,
              launches=dense["trace"],
-             max_abs_err=max(err_a["trace"], err_b["trace"], err_c["trace"]),
+             max_abs_err=max(err_a["trace"], err_b["trace"], err_c["trace"], err_d["trace"]),
              ms=ms_c["trace"], plain_ms=ms_c["trace_plain"], bound_ms=bound_c["trace"][0],
              bound_by=bound_c["trace"][1], library_ms=None),
         dict(name="dense_occlude", route="cuda", source=DENSE_SOURCE, replaces=OCCLUDE_SITE,
              launches=dense["occlude"],
-             max_abs_err=max(err_a["occlude"], err_b["occlude"], err_c["occlude"]),
+             max_abs_err=max(err_a["occlude"], err_b["occlude"], err_c["occlude"],
+                             err_d["occlude"]),
              ms=ms_c["occlude"], plain_ms=ms_c["occlude_plain"],
              bound_ms=bound_c["occlude"][0], bound_by=bound_c["occlude"][1], library_ms=None),
         dict(name="megakernel", route="cuda", source=MEGA_SOURCE, replaces=MEGA_SITE,
@@ -2612,6 +2756,8 @@ def main() -> int:
              bound_ms=b_out["seg_exact"]["bound_ms"], bound_by=b_out["seg_exact"]["bound_by"],
              library_ms=None),
     ] + inst_rows + plk_rows
+    for line in DENSE_REPORTS:
+        log(f"[dense] {line}")
     for line in MEGA_REPORTS:
         log(f"[mega] {line} | {smi}")
     for line in WALK_REPORTS:

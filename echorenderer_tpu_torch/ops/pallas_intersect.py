@@ -8,20 +8,22 @@ superchunk. Two kernels walk them for a batch of rays: `dense_trace`
 the hand-written kernel in csrc/dense_intersect.cu (its ray-prim test in
 csrc/intersect.cuh, shared with the megakernel), built with nvcc on first
 use (ops/cuda_build.py); on a CPU tensor it runs the plain PyTorch version
-beside it, which applies the same rules op for op: 128-ray blocks that skip a chunk
-together when none of their rays can reach its box, strict-less updates
-(the lowest sorted slot wins a tie), the findFar sphere rule.
+beside it, which applies the same rules op for op: a ray tests a chunk
+only if it enters the chunk's box and its superchunk's before its own best
+t (t_max for any hit), strict-less updates in ascending slot order (the
+lowest sorted slot wins a tie), the findFar sphere rule.
 
 `intersect_pallas` / `occlude_pallas` keep the JAX package's public
 contract: original prim ids in and out (the sorted<->original maps), and
 t_max clamped to 3.4e38 so an infinite t_max records no phantom hit.
 
 The kernels replace the TPU's `_trace_kernel` and `_occlude_kernel`
-(echorenderer_tpu/ops/pallas_intersect.py:322 and :400). On the H100 they
-are bound by per-ray prim tests times the chunks a 128-ray block cannot
-cull; one thread per ray, the chunk's prim rows staged once per block in
-shared memory, and a block-wide vote per chunk and superchunk keep that
-work to the chunks some ray of the block can still reach
+(echorenderer_tpu/ops/pallas_intersect.py:322 and :400), which cull by
+1,024-ray blocks; the result, the least (t, sorted slot) over the hits
+before t_max, does not depend on the cull unit. On the H100 they are bound
+by the prim tests of the chunks each ray enters: each warp takes a chunk
+when a ballot of its lanes' own box tests is not zero, stages it in shared
+memory, and spreads the tests of a sparse ballot's rays over all 32 lanes
 (csrc/dense_intersect.cu has the details).
 """
 
@@ -38,7 +40,7 @@ from .intersect import INF, FlatGeometry, Hit
 
 _EPS = 2.4e-4  # RAY_EPSILON
 
-RAY_BLOCK = 128  # rays per kernel block: the unit that culls a chunk together
+WARP = 32  # rays per ballot of the kernels; the plain version pads to whole warps
 PRIM_BLOCK = 128  # primitives per chunk
 SC_FACTOR = 32  # chunks per superchunk (second culling level)
 PLAIN_SLICE = 2 ** 18  # rays per pass of the plain version on the card
@@ -178,17 +180,6 @@ def _safe_inv(d):
     return torch.where(torch.abs(d) < 1e-12, big, 1.0 / d)
 
 
-def _block_any(mask):
-    """(M,) per-ray votes -> (M/RAY_BLOCK,) per-block any."""
-    return mask.view(-1, RAY_BLOCK).any(dim=1)
-
-
-def _box_votes(table, j, ray, inv, limit):
-    """Per-block: can any ray of the block reach box j of `table` before
-    its `limit`? (the kernel's __syncthreads_or slab vote)"""
-    return _block_any(_box_reach(table, j, ray, inv, limit))
-
-
 def _box_reach(table, j, ray, inv, limit):
     """Per ray: does the ray enter box j of `table` before its `limit`
     (with the CULL_MARGIN slack)?"""
@@ -276,9 +267,13 @@ def _chunk_hits(chunk, base, ray, ignore, has_tri, has_sph, unit_dir=True):
     return t, u, v, ok
 
 
-def _walk(rays, ignore, soa, any_hit):
-    """The kernels' chunk walk over one ray slice (a multiple of
-    RAY_BLOCK rays, padded with the JAX layout's dead rays)."""
+def _walk(rays, ignore, soa, any_hit, visits=None):
+    """The kernels' chunk walk over one ray slice, culled per ray: ray i
+    tests chunk j when its limit (its best t; for any hit t_max, or -1 once
+    blocked) is positive and it reaches chunk j's box and, with more than
+    SC_FACTOR chunks, the box of j's superchunk (tested at the superchunk's
+    first chunk) before that limit. A `visits` list gets (ray indices,
+    chunk) of each chunk's tests, in walk order."""
     n_chunks, n_super = soa.n_chunks, soa.n_super
     cs = PRIM_BLOCK if n_chunks > 1 else soa.padded
     has_tri = soa.num_tris > 0
@@ -294,20 +289,18 @@ def _walk(rays, ignore, soa, any_hit):
     sc_ok = None
     for j in range(n_chunks):
         limit = torch.where(blocked, -1.0, tmax) if any_hit else best_t
+        take = limit > 0.0
         if n_chunks > 1:
             if n_super > 1 and j % SC_FACTOR == 0:
-                sc_ok = _block_any(limit > 0.0) & _box_votes(
-                    soa.super_bounds, j // SC_FACTOR, rays, inv, limit)
-            blk = _box_votes(soa.chunk_bounds, j, rays, inv, limit)
+                sc_ok = take & _box_reach(soa.super_bounds, j // SC_FACTOR, rays, inv, limit)
+            take = take & _box_reach(soa.chunk_bounds, j, rays, inv, limit)
             if sc_ok is not None:
-                blk &= sc_ok
-        else:
-            blk = _block_any(tmax > 0.0)
-        live = torch.nonzero(blk).squeeze(1)
-        if live.numel() == 0:
+                take &= sc_ok
+        idx = torch.nonzero(take).squeeze(1)
+        if idx.numel() == 0:
             continue
-        idx = (live[:, None] * RAY_BLOCK
-               + torch.arange(RAY_BLOCK, device=rays.device)[None, :]).reshape(-1)
+        if visits is not None:
+            visits.append((idx, j))
         chunk = soa.rows[:, j * PRIM_BLOCK: j * PRIM_BLOCK + cs]
         t, u, v, ok = _chunk_hits(chunk, j * PRIM_BLOCK, rays[:, idx], ignore[idx],
                                   has_tri, has_sph)
@@ -329,11 +322,11 @@ def _walk(rays, ignore, soa, any_hit):
 
 
 def _slices(rays, ignore):
-    """Pad to whole ray blocks with the JAX layout's dead rays
-    (o = 0, d = +z, t_max = -1, ignore = -1) and cut into PLAIN_SLICE
-    passes so the (rays, chunk) temporaries stay bounded."""
+    """Pad to whole warps with the JAX layout's dead rays (o = 0, d = +z,
+    t_max = -1, ignore = -1), as the kernels' last warp is, and cut into
+    PLAIN_SLICE passes so the (rays, chunk) temporaries stay bounded."""
     n = rays.shape[1]
-    n_pad = -(-max(n, 1) // RAY_BLOCK) * RAY_BLOCK
+    n_pad = -(-max(n, 1) // WARP) * WARP
     if n_pad != n:
         fill = torch.tensor([0, 0, 0, 0, 0, 1, -1], dtype=torch.float32, device=rays.device)
         rays = torch.cat([rays, fill[:, None].expand(7, n_pad - n)], dim=1)
@@ -373,8 +366,22 @@ def _load():
         lib.dense_occlude.argtypes = [ptr, ptr, i32, ptr, i32, ptr, i32, ptr, i32,
                                       i32, i32, ptr, ptr]
         lib.dense_occlude.restype = i32
+        lib.dense_occupancy.argtypes = [i32, i32, i32, ptr]
+        lib.dense_occupancy.restype = i32
         _lib = lib
     return _lib
+
+
+def occupancy(any_hit: bool, has_tri: bool = True, has_sph: bool = False) -> dict:
+    """One kernel form's resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its block size,
+    dynamic shared memory per block (the warps' stages) and resident warps
+    per SM."""
+    out = (ctypes.c_int * 3)()
+    err = _load().dense_occupancy(int(any_hit), int(has_tri), int(has_sph), out)
+    if err:
+        raise RuntimeError(f"dense_occupancy failed: cudaError {err}")
+    return dict(blocks=out[0], block=out[1], smem=out[2], warps=out[0] * out[1] // 32)
 
 
 def _check_inputs(rays, ignore, soa):

@@ -9,6 +9,8 @@ same inputs in one process, in turns (other, this, this, other).
     python3 tools/hier_ab.py --sweep   # the seg kernel's shapes, no other checkout
     python3 tools/hier_ab.py --sweep select-setup   # setup's and select's forms
     python3 tools/hier_ab.py --mega-stages [--other DIR] [--dump DIR]
+    python3 tools/hier_ab.py --dense --other DIR  # the dense kernels' A/B only
+    python3 tools/hier_ab.py --sweep dense   # the dense kernels' crossover and block size
 
 Inputs, made on the card from fixed seeds:
   - sphere_grid(1_000_000) (bench.py's large scene) at 1920x1080, 1 spp,
@@ -70,6 +72,29 @@ the seg items on each in two passes (the list, then reversed), holds
 every output bitwise to this tree's, and prints each shape's resident
 warps/SM; the walk, the megakernel and the render paths are not timed.
 
+--dense times the dense trace and occlude kernels (csrc/dense_intersect.cu)
+of both checkouts in turns (other, this, this, other) on three sets of
+calls: every call of the wavefront path's sphere_field(2400) render
+(320x180, 8 spp, bounce 16) and of a mid-size mesh's, sphere_grid(50_000)
+(51,200 triangles; 320x180, 8 spp, bounce 6), both recorded as
+chip_smoke.py records them, and one call each of chip_smoke.py's 42k-prim
+soup at 2^20 rays: the C entry alone (chip_smoke.entry_ms: a set's launches
+back to back, the card kept busy while the host makes the first call) and
+a call of the wrapper, each output held bitwise to this tree's wrapper,
+beside the bound, the % of bound and launches x (ms - bound); each form's
+resident warps/SM. As a yardstick it times the walk (ops/pallas_hier.py) on
+the sphere_grid(50_000) calls, its hits held to the dense kernels', and
+renders that frame on the dense kernels and on the walk alone
+(`scene_ops.walk_only()`) in turns; and the two render paths the dense
+kernels run, in turns with the other checkout. The SASS of every other
+kernel is held to the other checkout's.
+
+--sweep dense builds this tree's dense_intersect.cu once for each form of
+DENSE_SWEEP (its kCoopMax and kDenseWarps replaced) and times every form's
+C entry on the same three sets in two passes (the list, then reversed),
+each output held bitwise to this tree's, with each form's registers and
+resident warps/SM.
+
 --mega-stages breaks the megakernel's untextured and textured forms down by
 stage on the bench, showcase, Cornell, material_ball and sphere_grid(1900)
 launches: this tree's megakernel.cu, or with --other DIR that checkout's
@@ -113,6 +138,10 @@ SWEEP = [dict(kSegWarps=w, kSegTile=t, kSegUnroll=u)
 # ray: select's register form up to 72 slots (the shared-memory column above
 # it) and setup_kernel (64 threads a block, whatever `threads` says).
 SHAPE_SWEEP = [dict(group=g, threads=t) for g in (1, 2, 4, 8, 16, 32) for t in (128, 256)]
+# the dense kernels' forms --sweep dense times: values of
+# csrc/dense_intersect.cu's kCoopMax (ballots of at most this many rays
+# spread their tests over the warp; 0: never) and kDenseWarps (warps a block)
+DENSE_SWEEP = [dict(kCoopMax=g, kDenseWarps=w) for g in (0, 8, 16, 24, 32) for w in (2, 4, 8)]
 # cycles the card spins (torch.cuda._sleep) before each timed C entry, so
 # that the host's ctypes call ends before the launch's start event: ~60 us
 SLEEP_CYCLES = 100_000
@@ -162,6 +191,16 @@ def bind_binned(lib) -> None:
             getattr(lib, name).argtypes, getattr(lib, name).restype = [i32, i32, ptr], i32
 
 
+def bind_dense(lib) -> None:
+    """The argument types of a dense_intersect.cu library's C functions."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    common = [ptr, ptr, i32, ptr, i32, ptr, i32, ptr, i32, i32, i32]
+    lib.dense_trace.argtypes, lib.dense_trace.restype = common + [ptr] * 5, i32
+    lib.dense_occlude.argtypes, lib.dense_occlude.restype = common + [ptr] * 2, i32
+    if hasattr(lib, "dense_occupancy"):  # absent from older checkouts
+        lib.dense_occupancy.argtypes, lib.dense_occupancy.restype = [i32, i32, i32, ptr], i32
+
+
 def nvcc(src: Path, lib: Path):
     """An nvcc process building `src` into `lib` with this tree's flags."""
     from echorenderer_tpu_torch.ops import cuda_build
@@ -200,6 +239,7 @@ def build_other(root: Path) -> dict:
     h.hier_occlude.argtypes, h.hier_occlude.restype = common + [ptr, ptr], i32
     bind_mega(libs["megakernel"])
     bind_binned(libs["binned"])
+    bind_dense(libs["dense_intersect"])
     row = re.search(r"^ROW = (\d+)", (root / "echorenderer_tpu_torch" / "ops" /
                                       "binned_trace.py").read_text(), re.M)
     libs["row"] = int(row.group(1))
@@ -578,16 +618,17 @@ def sass(lib: Path) -> dict:
 
 
 def compare_sass(other: dict, smi: str) -> None:
-    """The dense kernels', hier_kernel's, the seg kernel's and the
-    megakernel's chunk-tree form's SASS against the other checkout's (a
-    change to intersect.cuh, hier_walk.cuh or the shading the chunk-tree
-    form shares must leave them as they were)."""
+    """The dense kernels', hier_kernel's, the binned kernels' (seg, setup,
+    select) and every megakernel form's SASS against the other checkout's
+    (a change to intersect.cuh, hier_walk.cuh or one kernel's source must
+    leave the others as they were)."""
     from echorenderer_tpu_torch.ops import cuda_build
 
     built = cuda_build.build()
     for stem, kernels in (("dense_intersect", ("trace_kernel", "occlude_kernel")),
-                          ("hier_walk", ("hier_kernel",)), ("binned", ("seg_kernel",)),
-                          ("megakernel", ("mega_kernelILb0ELb1E",))):
+                          ("hier_walk", ("hier_kernel",)),
+                          ("binned", ("seg_kernel", "setup_", "select_")),
+                          ("megakernel", ("mega_kernel",))):
         mine, theirs = sass(built[stem].path), sass(other[f"{stem}_path"])
         for name in sorted(n for n in mine if any(k in n for k in kernels)):
             a, b = mine[name], theirs.get(name)
@@ -601,9 +642,11 @@ def use(libs: dict):
     from echorenderer_tpu_torch.ops import binned_trace as bt
     from echorenderer_tpu_torch.ops import megakernel as mk
     from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
 
     ph._lib = libs.get("hier_walk", ph._lib)
     mk._lib = libs.get("megakernel", mk._lib)
+    pi._lib = libs.get("dense_intersect", pi._lib)
     bt._lib, bt.ROW = libs["binned"], libs["row"]
 
 
@@ -994,6 +1037,342 @@ def sweep(items, want, counts, smi) -> None:
                                        for key, (a, b) in times.items()))
 
 
+def dense_sets(dev) -> dict:
+    """{label: (scene or None, prim table, {"trace": calls, "occlude": calls})}
+    of the dense kernels' A/B and sweep: the recorded calls of the
+    sphere_field(2400) and sphere_grid(MESH_GRID) renders, and one call each
+    of the 42k soup's 2^20 rays (chip_smoke.py's, from the same seeded
+    draws)."""
+    import numpy as np
+
+    from chip_smoke import (MESH_GRID, N_RAYS, dense_calls, random_rays, recorded_calls,
+                            soup_42k)
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+
+    field = prepare_scene(scenes.sphere_field(2400), device=dev)
+    mesh = prepare_scene(scenes.sphere_grid(MESH_GRID), device=dev)
+    rs = np.random.RandomState(2024)
+    bench = prepare_scene(scenes.sphere_field(80), device=dev)
+    random_rays(rs, N_RAYS, [-20, 0.05, -20], [20, 4, 20], bench.prim_soa.num_prims)
+    soup, rays = soup_42k(rs, dev)
+    return {
+        "sphere_field(2400) path calls": (field, field.prim_soa,
+                                          recorded_calls(field, (320, 180), 8, 16)),
+        f"sphere_grid({MESH_GRID}) calls": (mesh, mesh.prim_soa,
+                                           recorded_calls(mesh, (320, 180), 8, 6)),
+        "42k soup, 2^20 rays": (None, soup, dense_calls(soup, rays, dev)),
+    }
+
+
+def dense_bounds(soa, calls) -> dict:
+    """{kind: (mean bound ms a call, by)} of a set, as chip_smoke.compare_dense
+    counts them (the least prim-test work of this tree's hits, the bytes)."""
+    import torch
+
+    from chip_smoke import bound_ms, least_flops, table_bytes
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    tables = table_bytes(soa.rows, soa.chunk_bounds, soa.super_bounds)
+    out = {}
+    for kind in ("trace", "occlude"):
+        bounds = []
+        for rays, ig in calls[kind]:
+            if kind == "trace":
+                t = pi.dense_trace(rays, ig, soa)[0]
+                flops, nbytes = least_flops(soa, rays, ig, t_end=t), rays.shape[1] * 48 + tables
+            else:
+                flops, nbytes = least_flops(soa, rays, ig), rays.shape[1] * 33 + tables
+            bounds.append(bound_ms(flops, nbytes))
+        torch.cuda.synchronize()
+        out[kind] = (statistics.fmean(b for b, _ in bounds),
+                     statistics.mode(by for _, by in bounds))
+    return out
+
+
+def dense_runs(lib, sets) -> dict:
+    """{(set, kind): fn} running `lib`'s C entry over each set's calls."""
+    from chip_smoke import dense_entry
+
+    return {(label, kind): dense_entry(lib, kind, soa, calls[kind])
+            for label, (_, soa, calls) in sets.items() for kind in ("trace", "occlude")}
+
+
+def dense_want(sets) -> dict:
+    """{(set, kind): this tree's wrapper outputs}, as dense_entry returns them."""
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    return {(label, kind): [getattr(pi, f"dense_{kind}")(rays, ig, soa)
+                            for rays, ig in calls[kind]]
+            for label, (_, soa, calls) in sets.items() for kind in ("trace", "occlude")}
+
+
+def dense_check(runs, want, who) -> None:
+    """Each run's outputs bitwise equal to this tree's wrapper's."""
+    import torch
+
+    for key, fn in runs.items():
+        got = fn()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want[key]):
+            if not same(g, w):
+                raise AssertionError(f"{who}: the dense {key[1]} C entry differs on {key[0]}")
+
+
+def dense_breakdown(sets, smi) -> None:
+    """Per set and kind, the work of the kernels' warps, counted from the
+    plain walk's visits (the kernels take the same per-ray decisions): live
+    rays and warps, chunks tested a live ray and, for trace, the chunks it
+    enters before its final hit (the bound's count), warp stages (taken
+    chunks) a warp, the mean ballot, and the share of stages and of member
+    tests in the spread form (ballots of at most kCoopMax rays)."""
+    import torch
+
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    source = (REPO / "echorenderer_tpu_torch" / "csrc" / "dense_intersect.cu").read_text()
+    coop = int(re.search(r"constexpr int kCoopMax = (\d+);", source).group(1))
+    for label, (_, soa, calls) in sets.items():
+        for kind in ("trace", "occlude"):
+            live = warps = tested = ideal = stages = spread = members = spread_members = 0
+            for rays, ig in calls[kind]:
+                for r, i in pi._slices(rays, ig):
+                    visits = []
+                    out = pi._walk(r, i, soa, kind == "occlude", visits=visits)
+                    live += int((r[6] > 0).sum())
+                    warps += r.shape[1] // 32
+                    for idx, _ in visits:
+                        g = torch.bincount(idx // 32)
+                        g = g[g > 0]
+                        tested += idx.numel()
+                        stages += g.numel()
+                        spread += int((g <= coop).sum())
+                        members += int(g.sum())
+                        spread_members += int(g[g <= coop].sum())
+                    if kind == "trace":
+                        t_end = torch.where(out[1] >= 0, out[0], r[6])
+                        inv = [pi._safe_inv(r[k]) for k in (3, 4, 5)]
+                        for j in range(soa.n_chunks):
+                            ideal += int(((r[6] > 0) & pi._box_reach(soa.chunk_bounds, j, r, inv,
+                                                                     t_end)).sum())
+            bound = (f" (the bound counts {ideal / max(live, 1):.3f}: the chunks it enters "
+                     f"before its final hit)" if kind == "trace" else "")
+            print(f"[dense-ab] {smi} | breakdown, {label} {kind}: {live} live rays in {warps} "
+                  f"warps; chunks tested a live ray {tested / max(live, 1):.3f}{bound}; "
+                  f"{stages / max(warps, 1):.3f} stages (taken chunks) a warp, mean ballot "
+                  f"{members / max(stages, 1):.2f} rays; {100.0 * spread / max(stages, 1):.1f}% of "
+                  f"stages and {100.0 * spread_members / max(members, 1):.1f}% of member tests "
+                  f"spread over the warp (ballots of at most {coop} rays)")
+
+
+def dense_walk_yardstick(sets, smi) -> None:
+    """The walk (hier_trace / hier_occlude) on the sphere_grid(MESH_GRID)
+    calls, a call of the wrapper, its hits held to the dense kernels'
+    (original prim ids, t bitwise); then that frame rendered on the dense
+    kernels and on the walk alone, in turns."""
+    import torch
+
+    from chip_smoke import MESH_GRID, median_ms
+    from echorenderer_tpu_torch.evaluation import scene_ops
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    mesh, soa, calls = sets[f"sphere_grid({MESH_GRID}) calls"]
+    hsoa = mesh.hier_soa
+
+    def hier_ig(ig):
+        orig = torch.where(ig >= 0, soa.order[ig.clamp(min=0).long()], -1)
+        return ph._sorted_ignore(hsoa, orig)
+
+    hcalls = {k: [(r, hier_ig(ig)) for r, ig in v] for k, v in calls.items()}
+    for (r, ig), (_, hig) in zip(calls["trace"], hcalls["trace"]):
+        dt, dp = pi.dense_trace(r, ig, soa)[:2]
+        ht, hp = ph.hier_trace(r, hig, hsoa)[:2]
+        d_id = torch.where(dp >= 0, soa.order[dp.clamp(min=0).long()], -1)
+        h_id = torch.where(hp >= 0, hsoa.order[hp.clamp(min=0).long()], -1)
+        if not (torch.equal(d_id, h_id) and torch.equal(dt, ht)):
+            raise AssertionError("the walk and the dense kernels disagree on the mesh's calls")
+    for (r, ig), (_, hig) in zip(calls["occlude"], hcalls["occlude"]):
+        if not torch.equal(pi.dense_occlude(r, ig, soa), ph.hier_occlude(r, hig, hsoa)):
+            raise AssertionError("the walk and the dense kernels disagree on the mesh's flags")
+    for kind in ("trace", "occlude"):
+        dense = median_ms(lambda: [getattr(pi, f"dense_{kind}")(r, ig, soa)
+                                   for r, ig in calls[kind]]) / len(calls[kind])
+        walk = median_ms(lambda: [getattr(ph, f"hier_{kind}")(r, ig, hsoa)
+                                  for r, ig in hcalls[kind]]) / len(calls[kind])
+        print(f"[dense-ab] {smi} | sphere_grid({MESH_GRID}) {kind}, {len(calls[kind])} calls, "
+              f"the same hits: the dense wrapper {dense:.4f} ms a call, the walk's "
+              f"{walk:.4f} ms a call")
+    def render(walk):
+        def run():
+            with scene_ops.walk_only() if walk else contextlib.nullcontext():
+                return _render(mesh, 6)
+        return run
+
+    got = {"dense": [], "walk alone": []}
+    images = {}
+    for label in ("dense", "walk alone", "walk alone", "dense"):
+        images[label] = render(label == "walk alone")()[0]
+        got[label].append(path_turn({label: (render(label == "walk alone"),
+                                             320 * 180 * 8)})[label])
+    print(f"[dense-ab] {smi} | sphere_grid({MESH_GRID}) 320x180 8 spp bounce 6 render, Mspps "
+          f"(median of 5; dense, walk, walk, dense): dense {got['dense'][0]:.4f}, "
+          f"{got['dense'][1]:.4f}; walk alone {got['walk alone'][0]:.4f}, "
+          f"{got['walk alone'][1]:.4f}; images bitwise equal: "
+          f"{bool((images['dense'] == images['walk alone']).all())}")
+
+
+def dense_ab(other, this, sets, smi) -> None:
+    """The dense kernels' A/B: per set and kind the C entry a launch and a
+    call of the wrapper, each checkout in turns (other, this, this, other),
+    every output held to this tree's wrapper's; the bound, % of bound and
+    launches x (ms - bound); then the walk's yardstick and the render paths
+    the dense kernels run, in turns."""
+    from chip_smoke import entry_ms, median_ms
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    use(this)
+    want = dense_want(sets)
+    bounds = {label: dense_bounds(soa, calls) for label, (_, soa, calls) in sets.items()}
+    runs = {"other": dense_runs(other["dense_intersect"], sets),
+            "this": dense_runs(this["dense_intersect"], sets)}
+    for label, r in runs.items():
+        dense_check(r, want, label)
+    occ = {(a, t, s_): pi.occupancy(a, t, s_) for a in (False, True)
+           for t, s_ in ((True, True), (True, False), (False, True))}
+    print(f"[dense-ab] {smi} | this tree's resident warps/SM (trace, occlude): " + "; ".join(
+        f"{'mixed' if t and s_ else 'triangles' if t else 'spheres'} "
+        f"{occ[(False, t, s_)]['warps']}, {occ[(True, t, s_)]['warps']}"
+        for t, s_ in ((True, True), (True, False), (False, True))))
+    entry = {key: {"other": [], "this": []} for key in runs["this"]}
+    wrapper = {key: {"other": [], "this": []} for key in runs["this"]}
+    for label in ("other", "this", "this", "other"):
+        use(other if label == "other" else this)
+        for key, fn in runs[label].items():
+            entry[key][label].append(entry_ms(fn))
+            _, soa, calls = sets[key[0]]
+            wrapper[key][label].append(median_ms(
+                lambda: [getattr(pi, f"dense_{key[1]}")(r, ig, soa) for r, ig in calls[key[1]]]))
+    use(this)
+    for (label, kind), e in entry.items():
+        _, soa, calls = sets[label]
+        n = len(calls[kind])
+        b, by = bounds[label][kind]
+        o = [x / n for x in e["other"]]
+        t = [x / n for x in e["this"]]
+        wo = [x / n for x in wrapper[(label, kind)]["other"]]
+        wt = [x / n for x in wrapper[(label, kind)]["this"]]
+        mt, mo = statistics.fmean(t), statistics.fmean(o)
+        mwt, mwo = statistics.fmean(wt), statistics.fmean(wo)
+        print(f"[dense-ab] {smi} | {label} {kind}, {n} launches: C entry a launch other "
+              f"{o[0]:.4f}, {o[1]:.4f}; this {t[0]:.4f}, {t[1]:.4f} ms (this / other "
+              f"{mt / mo:.3f}); the wrapper a call other {wo[0]:.4f}, {wo[1]:.4f}; this "
+              f"{wt[0]:.4f}, {wt[1]:.4f} ms (this / other {mwt / mwo:.3f}); bound {b:.6f} ms "
+              f"({by}): this {100.0 * b / mt:.3f}% (C entry), {100.0 * b / mwt:.3f}% "
+              f"(wrapper), other {100.0 * b / mo:.3f}%; launches x (ms - bound): C entry other "
+              f"{n * (mo - b):.4f}, this {n * (mt - b):.4f}; wrapper other {n * (mwo - b):.4f}, "
+              f"this {n * (mwt - b):.4f}")
+    dense_breakdown(sets, smi)
+    dense_walk_yardstick(sets, smi)
+    paths = {f"{label.split(' ')[0]} 320x180 8 spp render": (
+        lambda scene=scene, bounce=(16 if "2400" in label else 6): _render(scene, bounce),
+        320 * 180 * 8) for label, (scene, _, _) in sets.items() if scene is not None}
+    turns = []
+    for label in ("other", "this", "this", "other"):
+        use(other if label == "other" else this)
+        turns.append((label, path_turn(paths)))
+    use(this)
+    for name in paths:
+        o = [t[name] for lab, t in turns if lab == "other"]
+        s_ = [t[name] for lab, t in turns if lab == "this"]
+        print(f"[dense-ab] {smi} | {name}: other {o[0]:.4f}, {o[1]:.4f} Mspps; this "
+              f"{s_[0]:.4f}, {s_[1]:.4f} Mspps; this / other "
+              f"{statistics.fmean(s_) / statistics.fmean(o):.3f}")
+
+
+def _render(scene, bounce):
+    """One render_layer epoch of `scene` at 320x180, 8 spp, bounce limit `bounce`."""
+    from echorenderer_tpu_torch.processes.render import EvaluationProfile, render_layer
+
+    prof = EvaluationProfile(samples_per_epoch=8, max_epoch=1, bounce_limit=bounce,
+                             survivability=2.5, adaptive=False)
+    return render_layer(scene, prof, (320, 180))
+
+
+def build_dense_sweep(dest: Path) -> dict:
+    """This tree's dense_intersect.cu built once for each form of
+    DENSE_SWEEP under `dest`: {name: (ctypes handle, ptxas report)}."""
+    csrc = REPO / "echorenderer_tpu_torch" / "csrc"
+    text = (csrc / "dense_intersect.cu").read_text()
+    procs = {}
+    for form in DENSE_SWEEP:
+        name = "g{kCoopMax} w{kDenseWarps}".format(**form)
+        d = dest / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        for header in csrc.glob("*.cuh"):
+            shutil.copy(header, d)
+        src = text
+        for const, value in form.items():
+            src, n = re.subn(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};",
+                             src)
+            if n != 1:
+                raise RuntimeError(f"dense_intersect.cu has no single {const}")
+        (d / "dense_intersect.cu").write_text(src)
+        procs[name] = nvcc(d / "dense_intersect.cu", d / "libdense_intersect.so")
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the dense form {name}:\n{err}")
+        lib = ctypes.CDLL(str(dest / name.replace(" ", "_") / "libdense_intersect.so"))
+        bind_dense(lib)
+        libs[name] = (lib, err)
+    return libs
+
+
+def dense_form_name(entry: str) -> str:
+    """trace_kernel<has_tri, has_sph> or occlude_kernel<...> from a mangled
+    entry name."""
+    tri, sph = re.search(r"ILb(\d)ELb(\d)E", entry).groups()
+    kind = "trace" if "trace_kernel" in entry else "occlude"
+    return f"{kind}<{tri}, {sph}>"
+
+
+def dense_sweep(sets, smi) -> None:
+    """Every DENSE_SWEEP form's C entry on the dense sets, two passes."""
+    from chip_smoke import entry_ms, ptxas_forms
+
+    forms = build_dense_sweep(REPO / "echorenderer_tpu_torch" / "_build" / "dense_sweep")
+    want = dense_want(sets)
+    runs = {}
+    for name, (lib, ptxas) in forms.items():
+        runs[name] = dense_runs(lib, sets)
+        dense_check(runs[name], want, name)
+        occ = (ctypes.c_int * 3)()
+        regs = "; ".join(f"{dense_form_name(k)} {v.split(',')[0]}" for k, v in
+                         {**ptxas_forms(ptxas, "trace_kernel"),
+                          **ptxas_forms(ptxas, "occlude_kernel")}.items())
+        warps = []
+        for any_hit in (0, 1):
+            lib.dense_occupancy(any_hit, 1, 1, occ)
+            warps.append(occ[0] * occ[1] // 32)
+        print(f"[sweep-dense] {smi} | {name}: resident warps/SM (mixed trace, occlude) "
+              f"{warps[0]}, {warps[1]}; {occ[2]} bytes dynamic smem a block; {regs}")
+    times = {name: {key: [] for key in runs[name]} for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            for key, fn in runs[name].items():
+                times[name][key].append(entry_ms(fn, runs=5))
+    for key in next(iter(runs.values())):
+        n = len(sets[key[0]][2][key[1]])
+        print(f"[sweep-dense] {smi} | {key[0]} {key[1]} ({n} launches), C entry ms a launch "
+              f"(median of 5, two passes): " + "; ".join(
+                  f"{name} {t[key][0] / n:.4f}, {t[key][1] / n:.4f}" for name, t in times.items()))
+    for name, t in times.items():
+        print(f"[sweep-dense] {smi} | {name}: every set's launches summed, ms (two passes): "
+              + ", ".join(f"{sum(v[p] for v in t.values()):.4f}" for p in (0, 1)))
+
+
 def render_paths(scenes_):
     """{path: (fn, samples)} of the render paths the change could touch."""
     from echorenderer_tpu_torch.processes.render import (EvaluationProfile, _sample_frame,
@@ -1051,9 +1430,11 @@ def path_turn(paths) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, help="a checkout to time against (the parent)")
-    ap.add_argument("--sweep", nargs="?", const="seg", choices=("seg", "select-setup"),
-                    help="time the seg kernel's shapes of SWEEP, or setup's and select's forms "
-                         "of SHAPE_SWEEP, instead")
+    ap.add_argument("--sweep", nargs="?", const="seg", choices=("seg", "select-setup", "dense"),
+                    help="time the seg kernel's shapes of SWEEP, setup's and select's forms "
+                         "of SHAPE_SWEEP, or the dense kernels' forms of DENSE_SWEEP, instead")
+    ap.add_argument("--dense", action="store_true",
+                    help="with --other DIR: only the dense kernels' A/B")
     ap.add_argument("--shapes", action="store_true",
                     help="only the setup/select shape table (with --other, both checkouts')")
     ap.add_argument("--mega-stages", action="store_true",
@@ -1070,6 +1451,7 @@ def main() -> int:
     from echorenderer_tpu_torch.ops import binned_trace as bt
     from echorenderer_tpu_torch.ops import megakernel as mk
     from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1078,8 +1460,21 @@ def main() -> int:
         root = REPO if a.other is None else a.other.resolve()
         mega_stages(root, "this" if a.other is None else "other", a.dump, smi)
         return 0
-    this = dict(hier_walk=ph._load(), megakernel=mk._load(), binned=bt._load(), row=bt.ROW)
+    this = dict(hier_walk=ph._load(), megakernel=mk._load(), binned=bt._load(), row=bt.ROW,
+                dense_intersect=pi._load())
     t0 = time.perf_counter()
+    if a.dense or a.sweep == "dense":
+        sets = dense_sets(dev)
+        print(f"[ab] {smi} | dense sets in {time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{label} ({len(c['trace'])} + {len(c['occlude'])} calls, {soa.n_chunks} chunks)"
+            for label, (_, soa, c) in sets.items()))
+        if a.sweep:
+            dense_sweep(sets, smi)
+            return 0
+        other = build_other(a.other.resolve())
+        compare_sass(other, smi)
+        dense_ab(other, this, sets, smi)
+        return 0
     if a.shapes or a.sweep == "select-setup":
         runs = binned_runs(dev, *large_scenes(dev))
         libs = {"this": this["binned"]}
