@@ -111,8 +111,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      - under ECHO_MEGA_HIER, render_layer at 320x180, 8 spp: sphere_grid(
        20_000) under a textured plane and instanced_grid(side=3) (TLAS)
        take the wavefront, sphere_grid(20_000) the chunk-tree form;
-     - median ms of each kernel (10 runs after a warm-up) and its plain
-       version, and the bound: the larger of the float work over 67 TFLOP/s
+     - median ms of each kernel (10 runs after a warm-up) and of its plain
+       version (the megakernel's: the compared wavefront run itself, its
+       least work counted after it; sphere_grid(50_000)'s dense calls: not
+       timed), and the bound: the larger of the float work over 67 TFLOP/s
        and the bytes over 3.35 TB/s. The float work is that of the prim
        tests the rays of this run cannot do without (`least_flops`,
        `least_flops_hier`): chunks a ray does not enter before its final
@@ -154,7 +156,44 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      per launch of its binned calls, megakernel_textured the textured
      form's for the showcase launch, and megakernel_hier the chunk-tree
      form's for the large scene's launch.
-  6. instanced: TLAS instancing, counters zeroed again:
+  6. adaptive: adaptive per-pixel epochs and the AOV evaluators, each
+     render with every launch count zeroed first and its host reads counted
+     (torch.cuda's sync debug mode: one warning a synchronizing call):
+     - the bench scene (sphere_field(80), 960x540) and the showcase
+       (320x180) under EvaluationProfile()'s defaults (16 spp an epoch,
+       epochs 1..20, threshold 0.045, bounce 128; the showcase's max_epoch
+       cut to 8: its later epochs hold a few hundred pixels or fewer, and
+       each costs the wavefront ~5 s) through render_layer on the
+       megakernel: seconds, epochs, samples, mean spp, effective Mspps,
+       peak memory; per epoch its active pixels, seconds, Mspps, form (the
+       pool or the split form, megakernel.split_form), launches and host
+       reads; then the same render on the wavefront with one sample chain
+       (megakernel.supported and render.MAX_LANES patched off): every pixel
+       bitwise equal and the same epochs and samples; at least one checked
+       epoch must take the split form;
+     - bench.py's adaptive configuration (ADAPTIVE_LARGE:
+       sphere_grid(1_000_000) at 1920x1080, 8 spp an epoch, min_epoch 1,
+       threshold 0.045, bounce 6, survivability 2.5) with max_epoch cut
+       from 32 to 4 to keep the phase near a minute: the same numbers per
+       run and per epoch; then its first adaptive epoch again from the same
+       state (`_adaptive_step`), its calls recorded: the walk's launches
+       against their plain versions (compare_hier), every binned launch
+       against its plain version (BinnedCheck) and each binned call against
+       the walk (compare_binned); `tools/torch_profile.py --adaptive` runs
+       the full 32 epochs;
+     - albedo and normal_depth at 320x180 of sphere_field(2400) (the dense
+       kernels), timed, bitwise against the same layers on the kernels'
+       plain versions (a miss's depth is INF, and 16 samples of it sum to
+       inf, as in the JAX package), and of sphere_grid(250_000) (the binned traversal):
+       every binned launch against its plain version, each call against
+       the walk, and the image against the walk's, every differing pixel
+       owning a band-tie ray;
+     - path_lockstep against the wavefront on sphere_field(2400), 320x180,
+       3 spp (one sample chain), bounce 16: sums bitwise, squares to rtol
+       1e-6.
+     The kernels line's hier and binned rows take the largest error of the
+     first adaptive epoch's checks too.
+  7. instanced: TLAS instancing, counters zeroed again:
      instanced_sphere_grids() (4 placements of a 123,008-triangle pack,
      ~2,000 global chunks, a ground plane, an ambient light) prepared with
      instancing="tlas"; the instanced walk (hier_trace / hier_occlude on
@@ -179,7 +218,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      hier_trace[instanced], hier_occlude[instanced], binned_seg[instanced]
      (the instanced forms of hier_kernel and seg_kernel) and
      binned_seg_exact_instanced from this program.
-  7. plucker: the Plücker micro-benchmark's kernels
+  8. plucker: the Plücker micro-benchmark's kernels
      (echorenderer_tpu_torch.benchmarks.plucker_micro, csrc/plucker.cu) at
      2^20 rays against its 256-triangle soup, counters zeroed: its numerics
      as its main() drives them (1 MT launch, 2 each of the Plücker form at
@@ -194,7 +233,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      yardstick. The kernels line adds plucker_mt, plucker_plk_highest and
      plucker_plk_default; binned_seg_exact counts the exact launches of
      the large-scene program's check above.
-  8. summary: a JSON line of the kernels, then the last line
+  9. summary: a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -535,7 +574,9 @@ def run_ms(fn, runs: int = 10, warm: bool = True) -> list[float]:
 
 
 def median_ms(fn, runs: int = 10, warm: bool = True) -> float:
-    return statistics.median(run_ms(fn, runs, warm))
+    """The median of `runs` runs' ms; nan for no run (not timed)."""
+    times = run_ms(fn, runs, warm)
+    return statistics.median(times) if times else float("nan")
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -678,10 +719,13 @@ class RayWork:
     instanced scene the ignores' instances): in `calls` those of the dense
     kernels or the walk (a large scene's coherent first wave), in `binned`
     those of the binned traversal, with each binned call's launches, rounds
-    and host reads in `per_call`."""
+    and host reads in `per_call`. With `defer`, the least work is counted
+    by `finish()` after the run, from the calls kept until then, so the
+    run itself can be timed."""
 
-    def __init__(self, cull: bool, record: bool = False):
-        self.cull, self.record = cull, record
+    def __init__(self, cull: bool, record: bool = False, defer: bool = False):
+        self.cull, self.record, self.defer = cull, record, defer
+        self.pending = []
         self.rays = dict(trace=0, occlude=0)
         self.flops = dict(trace=0.0, occlude=0.0)
         self.calls = dict(trace=[], occlude=[])
@@ -721,7 +765,10 @@ class RayWork:
                 ig = pi._sorted_ignore(soa, ignore)
                 if t_end is not None:
                     t_end = torch.where(t_end[1] >= 0, t_end[0], rays[6])
-                self.flops[kind] += least_flops(soa, rays, ig, t_end, self.cull)
+                if self.defer:
+                    self.pending.append((kind, soa, rays, ig, t_end))
+                else:
+                    self.flops[kind] += least_flops(soa, rays, ig, t_end, self.cull)
             if binned:
                 grew = [a - b for a, b in zip(counts(), before)]
                 self.per_call.append(dict(kind=kind, rays=rays.shape[1], setup=grew[0],
@@ -750,6 +797,13 @@ class RayWork:
         from echorenderer_tpu_torch.evaluation import scene_ops
 
         scene_ops.trace, scene_ops.occlude = self._saved
+
+    def finish(self):
+        """Count the least work of the calls a deferred run kept."""
+        for kind, soa, rays, ig, t_end in self.pending:
+            self.flops[kind] += least_flops(soa, rays, ig, t_end, self.cull)
+        self.pending = []
+        return self
 
 
 def timed(fn):
@@ -1645,9 +1699,11 @@ def tile_lanes(res, dev):
     return pid, pxy
 
 
-def compare_mega(label, scene, res, spp, bounce, dev, plain_runs, seed=0):
+def compare_mega(label, scene, res, spp, bounce, dev, seed=0):
     """The megakernel against its plain version (the wavefront) on one
-    frame; returns (max_abs_err, timings, bound)."""
+    frame; returns (max_abs_err, timings, bound). The plain version's ms is
+    that of the compared run (CUDA events; its counters on, its calls
+    kept for the least-work count, which follows the run)."""
     import torch
 
     from echorenderer_tpu_torch.evaluation.wavefront import run_wavefront
@@ -1662,10 +1718,10 @@ def compare_mega(label, scene, res, spp, bounce, dev, plain_runs, seed=0):
     first_s = time.perf_counter() - t0
     # the megakernel tests every prim for a traced ray, and the prims up to
     # the first blocker for a shadow ray: count that on the plain run's rays
-    with RayWork(cull=False) as work:
-        ps, pq, stats = run_wavefront(scene, pid, pxy, res, seed, 0, spp, return_stats=True,
-                                      **kw)
-    torch.cuda.synchronize()
+    with RayWork(cull=False, defer=True) as work:
+        (ps, pq, stats), plain_ms = timed(lambda: run_wavefront(
+            scene, pid, pxy, res, seed, 0, spp, return_stats=True, **kw))
+    work.finish()
     if not bool(torch.isfinite(ks).all()) or float(ks.sum()) <= 0.0:
         raise AssertionError(f"{label}: megakernel sums non-finite or black")
     t = MEGA_TOL
@@ -1687,13 +1743,11 @@ def compare_mega(label, scene, res, spp, bounce, dev, plain_runs, seed=0):
         raise AssertionError(f"megakernel {label}: {n - int(exact_px.sum())} pixels not "
                              f"bitwise equal to the wavefront")
     ms = median_ms(lambda: mk.sample_frame_mega(scene, pid, pxy, res, seed, 0, spp, **kw))
-    plain_ms = median_ms(lambda: run_wavefront(scene, pid, pxy, res, seed, 0, spp, **kw),
-                         plain_runs, False)
     flops = work.flops["trace"] + work.flops["occlude"]
     tables = [x for x in mk._build_tables(scene) if isinstance(x, torch.Tensor)]
     bound = bound_ms(flops, n * (16 + 24) + table_bytes(scene.prim_soa.rows, *tables))
-    log(f"[kernels] megakernel {label}: median ms (kernel over 10 runs, plain over "
-        f"{plain_runs}): kernel {ms:.4f}, plain {plain_ms:.4f} ({plain_ms / ms:.1f}x); "
+    log(f"[kernels] megakernel {label}: median ms (kernel over 10 runs, plain: the compared "
+        f"run): kernel {ms:.4f}, plain {plain_ms:.4f} ({plain_ms / ms:.1f}x); "
         f"{work.rays['trace']} traced + {work.rays['occlude']} shadow rays (wavefront "
         f"counters {stats['Ray/Traced']:.0f} + {stats['Ray/Shadow']:.0f}); least prim-test "
         f"work {work.flops['trace']:.6g} + {work.flops['occlude']:.6g} flops; bound "
@@ -2270,6 +2324,283 @@ def plucker_phase(dev, smi) -> list:
     return rows
 
 
+ADAPTIVE_LARGE = dict(samples_per_epoch=8, min_epoch=1, max_epoch=4, noise_threshold=0.045,
+                      bounce_limit=6, survivability=2.5)  # bench.py's, max_epoch cut from 32
+
+
+def counted_render(scene, prof, res, seed=0):
+    """render_layer with every launch count zeroed first and the card's
+    host reads counted (torch.cuda's sync debug mode, one warning a
+    synchronizing call): (image, info, per-epoch rows, peak GiB). A row is
+    info["epoch_log"]'s entry (epoch, active pixels, seconds between host
+    reads) with the launches and host reads of that epoch and its Mspps;
+    the final image download's read is counted in info["final_reads"]."""
+    import warnings
+
+    import torch
+
+    from echorenderer_tpu_torch.processes.render import render_layer
+
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reads = lambda: sum("synchroniz" in str(w.message) for w in caught)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            image, info = render_layer(scene, prof, res, seed=seed,
+                                       progress=lambda *a: marks.append((reads(),
+                                                                         launch_counts())))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        total_reads = reads()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows, before = [], (0, dict.fromkeys(launch_counts(), 0))
+    for entry, mark in zip(info["epoch_log"], marks):
+        launched = {k: v - before[1][k] for k, v in mark[1].items() if v - before[1][k]}
+        rows.append(dict(entry, reads=mark[0] - before[0], launches=launched,
+                         mspps=entry["active"] * prof.samples_per_epoch / entry["seconds"] / 1e6))
+        before = mark
+    info["final_reads"] = total_reads - before[0]
+    return image, info, rows, peak
+
+
+def log_epochs(tag, scene, prof, rows, mega: bool) -> None:
+    from echorenderer_tpu_torch.ops import megakernel as mk
+
+    for r in rows:
+        form = ""
+        if mega:
+            form = ", " + ("split form" if mk.split_form(scene, r["active"],
+                                                          prof.samples_per_epoch) else "pool")
+        log(f"[adaptive]   {tag} epoch {r['epoch']}: {r['active']} pixels active, "
+            f"{r['seconds']:.4f} s = {r['mspps']:.3f} Mspps{form}, {r['reads']} host reads, "
+            f"launches {r['launches']}")
+
+
+def adaptive_against_wavefront(label, scene, res, smi, max_epoch=None):
+    """The default EvaluationProfile (adaptive epochs; `max_epoch` cuts its
+    20) through the megakernel, then the same render on the wavefront with
+    one sample chain (the kernel's summation order): every pixel bitwise,
+    the same epochs and samples. Returns the megakernel run's launches by
+    form and the epochs that took the split form."""
+    from unittest import mock
+
+    import numpy as np
+
+    from echorenderer_tpu_torch.evaluation.scene_ops import dispatch_summary
+    from echorenderer_tpu_torch.ops import megakernel as mk
+    from echorenderer_tpu_torch.processes import render as rd
+
+    prof = rd.EvaluationProfile()
+    prof.max_epoch = max_epoch or prof.max_epoch
+    image, info, rows, peak = counted_render(scene, prof, res)
+    launches = dict(mega=mk.sample_frame_mega.launches,
+                    textured=mk.sample_frame_mega.launches_textured)
+    n = res[0] * res[1]
+    log(f"[adaptive] {label} {res[0]}x{res[1]} EvaluationProfile() (spe "
+        f"{prof.samples_per_epoch}, epochs {prof.min_epoch}..{prof.max_epoch}, threshold "
+        f"{prof.noise_threshold}, bounce {prof.bounce_limit}) via "
+        f"{info['dispatch']['integrator']}: "
+        f"{info['epochs']} epochs, {info['samples']} samples ({info['samples'] / n:.2f} spp "
+        f"mean) in {info['seconds']:.3f} s = {info['samples_per_second'] / 1e6:.3f} Mspps "
+        f"effective; megakernel launches {launches}, host reads {sum(r['reads'] for r in rows)} "
+        f"+ {info['final_reads']} (image); peak {peak:.2f} GiB | {smi}")
+    log_epochs(label, scene, prof, rows, mega=True)
+    with mock.patch.object(rd, "MAX_LANES", 0), mock.patch.object(mk, "supported",
+                                                                    lambda s: False):
+        if dispatch_summary(scene)["integrator"] != "wavefront":
+            raise AssertionError(f"{label}: the wavefront comparison did not take the wavefront")
+        wimage, winfo, wrows, wpeak = counted_render(scene, prof, res)
+    differ = int((image != wimage).any(axis=-1).sum())
+    same = (info["epochs"], info["samples"]) == (winfo["epochs"], winfo["samples"])
+    log(f"[adaptive] {label}: the same render on the wavefront (one sample chain): "
+        f"{winfo['epochs']} epochs, {winfo['samples']} samples in {winfo['seconds']:.3f} s, "
+        f"{sum(r['reads'] for r in wrows)} host reads, peak {wpeak:.2f} GiB; "
+        f"{differ} of {n} pixels not bitwise equal, schedule {'equal' if same else 'DIFFERENT'}")
+    log_epochs(f"{label} on the wavefront", scene, prof, wrows, mega=False)
+    if not np.isfinite(image).all() or differ or not same:
+        raise AssertionError(f"{label}: the adaptive megakernel render differs from the wavefront")
+    if sum(launches.values()) != info["epochs"] or info["epochs"] < 2:
+        raise AssertionError(f"{label}: expected one megakernel launch an epoch, adaptive "
+                             f"epochs included")
+    split = [r["epoch"] for r in rows if mk.split_form(scene, r["active"],
+                                                        prof.samples_per_epoch)]
+    return launches, split
+
+
+def aov_checks(label, scene, res, binned: bool, smi):
+    """albedo and normal_depth of `scene` at `res`: timed through
+    render_layer with their kernels' launches counted, then against their
+    plain versions: the dense kernels' plain versions on the same device
+    (bitwise), or, on a binned scene, each binned launch against its plain
+    version (BinnedCheck) and the image against the walk's (every pixel
+    that differs must own a ray on which binned kept another prim in the
+    same band). Returns the launches by kernel."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from echorenderer_tpu_torch.evaluation import scene_ops
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+    from echorenderer_tpu_torch.ops import pallas_hier as ph
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+    from echorenderer_tpu_torch.processes.render import EvaluationProfile, render_layer
+
+    total = {}
+    for evaluator in ("albedo", "normal_depth"):
+        prof = EvaluationProfile(evaluator=evaluator, layer_name=evaluator)
+        render_layer(scene, prof, res)  # warm-up
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image, info = render_layer(scene, prof, res)
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v for k, v in launch_counts().items() if v}
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        if binned:
+            with BinnedCheck(scene.hier_soa) as check, RayWork(cull=True, record=True) as rec:
+                again, _ = render_layer(scene, prof, res)
+            check.summary(f"{label} {evaluator}", kinds=("setup", "select", "seg"))
+            ties = compare_binned(f"{label} {evaluator}", scene.hier_soa, rec.binned)
+            tie_px = np.zeros(res[0] * res[1], bool)
+            for rays, ig in rec.binned["trace"]:
+                p = bt._Walk(rays, ig, scene.hier_soa, False).traverse()[1]
+                other = (p != ph.hier_trace(rays, ig, scene.hier_soa)[1]).nonzero().squeeze(1)
+                tie_px[other.cpu().numpy()] = True
+            with scene_ops.walk_only():
+                plain, _ = render_layer(scene, prof, res)
+            differ = (again != plain).any(axis=-1).reshape(-1)
+            how = (f"against the walk alone: {int(differ.sum())} pixels differ, {ties} band-tie "
+                   f"rays on {int(tie_px.sum())} pixels, {int((differ & ~tie_px).sum())} "
+                   f"differing pixels without a band tie (need 0)")
+            bad = bool((differ & ~tie_px).any()) or not np.array_equal(again, image)
+            want = launched.get("seg", 0) > 0
+        else:
+            with mock.patch.object(pi, "dense_trace", pi.dense_trace_plain):
+                plain, _ = render_layer(scene, prof, res)
+            differ = (image != plain).any(axis=-1)
+            how = f"against the plain versions: {int(differ.sum())} pixels not bitwise equal"
+            bad = bool(differ.any())
+            want = launched.get("dense_trace", 0) > 0
+        # a miss's depth is INF, and a sum of 16 INFs is inf in the JAX package too
+        finite = bool(np.isfinite(image[..., :3]).all() and not np.isnan(image).any())
+        log(f"[adaptive] {label} {evaluator} {res[0]}x{res[1]}: {ms:.3f} ms through render_layer "
+            f"(accelerator {info['dispatch']['accelerator']}), launches {launched}; {how}; "
+            f"finite (depth: finite or +inf) {finite} | {smi}")
+        if bad or not want or not finite:
+            raise AssertionError(f"{label} {evaluator} disagrees with its plain version or did "
+                                 f"not launch its kernels")
+    return total
+
+
+def lockstep_against_wavefront(scene, res, spp, bounce):
+    """path_lockstep against the wavefront on the card: per-sample sums
+    bitwise, sums of squares to rtol 1e-6 (one sample chain: odd spp)."""
+    import torch
+
+    from echorenderer_tpu_torch.processes.render import _sample_frame
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    a, asq = _sample_frame(scene, "path", res, 0, 0, spp, bounce, 2.5)
+    torch.cuda.synchronize()
+    t_wave = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b, bsq = _sample_frame(scene, "path_lockstep", res, 0, 0, spp, bounce, 2.5)
+    torch.cuda.synchronize()
+    t_lock = time.perf_counter() - t0
+    differ = int((a != b).any(dim=-1).sum())
+    sq_ok = bool(torch.allclose(bsq, asq, rtol=1e-6, atol=0.0))
+    log(f"[adaptive] path_lockstep vs the wavefront, {res[0]}x{res[1]} {spp} spp bounce {bounce}: "
+        f"{differ} pixels with sums not bitwise equal, squares within rtol 1e-6 {sq_ok}; "
+        f"wavefront {t_wave:.3f} s, lockstep {t_lock:.3f} s; launches {launch_counts()}")
+    if differ or not sq_ok or float(a.sum()) <= 0.0:
+        raise AssertionError("path_lockstep differs from the wavefront")
+
+
+def adaptive_large(grid, smi):
+    """bench.py's adaptive configuration (ADAPTIVE_LARGE: max_epoch cut
+    from 32 to 4) on sphere_grid(1_000_000) at 1920x1080, then its first
+    adaptive epoch again from the same state with every walk and binned
+    launch checked against its plain version. Returns (launches,
+    check rows for the kernels line)."""
+    import numpy as np
+    import torch
+
+    from echorenderer_tpu_torch.processes import render as rd
+    from echorenderer_tpu_torch.processes.tiles import lane_order
+    from echorenderer_tpu_torch.utils import accumulator as acc_mod
+
+    res = (1920, 1080)
+    n = res[0] * res[1]
+    prof = rd.EvaluationProfile(**ADAPTIVE_LARGE)
+    image, info, rows, peak = counted_render(grid, prof, res)
+    launches = launch_counts()
+    lum = float(np.mean(image))
+    log(f"[adaptive] bench.py's adaptive configuration, sphere_grid(1_000_000) {res[0]}x"
+        f"{res[1]} ({ADAPTIVE_LARGE}) via {info['dispatch']['integrator']} "
+        f"({info['dispatch']['accelerator']}): {info['seconds']:.3f} s, {info['epochs']} epochs, "
+        f"{info['samples']} samples, {info['samples'] / n:.3f} spp mean, "
+        f"{info['samples_per_second'] / 1e6:.4f} Mspps effective, "
+        f"{info['wavefront_iterations']} wavefront iterations, peak {peak:.2f} GiB, mean "
+        f"{lum:.4f} | {smi}")
+    log_epochs("sphere_grid(1M)", grid, prof, rows, mega=False)
+    if (not np.isfinite(image).all() or info["epochs"] < 2
+            or min(launches[k] for k in ("hier_trace", "setup", "select", "seg")) <= 0):
+        raise AssertionError("the large adaptive render is not finite, ran no adaptive epoch "
+                             "or did not take the hier and binned kernels")
+    # the first adaptive epoch again, its calls recorded and every launch checked
+    spe = prof.samples_per_epoch
+    s, q = rd._sample_frame(grid, "path", res, 0, 0, spe, prof.bounce_limit, 2.5)
+    acc = acc_mod.add_many(acc_mod.create((n,), device=s.device), s, q, float(spe))
+    thr = torch.tensor(prof.noise_threshold, dtype=torch.float32, device=s.device)
+    m = int(rd._active_stats(acc, thr)[0])
+    if m != rows[1]["active"]:
+        raise AssertionError(f"the first adaptive epoch's active count {m} differs from the "
+                             f"render's {rows[1]['active']}")
+    perm = torch.as_tensor(lane_order(res)[0].astype(np.int64), device=s.device)
+    drawn = torch.full((n,), spe, dtype=torch.int64, device=s.device)
+    zero_launch_counts()
+    label = f"sphere_grid(1M) first adaptive epoch ({m} pixels)"
+    with RayWork(cull=True, record=True) as rec, BinnedCheck(grid.hier_soa) as check:
+        rd._adaptive_step(grid, acc, drawn, perm, thr, res, spe, prof.bounce_limit, 2.5, 0, m)
+    log(f"[adaptive] {label}: launches {launch_counts()}")
+    err, ms, bound = compare_hier(label, grid.hier_soa, rec.calls)
+    out = check.summary(label, kinds=("setup", "select", "seg"))
+    compare_binned(label, grid.hier_soa, rec.binned)
+    return launches, dict(err=err, binned=out)
+
+
+def adaptive_phase(dev, smi, bench, showcase, large, mid, grid) -> dict:
+    """Phase 6 (see the module docstring). Returns the adaptive programs'
+    launches by kernel and the largest checked errors."""
+    import torch
+
+    t0 = time.perf_counter()
+    mega, split_bench = adaptive_against_wavefront("sphere_field(80)", bench, (960, 540), smi)
+    # the showcase's epochs past the 8th hold a few hundred pixels or fewer
+    # and cost the wavefront ~5 s each (bounce 128 tails)
+    tex, split_show = adaptive_against_wavefront("showcase", showcase, (320, 180), smi,
+                                                 max_epoch=8)
+    log(f"[adaptive] split-form epochs: bench {split_bench}, showcase {split_show}")
+    if not split_bench + split_show:
+        raise AssertionError("no checked adaptive launch took the split form")
+    large_launches, checked = adaptive_large(grid, smi)
+    dense = aov_checks("sphere_field(2400)", large, (320, 180), binned=False, smi=smi)
+    binned = aov_checks("sphere_grid(250_000)", mid, (320, 180), binned=True, smi=smi)
+    lockstep_against_wavefront(large, (320, 180), 3, 16)
+    torch.cuda.synchronize()
+    log(f"[adaptive] phase {time.perf_counter() - t0:.1f} s")
+    return dict(mega=mega["mega"], textured=tex["textured"], large=large_launches, dense=dense,
+                binned=binned, checked=checked)
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2386,7 +2717,7 @@ def main() -> int:
         return fail(f"sphere_grid({MESH_GRID}) is not on the dense kernels' path")
     err_d, _, _ = compare_dense(
         f"sphere_grid({MESH_GRID}) 320x180 8 spp bounce 6, the wavefront path's calls",
-        mesh.prim_soa, recorded_calls(mesh, (320, 180), 8, 6), plain_runs=1, smi=smi)
+        mesh.prim_soa, recorded_calls(mesh, (320, 180), 8, 6), plain_runs=0, smi=smi)
     del mesh
 
     # --- kernel phase: the megakernel against the wavefront ---
@@ -2404,11 +2735,11 @@ def main() -> int:
     for label, scene, res in mega_cases:
         if not mk.supported(scene):
             return fail(f"{label} lies outside the megakernel's envelope")
-        err, _, _ = compare_mega(label, scene, res, 8, 16, dev, plain_runs=1)
+        err, _, _ = compare_mega(label, scene, res, 8, 16, dev)
         mega_err = max(mega_err, err)
     # the launch of the main path's bench render stands for the kernel
     err, mega_ms, mega_bound = compare_mega("sphere_field(80) 960x540", bench, (960, 540), 64,
-                                            16, dev, plain_runs=1)
+                                            16, dev)
     mega_err = max(mega_err, err)
     many = mega_cases[3][1]
     if many.lights.tree is None:
@@ -2440,13 +2771,12 @@ def main() -> int:
             f"normal map, roughness) {flags}, {scene.prim_soa.padded} padded prims")
         if not mk.supported(scene) or scene.tex_atlas.shape[0] == 0:
             return fail(f"{label} is not a textured scene inside the megakernel's envelope")
-        err, _, _ = compare_mega(label, scene, res, 8, 16, dev, plain_runs=1)
+        err, _, _ = compare_mega(label, scene, res, 8, 16, dev)
         tex_err = max(tex_err, err)
     if not tex_cases[3][1].materials.tex_flags[1:] == (True, True):
         return fail("the normal-map scene does not run the normal-map and roughness stages")
     # the launch of the main path's showcase render stands for the textured form
-    err, tex_ms, tex_bound = compare_mega("showcase 960x540", showcase, (960, 540), 64, 16, dev,
-                                          plain_runs=1)
+    err, tex_ms, tex_bound = compare_mega("showcase 960x540", showcase, (960, 540), 64, 16, dev)
     tex_err = max(tex_err, err)
     five = prepare_scene(showcase_scene(fifth_texture=True), device=dev)
     reason = mk.unsupported_reason(five)
@@ -2500,8 +2830,7 @@ def main() -> int:
     compare_binned("sphere_grid(1M) random rays", hsoa, dict(trace=[call], occlude=[call]))
     del call, o, d, t_max, ignore
     mid = prepare_scene(scenes.sphere_grid(250_000), device=dev)
-    err_m, _, _, _ = renders_against_dense(mid, (320, 180), 8, 6)
-    del mid
+    err_m, _, _, _ = renders_against_dense(mid, (320, 180), 8, 6)  # its AOVs: phase 6
     # the chunk-tree form with emitters, the light tree and MIS on emissive
     # hits: many_lights(256) (many_lights(96) has 122 prims, one chunk, and
     # a chunk tree needs two) with its tables built directly
@@ -2701,7 +3030,12 @@ def main() -> int:
     err_r, ms_h, bound_h = compare_hier(label, hsoa, rec.calls)
     b_out = check.summary(label)
     compare_binned(label, hsoa, rec.binned)
-    del rec, check, grid, hsoa
+    del rec, check
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
+    # --- adaptive phase: adaptive epochs and the AOV evaluators ---
+    adaptive = adaptive_phase(dev, smi, bench, showcase, large, mid, grid)
+    del grid, hsoa, mid
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     # --- slice phase: TLAS instancing, counters from zero ---
@@ -2735,14 +3069,16 @@ def main() -> int:
         hier_row,
     ] + [
         dict(name=f"hier_{k}", route="cuda", source=HIER_SOURCE, replaces=HIER_SITE,
-             launches=hier[k], max_abs_err=max(err_h[k], err_r[k]), ms=ms_h[k],
+             launches=hier[k],
+             max_abs_err=max(err_h[k], err_r[k], adaptive["checked"]["err"][k]), ms=ms_h[k],
              plain_ms=ms_h[f"{k}_plain"], bound_ms=bound_h[k][0], bound_by=bound_h[k][1],
              library_ms=None)
         for k in ("trace", "occlude")
     ] + [
         dict(name=f"binned_{k}", route="cuda", source=BINNED_SOURCE, replaces=BINNED_SITES[k],
              launches=binned[k],
-             max_abs_err=float(max(b_rnd[k]["max_abs_err"], b_out[k]["max_abs_err"])),
+             max_abs_err=float(max(b_rnd[k]["max_abs_err"], b_out[k]["max_abs_err"],
+                                   adaptive["checked"]["binned"][k]["max_abs_err"])),
              ms=b_out[k]["ms"],
              plain_ms=b_out[k]["plain_ms"], bound_ms=b_out[k]["bound_ms"],
              bound_by=b_out[k]["bound_by"], library_ms=b_out[k]["library_ms"])

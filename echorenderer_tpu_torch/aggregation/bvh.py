@@ -1,7 +1,9 @@
 """Host-side SAH BVH build (counterpart of the numpy build in
 echorenderer_tpu/aggregation/bvh.py). The port traces through the dense
 chunk kernels, which only need the BVH's leaf order of the prims, so the
-tree is built here and its `prim_order` packs spatially tight chunks.
+tree is built here and its `prim_order` packs spatially tight chunks. A
+prepared scene keeps the tree on its device (`on_device`) for
+`trace_cost`, the traversal-cost AOV's walk.
 
 Leaf encoding in a child slot (int32):
   >= 0 : interior node index
@@ -14,8 +16,12 @@ import sys
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from ..ops.intersect import INF
 
 LEAF_MAX = 4  # max primitives per leaf
+STACK_DEPTH = 48  # trace_cost's traversal stack (the JAX package's)
 
 
 def _encode_leaf(start: int, count: int) -> int:
@@ -23,9 +29,15 @@ def _encode_leaf(start: int, count: int) -> int:
     return -(1 + (start << 4) + count)
 
 
+def _decode_leaf(code):
+    """(start, count) of leaf codes."""
+    bits = -code - 1
+    return bits >> 4, bits & 15
+
+
 class FlatBVH(NamedTuple):
-    """Flattened binary BVH (numpy). Interior node i stores its children's
-    bounds."""
+    """Flattened binary BVH (numpy arrays; tensors on a prepared scene,
+    `on_device`). Interior node i stores its children's bounds."""
 
     child_min: np.ndarray  # (B, 2, 3)
     child_max: np.ndarray  # (B, 2, 3)
@@ -129,3 +141,98 @@ def geometry_bounds(geom_np: dict) -> tuple[np.ndarray, np.ndarray]:
         mins.append(geom_np["sph_center"] - r)
         maxs.append(geom_np["sph_center"] + r)
     return np.concatenate(mins, 0), np.concatenate(maxs, 0)
+
+
+def on_device(bvh: FlatBVH, device) -> FlatBVH:
+    """The same tree with its arrays as tensors on `device` (root_code
+    stays an int): what a prepared scene keeps."""
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return FlatBVH(child_min=put(bvh.child_min), child_max=put(bvh.child_max),
+                   child_code=put(bvh.child_code), prim_order=put(bvh.prim_order),
+                   root_code=int(bvh.root_code))
+
+
+def join(parts: list, bounds: list) -> FlatBVH:
+    """One tree over several built trees (numpy FlatBVHs whose prim_order
+    already holds global prim ids, with their root boxes): a chain of join
+    nodes, node j holding part j and the join of the rest, then each
+    part's nodes with their codes moved past those before them."""
+    k = len(parts)
+    if k == 1:
+        return parts[0]
+    n_join = k - 1
+    node_off, prim_off = [], []
+    nodes = n_join
+    prims = 0
+    for b in parts:
+        node_off.append(nodes)
+        prim_off.append(prims)
+        nodes += b.child_code.shape[0]
+        prims += b.prim_order.shape[0]
+
+    def moved(code, i):
+        code = np.asarray(code, np.int64)
+        start, count = _decode_leaf(code)
+        leaf = -(1 + ((start + prim_off[i]) << 4) + count)
+        return np.where(code >= 0, code + node_off[i], leaf).astype(np.int32)
+
+    cmin = np.zeros((nodes, 2, 3), np.float32)
+    cmax = np.zeros((nodes, 2, 3), np.float32)
+    ccode = np.zeros((nodes, 2), np.int32)
+    for i, b in enumerate(parts):
+        sl = slice(node_off[i], node_off[i] + b.child_code.shape[0])
+        cmin[sl], cmax[sl], ccode[sl] = b.child_min, b.child_max, moved(b.child_code, i)
+    lo = [np.asarray(bmin, np.float32) for bmin, _ in bounds]
+    hi = [np.asarray(bmax, np.float32) for _, bmax in bounds]
+    for j in range(n_join):
+        rest = range(j + 1, k)
+        cmin[j, 0], cmax[j, 0] = lo[j], hi[j]
+        cmin[j, 1] = np.min([lo[i] for i in rest], 0)
+        cmax[j, 1] = np.max([hi[i] for i in rest], 0)
+        ccode[j, 0] = moved(parts[j].root_code, j)
+        ccode[j, 1] = j + 1 if j + 1 < n_join else moved(parts[k - 1].root_code, k - 1)
+    return FlatBVH(child_min=cmin, child_max=cmax, child_code=ccode,
+                   prim_order=np.concatenate([b.prim_order for b in parts]).astype(np.int32),
+                   root_code=0)
+
+
+def trace_cost(bvh: FlatBVH, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Per-ray traversal cost of a tree on the rays' device (`on_device`):
+    1 per interior node visited and LEAF_MAX per leaf, every box the ray
+    enters at any t > 0 (counterpart of the JAX package's `trace_cost`,
+    step for step: a STACK_DEPTH stack whose pushes past the top land on
+    its last slot, both children of a node pushed in slot order). The loop
+    reads whether any ray's stack holds a node once a level."""
+    n = o.shape[0]
+    dev = o.device
+    tiny = torch.where(d < 0, -1e-12, 1e-12)
+    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-12, tiny, d)
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int32, device=dev)
+    stack[:, 0] = bvh.root_code
+    sp = torch.ones(n, dtype=torch.int64, device=dev)
+    cost = torch.zeros(n, dtype=torch.float32, device=dev)
+    num_nodes = bvh.child_code.shape[0]
+    top = STACK_DEPTH - 1
+    while bool((sp > 0).any()):
+        active = sp > 0
+        sp_idx = torch.clamp(sp - 1, min=0)
+        code = torch.gather(stack, 1, torch.clamp(sp_idx, max=top)[:, None])[:, 0]
+        code = torch.where(active & (sp_idx <= top), code, 0)
+        sp = torch.where(active, sp - 1, sp)
+        is_interior = active & (code >= 0)
+        node = torch.clamp(code, 0, num_nodes - 1).long()
+        t0 = (bvh.child_min[node] - o[:, None, :]) * inv_d[:, None, :]
+        t1 = (bvh.child_max[node] - o[:, None, :]) * inv_d[:, None, :]
+        t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+        t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+        hit = (t_near <= t_far) & (t_far > 0.0) & (t_near < INF) & is_interior[:, None]
+        ccode = bvh.child_code[node]
+        for side in range(2):
+            idx = torch.clamp(sp, max=top)[:, None]
+            cur = torch.gather(stack, 1, idx)
+            stack.scatter_(1, idx, torch.where(hit[:, side:side + 1], ccode[:, side:side + 1],
+                                               cur))
+            sp = sp + hit[:, side].to(torch.int64)
+        cost = cost + torch.where(is_interior, 1.0, 0.0)
+        cost = cost + torch.where(active & (code < 0), float(LEAF_MAX), 0.0)
+    return cost

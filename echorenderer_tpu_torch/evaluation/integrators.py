@@ -1,15 +1,26 @@
-"""The path tracer's one physics function (counterpart of
-echorenderer_tpu/evaluation/integrators.py `path_step`): trace the pending
+"""Integrators ("evaluators"), counterpart of
+echorenderer_tpu/evaluation/integrators.py.
+
+`path_step` is the path tracer's one physics function: trace the pending
 ray, add MIS-weighted emission and infinite-light radiance, run NEE with
 a shadow ray, sample the BSDF and apply Russian roulette, for every lane
 at once under masks. Op for op the JAX package's, so the same lanes draw
-the same samples and take the same decisions.
+the same samples and take the same decisions. The other evaluators:
+  - path_trace: the lockstep path tracer over `path_step` (the
+    "path_lockstep" evaluator), the A/B reference of the wavefront's
+    regeneration: its per-sample sums equal the wavefront's bitwise;
+  - naive_trace: brute-force paths without NEE or MIS;
+  - albedo, normal_depth, aggregator_quality: first-hit AOVs (the last
+    one a false colour of each ray's BVH traversal cost).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..aggregation.bvh import trace_cost
 from ..ops.intersect import INF
 from ..scene.prepare import LIGHT_AMBIENT, PreparedScene
 from ..utils import colors, vec
@@ -152,3 +163,136 @@ def path_step(scene: PreparedScene, stream: SampleStream, st: dict, live, *,
         hit_inst=hit_inst,
         aux=dict(found=found, candidate=candidate, has_bounce=has_bounce, survived=survived),
     )
+
+
+def path_trace(scene: PreparedScene, stream: SampleStream, origin, direction, *,
+               bounce_limit: int = 128, survivability: float = 2.5,
+               first_wave_coherent: bool = False):
+    """Radiance along camera rays, every lane through the bounce loop
+    together under masks until none is live (a host read an iteration).
+    `first_wave_coherent` marks relative sample 0: its camera bounce is
+    traced with `coherent=True`, as the wavefront's peeled iteration 0 is,
+    so both keep the same per-sample sums."""
+    n = origin.shape[0]
+    dev = origin.device
+    st = dict(
+        radiance=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        throughput=torch.ones((n, 3), dtype=torch.float32, device=dev),
+        o=origin,
+        d=direction,
+        depth=torch.zeros(n, dtype=torch.int32, device=dev),
+        prev_pdf=torch.zeros(n, dtype=torch.float32, device=dev),
+        prev_specular=torch.ones(n, dtype=torch.bool, device=dev),  # camera rays: specular
+        prev_point=origin,
+        ignore=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        ignore_inst=torch.zeros(n, dtype=torch.int32, device=dev),
+    )
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def body(live, st, coherent=False):
+        out = path_step(scene, stream, st, live, bounce_limit=bounce_limit,
+                        survivability=survivability, coherent=coherent)
+        return live & out["continues"], dict(
+            radiance=out["radiance"],
+            throughput=out["new_tp"],
+            o=out["cont_o"],
+            d=out["wi_world"],
+            depth=st["depth"] + 1,
+            prev_pdf=out["bs_pdf"],
+            prev_specular=out["bs_specular"],
+            prev_point=out["contact_point"],
+            ignore=out["hit_prim"].to(torch.int32),
+            ignore_inst=out["hit_inst"].to(torch.int32),
+        )
+
+    if first_wave_coherent:
+        live, st = body(live, st, coherent=True)
+    while bool(live.any()):
+        live, st = body(live, st)
+    return st["radiance"]
+
+
+def naive_trace(scene: PreparedScene, stream: SampleStream, origin, direction, *,
+                bounce_limit: int = 8):
+    """Brute-force path tracer without NEE or MIS (white-noise BSDF draws):
+    the ground truth the MIS machinery is checked against."""
+    n = origin.shape[0]
+    dev = origin.device
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    o, d = origin, direction
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    ignore = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    ignore_inst = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    for depth in range(bounce_limit + 1):
+        seg_t = torch.where(active, INF, 0.0)
+        hit = scene_ops.trace(scene, o, d, seg_t, ignore, ignore_inst)
+        found = active & hit.found
+        escaped = active & ~hit.found
+        radiance = radiance + torch.where(
+            escaped[..., None], throughput * scene_ops.eval_infinite(scene, d, depth == 0), 0.0
+        )
+        contact = scene_ops.interact(scene, hit, o, d)
+        radiance = radiance + torch.where(
+            found[..., None], throughput * scene_ops.emission_at(scene, contact, -d), 0.0
+        )
+        if depth == bounce_limit:
+            break
+        tangent, bitangent = vec.orthonormal_frame(contact.shade_normal)
+        wo_local = vec.to_local(-d, tangent, bitangent, contact.shade_normal)
+        dim = CAMERA_DIMS + BOUNCE_DIM_STRIDE * depth
+        u2 = stream.white_2d(dim + DIM_BSDF)
+        ul = stream.white_1d(dim + DIM_LOBE)
+        bs = bsdf_mod.sample(contact.material, wo_local, u2, ul)
+        cos_i = torch.abs(bs.incident[..., 2])
+        weight = bs.value * (cos_i / torch.clamp(bs.pdf, min=1e-20))[..., None]
+        throughput = throughput * torch.where(
+            found[..., None] & (bs.pdf > 0.0)[..., None], weight, 1.0
+        )
+        active = found & (bs.pdf > 0.0)
+        wi_world = vec.to_world(bs.incident, tangent, bitangent, contact.shade_normal)
+        o = _offset_origin(contact.point, contact.geo_normal, wi_world)
+        d = torch.where(active[..., None], wi_world, d)
+        ignore = torch.clamp(hit.prim, min=0).to(torch.int32)
+        ignore_inst = (hit.inst if hit.inst is not None
+                       else torch.zeros_like(hit.prim)).to(torch.int32)
+    return radiance
+
+
+def _first_hit(scene: PreparedScene, origin, direction):
+    n = origin.shape[0]
+    dev = origin.device
+    hit = scene_ops.trace(scene, origin, direction,
+                          torch.full((n,), INF, dtype=torch.float32, device=dev),
+                          torch.full((n,), -1, dtype=torch.int32, device=dev))
+    return hit, scene_ops.interact(scene, hit, origin, direction)
+
+
+def albedo(scene: PreparedScene, stream: SampleStream, origin, direction):
+    """First-hit surface albedo AOV; misses evaluate the infinite lights
+    seen by the camera."""
+    hit, contact = _first_hit(scene, origin, direction)
+    miss = scene_ops.eval_infinite(scene, direction, True)
+    return torch.where(hit.found[..., None], contact.material.albedo, miss)
+
+
+def aggregator_quality(scene: PreparedScene, stream: SampleStream, origin, direction):
+    """False-colour traversal-cost AOV: each camera ray's BVH cost
+    (`aggregation/bvh.trace_cost`) on a soft log scale, cheap rays blue,
+    expensive ones through green to red (~32 visits is mid-range)."""
+    cost = trace_cost(scene.bvh, origin, direction)
+    x = torch.clamp(torch.log1p(cost) / math.log(256.0), 0.0, 1.0)
+    r = torch.clamp(2.0 * x - 0.5, 0.0, 1.0)
+    g = 1.0 - torch.abs(2.0 * x - 1.0)
+    b = torch.clamp(1.0 - 2.0 * x, 0.0, 1.0)
+    return torch.stack([r, g, b], dim=-1)
+
+
+def normal_depth(scene: PreparedScene, stream: SampleStream, origin, direction):
+    """Shading normal and hit distance AOV, (N, 4): zero normal and INF
+    depth on a miss."""
+    hit, contact = _first_hit(scene, origin, direction)
+    normal = torch.where(hit.found[..., None], contact.shade_normal, 0.0)
+    depth = torch.where(hit.found, hit.t, INF)
+    return torch.cat([normal, depth[..., None]], dim=-1)

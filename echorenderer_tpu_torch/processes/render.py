@@ -1,12 +1,26 @@
 """Render orchestration (counterpart of echorenderer_tpu/processes/render.py):
-profiles, the path-traced frame sampler and the epoch loop with per-pixel
-Welford accumulation.
+profiles, the frame samplers and the epoch loop with per-pixel Welford
+accumulation and adaptive per-pixel epochs.
 
-This package runs the "path" evaluator, full-frame epochs only: through
-the fused megakernel for CUDA scenes inside its envelope (and, under
-ECHO_MEGA_HIER, larger ones inside its chunk-tree form's), otherwise
-through the regenerating wavefront. Adaptive per-pixel epochs and the
-composition stack raise NotImplementedError until they are ported.
+The "path" evaluator runs through the fused megakernel for CUDA scenes
+inside its envelope (and, under ECHO_MEGA_HIER, larger ones inside its
+chunk-tree form's), otherwise through the regenerating wavefront. The
+other evaluators of `EVALUATORS` (the lockstep path tracer, the naive
+one and the first-hit AOVs) run a sample at a time over every pixel in
+scan order; the deterministic AOVs stop after one epoch.
+
+Adaptive epochs (the "path" evaluator's default): after `min_epoch`
+full-frame epochs, each epoch samples only the pixels whose own noise is
+above the threshold, compacted into dense lanes in tile order, each
+continuing its own sample stream, and merges their sums back by scatter.
+An epoch costs one host read, the 2-float (active count, max noise) of
+`_active_stats`. The JAX package pads the compacted lanes to a few
+bucket sizes (`_bucket_size`) with masked copies of one pixel, to bound
+its number of compiled programs; every draw keys on (seed, pixel, sample,
+dim) and every lane's sums are its own, so the padding changes no sum,
+and this port samples the active lanes alone.
+
+The composition stack raises NotImplementedError until it is ported.
 """
 
 from __future__ import annotations
@@ -17,11 +31,31 @@ import time
 import numpy as np
 import torch
 
+from ..evaluation import integrators
+from ..scene.cameras import spawn_rays
 from ..scene.prepare import PreparedScene
 from ..utils import accumulator as acc_mod
+from ..utils.rng import MASK32, SampleStream, as_u32
 
 # lanes one wavefront may hold: chains multiply the lane count up to this
 MAX_LANES = 4_194_304
+
+EVALUATORS = {
+    "path": integrators.path_trace,  # runs as the wavefront or the megakernel
+    "path_lockstep": integrators.path_trace,  # lockstep A/B reference
+    "naive": integrators.naive_trace,
+    "albedo": integrators.albedo,
+    "normal_depth": integrators.normal_depth,
+    "aggregator_quality": integrators.aggregator_quality,
+}
+
+AOV_CHANNELS = {
+    "path": 3, "path_lockstep": 3, "naive": 3,
+    "albedo": 3, "normal_depth": 4, "aggregator_quality": 3,
+}
+
+# deterministic AOVs: one epoch is the image
+ONE_EPOCH = ("albedo", "normal_depth", "aggregator_quality")
 
 
 @dataclasses.dataclass
@@ -52,12 +86,12 @@ class RenderProfile:
 def _sample_frame(scene: PreparedScene, evaluator: str, resolution, seed, sample_start,
                   count, bounce_limit, survivability, return_stats: bool = False):
     """Accumulate `count` samples for every pixel. Returns (sum, sum_sq) of
-    shape (H*W, 3) in scan order (plus the wavefront's stats dict when
+    shape (H*W, C) in scan order, C = AOV_CHANNELS[evaluator] (plus, for
+    the "path" evaluator, the wavefront's stats dict when
     `return_stats`)."""
     if evaluator != "path":
-        raise NotImplementedError(
-            f"evaluator {evaluator!r} is not in the PyTorch port yet (only 'path')"
-        )
+        return _sample_frame_aov(scene, evaluator, resolution, seed, sample_start, count,
+                                 bounce_limit, survivability)
     from ..evaluation.scene_ops import dispatch_summary
     from ..evaluation.wavefront import sample_frame_wavefront
     from .tiles import lane_order
@@ -87,7 +121,7 @@ def _sample_frame(scene: PreparedScene, evaluator: str, resolution, seed, sample
     )
     out = sample_frame_wavefront(
         scene, rep(pixel_id), rep(pixel_xy), resolution, seed,
-        (int(sample_start) + chain) & 0xFFFFFFFF, count // chains,
+        (int(sample_start) + chain) & MASK32, count // chains,
         bounce_limit=bounce_limit, survivability=survivability, return_stats=return_stats,
     )
     s_sum, s_sq = out[0], out[1]
@@ -100,34 +134,175 @@ def _sample_frame(scene: PreparedScene, evaluator: str, resolution, seed, sample
     return s_sum[inv_d], s_sq[inv_d]  # back to scan (pixel-id) order
 
 
+def _sample_frame_aov(scene: PreparedScene, evaluator: str, resolution, seed, sample_start,
+                      count, bounce_limit, survivability):
+    """Every other evaluator: a sample at a time over every pixel in scan
+    order, each sample's camera ray from the stream's dims 0 and 1.
+    The path tracers' non-finite values count as 0. path_lockstep's
+    relative sample 0 takes the coherent dispatch, as the wavefront's
+    peeled iteration 0 does."""
+    if evaluator not in EVALUATORS:
+        raise ValueError(f"unknown evaluator {evaluator!r}; one of {sorted(EVALUATORS)}")
+    dev = scene.device
+    width, height = resolution
+    n = width * height
+    channels = AOV_CHANNELS[evaluator]
+    pixel_id = torch.arange(n, dtype=torch.int64, device=dev)
+    pixel_xy = torch.stack([pixel_id % width, pixel_id // width], dim=-1).to(torch.int32)
+    fn = EVALUATORS[evaluator]
+    seed_t = as_u32(seed, dev)
+
+    def one_sample(i, s_sum, s_sq, first=False):
+        stream = SampleStream(pixel_id=pixel_id,
+                              sample_id=as_u32((int(sample_start) + i) & MASK32, dev),
+                              seed=seed_t)
+        o, d = spawn_rays(scene.camera, pixel_xy, stream.next_2d(0), stream.next_2d(1),
+                          resolution)
+        if evaluator == "path_lockstep":
+            value = fn(scene, stream, o, d, bounce_limit=bounce_limit,
+                       survivability=survivability, first_wave_coherent=first)
+        elif evaluator == "naive":
+            value = fn(scene, stream, o, d, bounce_limit=bounce_limit)
+        else:
+            value = fn(scene, stream, o, d)
+        if evaluator in ("path_lockstep", "naive"):
+            value = torch.nan_to_num(value, nan=0.0, posinf=0.0, neginf=0.0)
+        return s_sum + value, s_sq + value * value
+
+    s_sum = torch.zeros((n, channels), dtype=torch.float32, device=dev)
+    s_sq = torch.zeros_like(s_sum)
+    start_i = 0
+    if evaluator == "path_lockstep" and count >= 1:
+        s_sum, s_sq = one_sample(0, s_sum, s_sq, first=True)
+        start_i = 1
+    for i in range(start_i, count):
+        s_sum, s_sq = one_sample(i, s_sum, s_sq)
+    return s_sum, s_sq
+
+
+def _sample_active(scene: PreparedScene, ids, starts, resolution, seed, count: int,
+                   bounce_limit, survivability, return_stats: bool = False):
+    """`count` path samples for an arbitrary (compacted) set of pixel
+    lanes `ids`, each continuing its own stream at its `starts` index
+    (32-bit words). Returns (sum, sum_sq), each (m, 3) in lane order (and
+    the wavefront's stats when `return_stats`)."""
+    from ..evaluation.wavefront import sample_frame_wavefront
+
+    width = resolution[0]
+    pixel_xy = torch.stack([ids % width, ids // width], dim=-1).to(torch.int32)
+    return sample_frame_wavefront(
+        scene, ids, pixel_xy, resolution, seed, starts, count,
+        bounce_limit=bounce_limit, survivability=survivability, return_stats=return_stats,
+    )
+
+
+def _active_stats(acc: acc_mod.Accumulator, threshold: torch.Tensor) -> torch.Tensor:
+    """[active-pixel count, max noise] as one 2-float tensor on the
+    accumulator's device, so an adaptive epoch reads the host once."""
+    noise_px = acc_mod.max_noise(acc)
+    m = torch.sum(noise_px > threshold).to(torch.float32)
+    return torch.stack([m, torch.max(noise_px)])
+
+
+def _adaptive_step(scene: PreparedScene, acc: acc_mod.Accumulator, drawn, perm, threshold,
+                   resolution, count: int, bounce_limit, survivability, seed, m: int,
+                   return_stats: bool = False):
+    """One adaptive epoch: the `m` pixels whose noise is above `threshold`,
+    taken in lane (tile) order (`perm`), sample `count` more samples each
+    from `drawn[pixel]` on, and their sums are scattered into zeros and
+    merged. `m` is `_active_stats`' count on the same accumulator; the
+    compaction is a stable sort of the inactive flags, so it reads nothing
+    back. `drawn` is an (n,) int64 tensor of 32-bit words, the samples
+    each pixel has drawn. Returns (acc, drawn), plus the wavefront's stats
+    when `return_stats`."""
+    n = perm.shape[0]
+    dev = acc.mean.device
+    active = acc_mod.max_noise(acc)[perm] > threshold  # lane (tile) order
+    lanes = torch.argsort((~active).to(torch.uint8), stable=True)[:m]
+    ids = perm[lanes]
+    out = _sample_active(scene, ids, drawn[ids], resolution, seed, count, bounce_limit,
+                         survivability, return_stats=return_stats)
+    zeros = lambda c: torch.zeros((n, c), dtype=torch.float32, device=dev)
+    full_sum = zeros(3).index_add_(0, ids, out[0])
+    full_sq = zeros(3).index_add_(0, ids, out[1])
+    k = zeros(1).index_fill_(0, ids, float(count))
+    new_acc = acc_mod.add_many(acc, full_sum, full_sq, k)
+    new_drawn = drawn.index_add(0, ids, torch.full_like(ids, count)) & MASK32
+    if return_stats:
+        return new_acc, new_drawn, out[2]
+    return new_acc, new_drawn
+
+
+def _adaptive_epochs(scene: PreparedScene, profile, resolution, seed, acc, drawn,
+                     first_epoch: int, progress, total_samples: int, stats_on: bool,
+                     log: list):
+    """The per-pixel adaptive phase: epochs `first_epoch` .. max_epoch - 1,
+    each one `_active_stats` read and one `_adaptive_step`, until no pixel
+    is above the threshold. The schedule is a pure function of the
+    accumulated state, and each pixel draws its own sample ids
+    [drawn, drawn + count), so a (scene, seed, profile) always gives the
+    same image. Appends one entry an epoch to `log` (epoch, active pixels,
+    the time of its host read). Returns (acc, epochs_run, total_samples,
+    wavefront iterations or None)."""
+    from .tiles import lane_order
+
+    dev = acc.mean.device
+    perm, _ = lane_order(resolution)
+    perm_d = torch.as_tensor(perm.astype(np.int64), device=dev)
+    thr = torch.tensor(profile.noise_threshold, dtype=torch.float32, device=dev)
+    spe = profile.samples_per_epoch
+    epochs_run = first_epoch
+    iterations = 0 if stats_on else None
+    for epoch in range(first_epoch, profile.max_epoch):
+        m_f, noise_max = _active_stats(acc, thr).tolist()
+        m = int(m_f)
+        if m == 0:
+            break
+        log.append(dict(epoch=epoch + 1, active=m, read_at=time.perf_counter()))
+        out = _adaptive_step(scene, acc, drawn, perm_d, thr, tuple(resolution), spe,
+                             profile.bounce_limit, profile.survivability, seed, m,
+                             return_stats=stats_on)
+        acc, drawn = out[0], out[1]
+        if stats_on:
+            iterations += out[2]["Loop/Iterations"]
+        total_samples += spe * m
+        epochs_run = epoch + 1
+        if progress:
+            progress(epoch + 1, profile.max_epoch, float(noise_max))
+    return acc, epochs_run, total_samples, iterations
+
+
 def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
                  seed: int = 0, progress=None):
-    """Run the epoch loop for one layer. Returns (image (H, W, C) numpy,
-    info dict with sample statistics)."""
-    adaptive = (
-        profile.adaptive and profile.evaluator == "path"
-        and profile.max_epoch > profile.min_epoch
-    )
-    if adaptive:
-        raise NotImplementedError(
-            "adaptive epochs are not in the PyTorch port yet "
-            "(ROADMAP.md: queue 1, adaptive epochs); pass adaptive=False"
-        )
+    """Run the epoch loop for one layer: full-frame epochs, then, for an
+    adaptive "path" layer, the adaptive phase. Returns (image (H, W, C)
+    numpy, info dict with sample statistics; info["epoch_log"] lists each
+    epoch's pixels sampled and seconds, host read to host read)."""
     from ..evaluation.scene_ops import dispatch_summary
 
     width, height = resolution
     n = width * height
-    acc = acc_mod.create((n,), channels=3, device=scene.device)
+    channels = AOV_CHANNELS[profile.evaluator]
+    acc = acc_mod.create((n,), channels=channels, device=scene.device)
     total_samples = 0
     dispatch = dispatch_summary(scene)
     # the wavefront's counters cost nothing extra; asking for them on a
     # megakernel frame would bypass the kernel
-    stats_on = dispatch["integrator"] == "wavefront"
+    stats_on = profile.evaluator == "path" and dispatch["integrator"] == "wavefront"
     iterations = 0 if stats_on else None
+    # per-pixel adaptive: min_epoch full-frame epochs (every pixel needs 2
+    # samples for a noise estimate), then only still-noisy pixels continue
+    adaptive = (
+        profile.adaptive and profile.evaluator == "path"
+        and profile.max_epoch > profile.min_epoch
+    )
+    full_epochs = profile.min_epoch if adaptive else profile.max_epoch
+    log: list = []
     start = time.perf_counter()
 
     epoch = -1
-    for epoch in range(profile.max_epoch):
+    for epoch in range(full_epochs):
+        log.append(dict(epoch=epoch + 1, active=n, read_at=time.perf_counter()))
         out = _sample_frame(
             scene, profile.evaluator, tuple(resolution), seed,
             epoch * profile.samples_per_epoch, profile.samples_per_epoch,
@@ -138,6 +313,8 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
             iterations += out[2]["Loop/Iterations"]
         acc = acc_mod.add_many(acc, s_sum, s_sq, float(profile.samples_per_epoch))
         total_samples += profile.samples_per_epoch * n
+        if profile.evaluator in ONE_EPOCH:
+            break  # deterministic AOVs need one epoch
 
         noise = float(torch.max(acc_mod.max_noise(acc)))
         if progress:
@@ -145,15 +322,31 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
         if epoch + 1 >= profile.min_epoch and noise < profile.noise_threshold:
             break
 
-    image = acc.mean.reshape(height, width, 3).cpu().numpy()
-    elapsed = time.perf_counter() - start
+    epochs_done = epoch + 1
+    if adaptive:
+        drawn = torch.full((n,), epochs_done * profile.samples_per_epoch, dtype=torch.int64,
+                           device=scene.device) & MASK32
+        acc, epochs_done, total_samples, more = _adaptive_epochs(
+            scene, profile, tuple(resolution), seed, acc, drawn, epochs_done, progress,
+            total_samples, stats_on, log,
+        )
+        if stats_on:
+            iterations += more
+
+    image = acc.mean.reshape(height, width, channels).cpu().numpy()
+    end = time.perf_counter()
+    elapsed = end - start
+    marks = [e.pop("read_at") for e in log] + [end]
+    for e, t0, t1 in zip(log, marks, marks[1:]):
+        e["seconds"] = t1 - t0
     info = dict(
         samples=total_samples,
-        epochs=epoch + 1,
+        epochs=epochs_done,
         seconds=elapsed,
         samples_per_second=total_samples / max(elapsed, 1e-9),
         wavefront_iterations=iterations,
         dispatch=dispatch,
+        epoch_log=log,
     )
     return image, info
 

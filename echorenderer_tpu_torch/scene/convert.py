@@ -10,7 +10,10 @@ instanced scene), and an instanced scene's instance table under
 "instances.rows", "instances.num_materials", ...; such a scene has no
 "prim_soa.*". The texture atlas travels as "tex_atlas", env map e as
 "env_maps.<e>.grid.texels", "env_maps.<e>.dist.marginal_cdf", ...,
-"env_maps.<e>.mean_lum". `to_arrays`
+"env_maps.<e>.mean_lum", and the BVH as "bvh.child_min", ...,
+"bvh.root_code" (read by `from_jax_arrays`; `to_arrays` leaves it out,
+since the JAX package's C++ builder may split where the port's numpy one
+does not). `to_arrays`
 writes a port scene in that form; `from_jax_arrays` builds a port scene
 from it, so both packages can be fed identical tables and a difference in
 preparation cannot hide a difference in the physics.
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..aggregation.bvh import FlatBVH
 from ..aggregation.light_tree import FlatLightTree
 from ..ops.intersect import FlatGeometry
 from ..ops.pallas_hier import HierSoA
@@ -39,6 +43,7 @@ _INT_FIELDS = {
     "instances.mat_remap", "instances.emi_ordinal",
     "prim_soa.order", "prim_soa.inv_order", "hier_soa.codes", "hier_soa.order",
     "hier_soa.inv_order", "hier_soa.inst_codes", "hier_soa.binned_g2c", "hier_soa.binned_g2i",
+    "bvh.child_code", "bvh.prim_order",
 }
 # HierSoA and InstanceTable fields that are Python scalars, with their types
 _HIER_STATICS = {"root_code": int, "stack_size": int, "num_tris": int, "num_prims": int,
@@ -88,8 +93,8 @@ def to_arrays(scene: PreparedScene) -> dict[str, np.ndarray]:
 
 def from_jax_arrays(tables: dict[str, np.ndarray], device="cuda") -> PreparedScene:
     """A port `PreparedScene` on `device` (the card unless the caller asks
-    for another device) from the JAX scene's flattened tables (extra keys,
-    such as the BVH nodes, are ignored)."""
+    for another device) from the JAX scene's flattened tables, its BVH
+    included when they hold one (extra keys are ignored)."""
     from .instancing import InstanceTable
 
     device = torch.device(device)
@@ -148,6 +153,9 @@ def from_jax_arrays(tables: dict[str, np.ndarray], device="cuda") -> PreparedSce
             dist=group(Distribution2D, f"{e}.dist"),
             mean_lum=put(f"{e}.mean_lum"),
         ))
+    bvh = None
+    if "bvh.child_min" in tables:
+        bvh = group(FlatBVH, "bvh", {"root_code": int})
     return PreparedScene(
         geometry=group(FlatGeometry, "geometry"),
         materials=group(MaterialTable, "materials", {
@@ -164,4 +172,5 @@ def from_jax_arrays(tables: dict[str, np.ndarray], device="cuda") -> PreparedSce
         emissive_pack=put("emissive_pack"),
         hier_soa=hier,
         instances=instances,
+        bvh=bvh,
     )

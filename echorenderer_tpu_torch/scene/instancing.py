@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..aggregation.bvh import build_bvh, geometry_bounds
+from ..aggregation.bvh import build_bvh, geometry_bounds, join, on_device
 from ..aggregation.light_tree import build_light_tree
 from ..ops.intersect import FlatGeometry
 from ..ops.pallas_hier import build_hier_soa_instanced
@@ -443,11 +443,13 @@ def prepare_scene_instanced(scene: Scene, camera_name: str | None, shared: set[i
 
     # --- per-pack BVH orders and the instanced tables ---
     bmin, bmax = geometry_bounds(geom_np)
-    pack_orders, pack_aabb = [], []
+    pack_orders, pack_aabb, pack_bvhs = [], [], []
     for bi in range(len(blocks)):
         ids = block_prims(bi)  # never empty: see _degenerate_part
-        pack_orders.append(ids[build_bvh(bmin[ids], bmax[ids]).prim_order])
+        tree = build_bvh(bmin[ids], bmax[ids])
+        pack_orders.append(ids[tree.prim_order])
         pack_aabb.append((bmin[ids].min(0), bmax[ids].max(0)))
+        pack_bvhs.append(tree._replace(prim_order=pack_orders[-1]))
     inv_a = np.zeros((n_inst, 3, 3))
     inv_b = np.zeros((n_inst, 3))
     ilo = np.zeros((n_inst, 3), np.float32)
@@ -528,4 +530,6 @@ def prepare_scene_instanced(scene: Scene, camera_name: str | None, shared: set[i
         emissive_pack=put(epack),
         hier_soa=hier,
         instances=instances,
+        # the storage tree, in pack space, joined from the packs' own trees
+        bvh=on_device(join(pack_bvhs, pack_aabb), device),
     )

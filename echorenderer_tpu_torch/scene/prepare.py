@@ -11,7 +11,8 @@ packed row layouts are the JAX package's, table for table:
                       resampled to ATLAS_RES and rounded to bf16 values
 plus the dense kernels' `PrimSoA` and, from HIER_BUILD_MIN prims on, the
 chunk-tree walk's `HierSoA` (ops/pallas_hier.py), both from the same BVH
-leaf order. Every table lives on the `device` given to `prepare_scene`;
+leaf order, and that BVH itself (`bvh`, for the traversal-cost AOV).
+`subdivide` splits oversized triangles before any of these are built. Every table lives on the `device` given to `prepare_scene`;
 everything downstream follows the scene's device.
 
 From LIGHT_TREE_THRESHOLD finite lights on, the light table carries an
@@ -32,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..aggregation.bvh import build_bvh, geometry_bounds
+from ..aggregation.bvh import FlatBVH, build_bvh, geometry_bounds, on_device
 from ..aggregation.light_tree import FlatLightTree, build_light_tree
 from ..ops.intersect import FlatGeometry
 from ..ops.pallas_hier import HIER_BUILD_MIN, HierSoA, build_hier_soa
@@ -139,6 +140,10 @@ class PreparedScene(NamedTuple):
     # shared packs; None for a baked scene. Then the geometry and shade
     # rows of a pack's prims are in pack space.
     instances: object = None
+    # the SAH tree the prim order came from, on the scene's device
+    # (aggregation/bvh.on_device); a TLAS scene's joins its packs' trees,
+    # in pack space. Only the traversal-cost AOV walks it.
+    bvh: FlatBVH | None = None
 
     @property
     def device(self) -> torch.device:
@@ -383,6 +388,57 @@ def assemble_triangles(tri_v, tri_f, tri_n, tri_uv, tri_m):
     return v0, e1, e2, n0, n1, n2, uv0, uv1, uv2, tmat
 
 
+def subdivide_triangles(parts: dict, threshold: float, max_iteration: int = 3):
+    """4-way midpoint subdivision of triangles whose area exceeds
+    `threshold` (oversized triangles, typically ground planes, otherwise
+    inflate acceleration bounds), one level a pass over the whole soup: the
+    JAX package's function, op for op. `parts` holds per-face arrays (v0,
+    e1, e2, n0, n1, n2, uv0, uv1, uv2, tmat); returns the same dict."""
+    for _ in range(max_iteration):
+        v0, e1, e2 = parts["v0"], parts["e1"], parts["e2"]
+        area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+        split = area > threshold
+        if not split.any():
+            break
+        keep = {k: v[~split] for k, v in parts.items()}
+        s = {k: v[split] for k, v in parts.items()}
+
+        def lerp3(a, b):
+            m = 0.5 * (a + b)
+            n = np.linalg.norm(m, axis=-1, keepdims=True)
+            return m / np.maximum(n, 1e-20)
+
+        # corners and midpoints (positions exact, normals renormalized,
+        # uvs linear)
+        A, B, C = s["v0"], s["v0"] + s["e1"], s["v0"] + s["e2"]
+        Mab, Mbc, Mca = 0.5 * (A + B), 0.5 * (B + C), 0.5 * (C + A)
+        nA, nB, nC = s["n0"], s["n1"], s["n2"]
+        nab, nbc, nca = lerp3(nA, nB), lerp3(nB, nC), lerp3(nC, nA)
+        uA, uB, uC = s["uv0"], s["uv1"], s["uv2"]
+        uab, ubc, uca = 0.5 * (uA + uB), 0.5 * (uB + uC), 0.5 * (uC + uA)
+
+        children = [
+            (A, Mab, Mca, nA, nab, nca, uA, uab, uca),
+            (Mab, B, Mbc, nab, nB, nbc, uab, uB, ubc),
+            (Mca, Mbc, C, nca, nbc, nC, uca, ubc, uC),
+            (Mab, Mbc, Mca, nab, nbc, nca, uab, ubc, uca),
+        ]
+        new = {k: [keep[k]] for k in parts}
+        for (a, b, c, na, nb, nc, ua, ub, uc) in children:
+            new["v0"].append(a.astype(np.float32))
+            new["e1"].append((b - a).astype(np.float32))
+            new["e2"].append((c - a).astype(np.float32))
+            new["n0"].append(na.astype(np.float32))
+            new["n1"].append(nb.astype(np.float32))
+            new["n2"].append(nc.astype(np.float32))
+            new["uv0"].append(ua.astype(np.float32))
+            new["uv1"].append(ub.astype(np.float32))
+            new["uv2"].append(uc.astype(np.float32))
+            new["tmat"].append(s["tmat"])
+        parts = {k: np.concatenate(v, 0) for k, v in new.items()}
+    return parts
+
+
 def _unrolled_prim_estimate(scene: Scene) -> int | None:
     """Total prim count if every PackInstance were baked, or None when an
     unknown geometry type makes it unknowable without extraction."""
@@ -443,10 +499,13 @@ def _shared_packs(scene: Scene, instancing: str) -> set[int]:
 
 
 def prepare_scene(scene: Scene, camera_name: str | None = None,
-                  instancing: str = "auto", device="cuda") -> PreparedScene:
+                  instancing: str = "auto", subdivide: float | None = None,
+                  device="cuda") -> PreparedScene:
     """Flatten `scene` into tables on `device` (the card unless the caller
     asks for another device). `instancing` is "auto", "tlas" or "bake"
-    (`_shared_packs`)."""
+    (`_shared_packs`). `subdivide`: split the baked triangles larger than
+    this area (`subdivide_triangles`), as the JAX package does; a TLAS
+    scene's packs are not split."""
     device = torch.device(device)
     shared = _shared_packs(scene, instancing)
     if shared:
@@ -476,6 +535,16 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
         v0, e1, e2, n0, n1, n2, uv0, uv1, uv2, tmat = assemble_triangles(
             col.tri_v, col.tri_f, col.tri_n, col.tri_uv, col.tri_m
         )
+        if subdivide is not None:
+            parts = subdivide_triangles(
+                dict(v0=v0, e1=e1, e2=e2, n0=n0, n1=n1, n2=n2,
+                     uv0=uv0, uv1=uv1, uv2=uv2, tmat=tmat),
+                float(subdivide),
+            )
+            v0, e1, e2 = parts["v0"], parts["e1"], parts["e2"]
+            n0, n1, n2 = parts["n0"], parts["n1"], parts["n2"]
+            uv0, uv1, uv2 = parts["uv0"], parts["uv1"], parts["uv2"]
+            tmat = parts["tmat"]
     else:
         # degenerate far-away invisible triangle keeps shapes non-empty
         mid = intern(mat_mod.Invisible())
@@ -641,7 +710,8 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
 
     # --- kernel prim layout in BVH-leaf order ---
     bmin, bmax = geometry_bounds(geom_np)
-    order = build_bvh(bmin, bmax).prim_order
+    bvh = build_bvh(bmin, bmax)
+    order = bvh.prim_order
     packed = pack_sorted_prims(geom_np, order, bounds=(bmin, bmax))
     prim_soa = build_prim_soa(geom_np, order=order, packed=packed, device=device)
     hier_soa = (build_hier_soa(geom_np, order, packed=packed, device=device)
@@ -713,4 +783,5 @@ def prepare_scene(scene: Scene, camera_name: str | None = None,
         mat_pack=put(mat_pack),
         emissive_pack=put(epack),
         hier_soa=hier_soa,
+        bvh=on_device(bvh, device),
     )

@@ -7,7 +7,8 @@ same. The rule lives in utils/vec.py (`component_sum`, `dot`, `cross`,
 `rotate`): a per-lane float reduction over three or more terms, a cross or
 matrix product, or a norm lets the card choose the order of the terms or
 fuse multiply-adds. These tests run the wavefront on the CPU under a torch
-function mode that records every such call, and fail on any.
+function mode that records every such call, and fail on any; so do the
+other evaluators (albedo, normal_depth, naive) and one adaptive epoch.
 """
 
 import pytest
@@ -16,6 +17,7 @@ from torch.overrides import TorchFunctionMode
 
 from echorenderer_tpu_torch.evaluation.wavefront import run_wavefront
 from echorenderer_tpu_torch.models import scenes
+from echorenderer_tpu_torch.processes import render
 from echorenderer_tpu_torch.scene.prepare import prepare_scene
 from echorenderer_tpu_torch.utils import vec
 
@@ -153,3 +155,35 @@ def test_binned_wavefront_keeps_fixed_op_order(monkeypatch):
         s_sum, _ = run_wavefront(scene, pid, pxy, res, 5, 0, 2, bounce_limit=4)
     assert float(s_sum.sum()) > 0.0 and binned_trace.STATS["calls"] > 0
     assert watch.calls == [], f"order-dependent float ops on the path: {sorted(set(watch.calls))}"
+
+
+@pytest.mark.parametrize("evaluator", ["albedo", "normal_depth", "naive"])
+@pytest.mark.parametrize("name", ["cornell", "showcase", "hdr_environment"])
+def test_evaluators_keep_fixed_op_order(name, evaluator):
+    scene = prepare_scene(SCENES[name](), device="cpu")
+    watch = OrderWatch()
+    with watch:
+        s_sum, _ = render._sample_frame(scene, evaluator, (16, 16), 5, 0, 2, 4, 2.5)
+    assert float(s_sum.abs().sum()) > 0.0
+    assert watch.calls == [], (f"order-dependent float ops in {evaluator}: "
+                               f"{sorted(set(watch.calls))}")
+
+
+def test_adaptive_step_keeps_fixed_op_order():
+    from echorenderer_tpu_torch.processes.tiles import lane_order
+    from echorenderer_tpu_torch.utils import accumulator as acc_mod
+
+    scene = prepare_scene(scenes.cornell_box(), device="cpu")
+    res = (16, 16)
+    s, q = render._sample_frame(scene, "path", res, 5, 0, 4, 4, 2.5)
+    acc = acc_mod.add_many(acc_mod.create((256,)), s, q, 4.0)
+    perm = torch.as_tensor(lane_order(res)[0].astype("int64"))
+    drawn = torch.full((256,), 4, dtype=torch.int64)
+    thr = torch.tensor(0.05)
+    watch = OrderWatch()
+    with watch:
+        m = int(render._active_stats(acc, thr)[0])
+        new_acc, new_drawn = render._adaptive_step(scene, acc, drawn, perm, thr, res, 4, 4, 2.5,
+                                                   5, m)
+    assert 0 < m and int((new_drawn == 8).sum()) == m
+    assert watch.calls == [], f"order-dependent float ops: {sorted(set(watch.calls))}"

@@ -8,7 +8,8 @@
   the only difference).
 - The port's `_sample_frame` against the committed golden images with
   tests/test_golden.py's tolerances.
-- Importing and running the port leaves jax out of the process.
+- Importing and running the port (an adaptive layer and an albedo layer
+  included) leaves jax out of the process.
 """
 
 import subprocess
@@ -105,8 +106,6 @@ def test_render_layer_counts_samples_and_iterations():
 
 def test_unported_render_options_raise():
     scene = prepare_scene(tscenes.material_ball(), device="cpu")
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        render_layer(scene, EvaluationProfile(max_epoch=3, adaptive=True), (8, 8))
     with pytest.raises(NotImplementedError, match="composition"):
         render(scene, RenderProfile(resolution=(8, 8), composition=("tonemap",)))
 
@@ -131,6 +130,13 @@ def test_port_runs_without_jax():
         "s, _ = _sample_frame(prepare_scene(scenes.cornell_box(), device='cpu'), 'path', (8, 6),\n"
         "                     0, 0, 2, 3, 2.5)\n"
         "assert bool(torch.isfinite(s).all())\n"
+        "from echorenderer_tpu_torch.processes.render import EvaluationProfile, render_layer\n"
+        "c = prepare_scene(scenes.cornell_box(), device='cpu')\n"
+        "img, info = render_layer(c, EvaluationProfile(samples_per_epoch=2, max_epoch=3,\n"
+        "                         bounce_limit=3), (8, 6))\n"
+        "assert info['epochs'] > 1 and info['samples'] < 3 * 2 * 48, info\n"
+        "alb, _ = render_layer(c, EvaluationProfile(evaluator='albedo'), (8, 6))\n"
+        "assert alb.shape == (6, 8, 3) and float(alb.min()) >= 0.0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'echorenderer_tpu' or m.startswith('echorenderer_tpu.')]\n"
         "print(bad)\n"
