@@ -233,7 +233,37 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      yardstick. The kernels line adds plucker_mt, plucker_plk_highest and
      plucker_plk_default; binned_seg_exact counts the exact launches of
      the large-scene program's check above.
-  9. summary: a JSON line of the kernels, then the last line
+  9. compose: the README's call on the card, render(prepare_scene(
+     scenes.material_ball()), standard_path_traced_profile(1.0, (1280,
+     720))), launch counts zeroed first: seconds a layer, epochs, samples,
+     dispatch (the path layer on the megakernel; material_ball's 7 prims
+     put the AOV layers on the linear intersector, so no dense launch),
+     wall, peak memory; it fails on a recorded composition error or a
+     `main` that is not finite, not (720, 1280, 3) or outside [0, 1].
+     Then, on the layers the stack received: each operator's ms (CUDA
+     events, median of 5) of the profile's stack and of
+     composition.STANDARD_STACK (BilateralDenoise first), the card's
+     compose again (bitwise equal to
+     render's) against the CPU's compose (main atol 1e-4), the denoiser
+     alone against the CPU's (rtol 1e-4 / atol 1e-5: its convolutions in
+     float32, torch.backends.cudnn.allow_tf32 unchanged after it), and, for
+     comparison, the same convolutions in TF32 (error and ms), and
+     load_params(device=cuda) alone; two threads denoising at once, each
+     output within the same tolerance and the flag unchanged after; each
+     operator of composition.STANDARD_STACK and LearnedDenoise called 20
+     more times on the same layers, a matmul between calls: every call
+     bitwise equal to the first (torch.cumsum of the layer, which
+     AutoExposure does not use, counted beside them); a resumed
+     resume_render_layer (1 epoch, then to 3) against 3 epochs straight,
+     bitwise, on sphere_field(80) 320x180 (the megakernel) and
+     hdr_environment() 320x180 (the wavefront); under ECHO_DEBUG_DEVICE=1
+     the first epoch of sphere_field(2400) (the wavefront, dense kernels)
+     runs path_step's checks in one host read and equals the unchecked
+     render bitwise, sphere_field(80) stays on the megakernel (no check
+     there, equal bitwise), and run_checked over a non-finite card tensor
+     raises; a Device().schedule_render of the standard profile at 320x180
+     on material_ball gives render's layers bitwise.
+ 10. summary: a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -241,6 +271,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2600,6 +2631,349 @@ def adaptive_phase(dev, smi, bench, showcase, large, mid, grid) -> dict:
                 binned=binned, checked=checked)
 
 
+COMPOSE_RES = (1280, 720)  # the README's standard_path_traced_profile call
+COMPOSE_MAIN_ATOL = 1e-4  # the card's compose against the CPU's, tone-mapped main
+DENOISE_TOL = dict(rtol=1e-4, atol=1e-5)  # the denoiser alone, card against CPU
+
+
+def stack_ms(layers, operators, runs: int = 5) -> dict:
+    """The stack op by op on the card: each operator's median CUDA-event
+    ms over `runs` passes, after an untimed pass."""
+    import torch
+
+    times = {type(op).__name__: [] for op in operators}
+    for r in range(runs + 1):
+        ls = dict(layers)
+        for op in operators:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ls = op.apply(dict(ls))
+            end.record()
+            torch.cuda.synchronize()
+            if r:
+                times[type(op).__name__].append(start.elapsed_time(end))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+@contextlib.contextmanager
+def debug_checks(counts: list):
+    """ECHO_DEBUG_DEVICE=1 for the block; each run_checked call appends
+    the number of device flags its function raised."""
+    from echorenderer_tpu_torch.utils import diagnostics as dg
+
+    real = dg.run_checked
+
+    def spy(fn, *args, **kwargs):
+        def counted(*a, **kw):
+            out = fn(*a, **kw)
+            counts.append(len(dg._checks.flags))
+            return out
+        return real(counted, *args, **kwargs)
+
+    os.environ["ECHO_DEBUG_DEVICE"] = "1"
+    dg.run_checked = spy
+    try:
+        yield
+    finally:
+        dg.run_checked = real
+        os.environ.pop("ECHO_DEBUG_DEVICE", None)
+
+
+def repeat_differs(fn, calls: int = 20) -> int:
+    """Of `calls` more calls of `fn`, the number whose output is not
+    bitwise equal to the first call's; a 4096^2 matmul runs between calls
+    so that the card's timing varies."""
+    import torch
+
+    first = fn()
+    busy = torch.randn(4096, 4096, device=first.device)
+    count = 0
+    for _ in range(calls):
+        busy @ busy
+        count += not torch.equal(fn(), first)
+    return count
+
+
+def concurrent_denoises(params, args, threads: int = 2, calls: int = 10) -> list:
+    """`denoise.apply` from `threads` threads at once, `calls` times each:
+    every output, on the host."""
+    import threading
+
+    from echorenderer_tpu_torch.processes import denoise as dn
+
+    outs, errors = [], []
+
+    def work():
+        try:
+            for _ in range(calls):
+                outs.append(dn.apply(params, *args).cpu().numpy())
+        except Exception as exc:  # noqa: BLE001 — raised below
+            errors.append(exc)
+
+    workers = [threading.Thread(target=work) for _ in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    if errors:
+        raise errors[0]
+    return outs
+
+
+def denoise_ms(params, args, allow_tf32: bool, runs: int = 10) -> tuple:
+    """`denoise.apply` on the card: (output, median ms). With `allow_tf32`
+    its convolutions run as torch's default would run them (TF32), for
+    comparison; the port runs them in float32."""
+    import torch
+
+    from echorenderer_tpu_torch.processes import denoise as dn
+
+    real = torch.backends.cudnn.flags
+    if allow_tf32:
+        torch.backends.cudnn.flags = lambda **kw: real(**dict(kw, allow_tf32=True))
+    try:
+        out = dn.apply(params, *args)
+        ms = median_ms(lambda: dn.apply(params, *args), runs=runs)
+    finally:
+        torch.backends.cudnn.flags = real
+    return out, ms
+
+
+def compose_phase(dev, smi, bench, large) -> None:
+    """Phase 9 (see the module docstring): the README's standard profile
+    on the card, its composition against the CPU's, checkpoints, the
+    device checks and the scheduler. Raises on the first failed check."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from echorenderer_tpu_torch.evaluation.scene_ops import dispatch_summary
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.processes import composition as comp
+    from echorenderer_tpu_torch.processes import denoise as dn
+    from echorenderer_tpu_torch.processes import render as trender
+    from echorenderer_tpu_torch.processes.checkpoint import resume_render_layer
+    from echorenderer_tpu_torch.processes.composition import STANDARD_STACK
+    from echorenderer_tpu_torch.processes.scheduler import Device, OperationState
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+    from echorenderer_tpu_torch.utils import diagnostics as dg
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    # --- the README's call, its layers kept on their way into the stack ---
+    t = time.perf_counter()
+    ball = prepare_scene(scenes.material_ball())  # the card: the entry point's default
+    prep_s = time.perf_counter() - t
+    prof = trender.standard_path_traced_profile(1.0, COMPOSE_RES)
+    captured = {}
+    real_compose = trender.compose_on
+
+    def keep_inputs(device, layers, operators):
+        captured.update(layers)
+        return real_compose(device, layers, operators)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trender.compose_on = keep_inputs
+    t = time.perf_counter()
+    try:
+        out = trender.render(ball, prof)
+    finally:
+        trender.compose_on = real_compose
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = {k: v for k, v in launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    infos = out["__info__"]
+    for ep in prof.evaluations:
+        info = infos[ep.layer_name]
+        d = info["dispatch"]
+        log(f"[compose] material_ball {COMPOSE_RES[0]}x{COMPOSE_RES[1]} layer {ep.layer_name} "
+            f"({ep.evaluator}): {info['seconds']:.4f} s, {info['epochs']} epochs, "
+            f"{info['samples']} samples, {info['samples_per_second'] / 1e6:.3f} Mspps; dispatch "
+            f"{d['integrator']} / {d['accelerator']} ({d['accelerator_reason']}) | {smi}")
+    log(f"[compose] README call render(prepare_scene(scenes.material_ball()), "
+        f"standard_path_traced_profile(1.0, {COMPOSE_RES})): {wall:.4f} s wall (prepare "
+        f"{prep_s:.3f} s), peak {peak:.3f} GiB, launches {launched} | {smi}")
+    if "composition_errors" in infos:
+        raise AssertionError(f"composition errors on the card: {infos['composition_errors']}")
+    main = out["main"]
+    if main.shape != (prof.resolution[1], prof.resolution[0], 3) or not np.isfinite(main).all():
+        raise AssertionError(f"main {main.shape} not finite or not the frame's shape")
+    if main.min() < 0.0 or main.max() > 1.0:
+        raise AssertionError(f"main leaves [0, 1]: {main.min()} .. {main.max()}")
+    if infos["main"]["dispatch"]["integrator"] != "megakernel" or not launched.get("mega"):
+        raise AssertionError("the path layer did not run on the megakernel")
+    aov = dispatch_summary(ball)["accelerator"]
+    if (aov == "dense-stream") != bool(launched.get("dense_trace")):
+        raise AssertionError(f"AOV accelerator {aov} but dense trace launches "
+                             f"{launched.get('dense_trace', 0)}")
+
+    # --- the stack by operator, and the card's compose against the CPU's ---
+    layers_dev = {k: torch.as_tensor(v, device=dev) for k, v in captured.items()}
+    for label, stack in (("the standard profile's stack", prof.composition),
+                         ("composition.STANDARD_STACK", STANDARD_STACK)):
+        ms = stack_ms(layers_dev, stack)
+        log(f"[compose] {label}, ms by operator at {prof.resolution[0]}x{prof.resolution[1]} "
+            f"(median of 5, CUDA events): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+            + f"; total {sum(ms.values()):.4f} | {smi}")
+    card, errors = trender.compose_on(dev, captured, prof.composition)
+    host, host_errors = trender.compose_on(cpu, captured, prof.composition)
+    if errors or host_errors:
+        raise AssertionError(f"composition errors: card {errors}, CPU {host_errors}")
+    if not np.array_equal(card["main"], main):
+        raise AssertionError(f"the card's compose of the same layers differs from render's: max "
+                             f"|diff| {float(np.abs(card['main'] - main).max())}")
+    err_main = float(np.abs(card["main"] - host["main"]).max())
+    args = lambda d: tuple(torch.as_tensor(captured[k], device=d)[None][..., :3]
+                           for k in ("main", "albedo", "normal_depth"))
+    load_s = []
+    for _ in range(10):
+        t = time.perf_counter()
+        params = dn.load_params(device=dev)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t)
+    load_ms = statistics.median(load_s) * 1e3
+    den_card, den_ms = denoise_ms(params, args(dev), allow_tf32=False)
+    den_tf32, tf32_ms = denoise_ms(params, args(dev), allow_tf32=True)
+    den_cpu = dn.apply(dn.load_params(device=cpu), *args(cpu)).numpy()
+    den_card, den_tf32 = den_card.cpu().numpy(), den_tf32.cpu().numpy()
+    err_den = float(np.abs(den_card - den_cpu).max())
+    err_tf32 = float(np.abs(den_tf32 - den_cpu).max())
+    rel = lambda x: float((np.abs(x - den_cpu) / (np.abs(den_cpu) + 1e-6)).max())
+    log(f"[compose] card against CPU compose: main max |diff| {err_main:.3e} (atol "
+        f"{COMPOSE_MAIN_ATOL}); denoiser alone max |diff| {err_den:.3e}, max rel "
+        f"{rel(den_card):.3e} (rtol {DENOISE_TOL['rtol']}, atol {DENOISE_TOL['atol']}), "
+        f"{den_ms:.4f} ms; with TF32 convolutions (torch's default) max |diff| "
+        f"{err_tf32:.3e}, max rel {rel(den_tf32):.3e}, {tf32_ms:.4f} ms; "
+        f"load_params(device=cuda) alone {load_ms:.4f} ms (median of 10, host clock, "
+        f"synchronized) | {smi}")
+    if err_main > COMPOSE_MAIN_ATOL:
+        raise AssertionError(f"card compose off the CPU's by {err_main}")
+    np.testing.assert_allclose(den_card, den_cpu, **DENOISE_TOL)
+    # two threads denoising at once (the scheduler's and the caller's): each
+    # output float32, and the process's cuDNN flags as they were
+    outs = concurrent_denoises(params, args(dev))
+    for o in outs:
+        np.testing.assert_allclose(o, den_cpu, **DENOISE_TOL)
+    same = sum(np.array_equal(o, den_card) for o in outs)
+    log(f"[compose] 2 threads x 10 denoises at once: all within rtol {DENOISE_TOL['rtol']} / "
+        f"atol {DENOISE_TOL['atol']} of the CPU's, {same} of {len(outs)} bitwise equal to the "
+        f"single-threaded output; cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} after "
+        f"(was {tf32})")
+    if torch.backends.cudnn.allow_tf32 != tf32:
+        raise AssertionError("the denoiser changed torch.backends.cudnn.allow_tf32")
+    # each operator called again and again on the same layers: the port's
+    # must give the same bits every call (torch.cumsum, which AutoExposure
+    # does not use, as the yardstick)
+    vector = layers_dev["main"].reshape(-1)
+    repeats = {"torch.cumsum": repeat_differs(lambda: torch.cumsum(vector, 0)),
+               "composition._inclusive_sum": repeat_differs(lambda: comp._inclusive_sum(vector))}
+    for op in list(STANDARD_STACK) + [comp.LearnedDenoise()]:
+        repeats[type(op).__name__] = repeat_differs(lambda op=op: op.apply(dict(layers_dev))["main"])
+    log("[compose] calls of 20 not bitwise equal to the first (a matmul between calls): "
+        + ", ".join(f"{k} {v}" for k, v in repeats.items()))
+    nondeterministic = [k for k, v in repeats.items() if v and k != "torch.cumsum"]
+    if nondeterministic:
+        raise AssertionError(f"operators whose bits differ from call to call: {nondeterministic}")
+    del layers_dev
+
+    # --- checkpoints: resumed against uninterrupted, on the megakernel and
+    # on the wavefront ---
+    hdr = prepare_scene(scenes.hdr_environment())
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, scene, res, spp, integrator in (
+                ("sphere_field(80)", bench, (320, 180), 8, "megakernel"),
+                ("hdr_environment", hdr, (320, 180), 4, "wavefront")):
+            one = trender.EvaluationProfile(samples_per_epoch=spp, min_epoch=1, max_epoch=1,
+                                            noise_threshold=0.0, bounce_limit=16)
+            three = dataclasses.replace(one, min_epoch=3, max_epoch=3)
+            path = Path(tmp) / f"{integrator}.npz"
+            zero_launch_counts()
+            resume_render_layer(scene, one, res, path)
+            resumed, info = resume_render_layer(scene, three, res, path)
+            mega = launch_counts()["mega"]
+            straight, _ = resume_render_layer(scene, three, res, Path(tmp) / "straight.npz")
+            same = np.array_equal(resumed, straight)
+            log(f"[compose] checkpoint {label} {res[0]}x{res[1]} {spp} spp: 1 epoch, resumed to "
+                f"{info['epochs']}, against 3 straight: "
+                f"{'bitwise equal' if same else 'DIFFERENT'}; dispatch "
+                f"{dispatch_summary(scene)['integrator']}, megakernel launches {mega}")
+            if not same or info["epochs"] != 3 or np.abs(straight).sum() == 0:
+                raise AssertionError(f"{label}: the resumed render differs from the uninterrupted")
+            if dispatch_summary(scene)["integrator"] != integrator or (
+                    (mega > 0) != (integrator == "megakernel")):
+                raise AssertionError(f"{label}: expected the {integrator}")
+            (Path(tmp) / "straight.npz").unlink()
+    del hdr
+
+    # --- device checks: the first epoch under run_checked ---
+    checked_prof = trender.EvaluationProfile(samples_per_epoch=4, max_epoch=1, bounce_limit=16,
+                                             adaptive=False)
+    for label, scene, integrator in (("sphere_field(2400)", large, "wavefront"),
+                                     ("sphere_field(80)", bench, "megakernel")):
+        counts = []
+        zero_launch_counts()
+        with debug_checks(counts):
+            checked, _ = trender.render_layer(scene, checked_prof, (320, 180))
+        launched = launch_counts()
+        plain, _ = trender.render_layer(scene, checked_prof, (320, 180))
+        same = np.array_equal(checked, plain)
+        log(f"[compose] ECHO_DEBUG_DEVICE=1 {label} 320x180 4 spp: {len(counts)} checked epoch, "
+            f"{counts} flags read in one transfer, image "
+            f"{'bitwise equal' if same else 'DIFFERENT'} to the unchecked render; launches "
+            f"megakernel {launched['mega']}, dense {launched['dense_trace']}/"
+            f"{launched['dense_occlude']}")
+        if not same or len(counts) != 1:
+            raise AssertionError(f"{label}: the checked render differs or did not run checked")
+        if integrator == "wavefront" and (not counts[0] or counts[0] % 3 or launched["mega"]):
+            raise AssertionError(f"{label}: path_step's checks did not run on the wavefront")
+        if integrator == "megakernel" and (counts[0] or not launched["mega"]):
+            raise AssertionError(f"{label}: the checks rerouted the megakernel's frame")
+    bad = torch.tensor([1.0, float("inf")], device=dev)
+    os.environ["ECHO_DEBUG_DEVICE"] = "1"
+    try:
+        dg.run_checked(lambda: dg.dcheck(torch.isfinite(bad), "non-finite on the card"))
+        raised = ""
+    except AssertionError as exc:
+        raised = str(exc)
+    finally:
+        os.environ.pop("ECHO_DEBUG_DEVICE", None)
+    log(f"[compose] run_checked over a non-finite card tensor raised: {raised!r}")
+    if raised != "non-finite on the card":
+        raise AssertionError("run_checked passed a non-finite tensor")
+
+    # --- the scheduler: evaluations then composition on its thread ---
+    small = trender.standard_path_traced_profile(1.0, (320, 180))
+    device = Device()
+    try:
+        t = time.perf_counter()
+        ops = device.schedule_render(ball, small)
+        if not device.await_idle(timeout=300):
+            raise AssertionError("the scheduled render did not finish")
+        sched_s = time.perf_counter() - t
+    finally:
+        device.dispose()
+    states = [(o.name, o.state.value, o.error) for o in ops]
+    if any(o.state != OperationState.COMPLETED for o in ops) or ops[-1].result:
+        raise AssertionError(f"scheduled render: {states}, composition errors {ops[-1].result}")
+    want = trender.render(ball, small)
+    got = device._render_layers
+    differ = [k for k in got if not np.array_equal(got[k], want[k])]
+    log(f"[compose] Device().schedule_render(material_ball, standard profile "
+        f"{small.resolution[0]}x{small.resolution[1]}): "
+        f"{[o.name for o in ops]} completed in {sched_s:.3f} s; layers {sorted(got)} "
+        f"{'bitwise equal to render' if not differ else f'DIFFERENT: {differ}'}")
+    if differ or sorted(got) != sorted(k for k in want if k != "__info__"):
+        raise AssertionError("the scheduled render's layers differ from render's")
+    torch.cuda.synchronize()
+    log(f"[compose] phase {time.perf_counter() - t0:.1f} s")
+
+
 
 def main() -> int:
     try:
@@ -3044,6 +3418,10 @@ def main() -> int:
 
     # --- the Plücker micro-benchmark's kernels, counters from zero ---
     plk_rows = plucker_phase(dev, smi)
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
+    # --- composition, denoiser, checkpoints, device checks, scheduler ---
+    compose_phase(dev, smi, bench, large)
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     kernels = [

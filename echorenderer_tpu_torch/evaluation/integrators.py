@@ -23,7 +23,7 @@ import torch
 from ..aggregation.bvh import trace_cost
 from ..ops.intersect import INF
 from ..scene.prepare import LIGHT_AMBIENT, PreparedScene
-from ..utils import colors, vec
+from ..utils import colors, diagnostics, vec
 from ..utils.rng import SampleStream
 from . import bsdf as bsdf_mod
 from . import scene_ops
@@ -149,6 +149,15 @@ def path_step(scene: PreparedScene, stream: SampleStream, st: dict, live, *,
 
     wi_world = vec.to_world(bs.incident, tangent, bitangent, contact.shade_normal)
     cont_o = _offset_origin(contact.point, contact.geo_normal, wi_world)
+
+    # device-side invariants (reference Ensure.cs class of checks), built
+    # only when ECHO_DEBUG_DEVICE=1 and the frame runs under run_checked:
+    # eager torch would launch the predicates even if dcheck dropped them
+    if diagnostics.checks_active():
+        diagnostics.dcheck(torch.isfinite(radiance), "path_step: non-finite radiance")
+        diagnostics.dcheck(torch.isfinite(new_tp) & (new_tp >= 0.0),
+                           "path_step: invalid throughput (NaN/Inf/negative)")
+        diagnostics.dcheck(~has_bounce | (bs.pdf >= 0.0), "path_step: negative BSDF pdf")
 
     return dict(
         radiance=radiance,

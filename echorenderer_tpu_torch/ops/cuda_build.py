@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -57,9 +58,19 @@ def _nvcc() -> str:
     return found
 
 
+# one build at a time in a process: two threads (a scheduler's and the
+# caller's) would otherwise write the same _build/<key>/ files
+_lock = threading.RLock()
+
+
 def build() -> dict[str, Build]:
     """Compile every csrc/*.cu that is not built yet, in parallel.
     Returns {source stem: Build}."""
+    with _lock:
+        return _build()
+
+
+def _build() -> dict[str, Build]:
     out_dir = BUILD_ROOT / _key()
     out_dir.mkdir(parents=True, exist_ok=True)
     done: dict[str, Build] = {}
@@ -94,6 +105,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 def load(stem: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<stem>.cu's library, built on first use."""
-    if stem not in _libs:
-        _libs[stem] = ctypes.CDLL(str(build()[stem].path))
-    return _libs[stem]
+    with _lock:
+        if stem not in _libs:
+            _libs[stem] = ctypes.CDLL(str(build()[stem].path))
+        return _libs[stem]

@@ -20,7 +20,9 @@ its number of compiled programs; every draw keys on (seed, pixel, sample,
 dim) and every lane's sums are its own, so the padding changes no sum,
 and this port samples the active lanes alone.
 
-The composition stack raises NotImplementedError until it is ported.
+`render` runs the layers, then the profile's composition stack
+(processes/composition.py) on the scene's device: the layers are uploaded
+once, composed and downloaded.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..evaluation import integrators
 from ..scene.cameras import spawn_rays
 from ..scene.prepare import PreparedScene
 from ..utils import accumulator as acc_mod
+from ..utils import diagnostics
 from ..utils.rng import MASK32, SampleStream, as_u32
 
 # lanes one wavefront may hold: chains multiply the lane count up to this
@@ -81,6 +84,44 @@ class RenderProfile:
     evaluations: tuple = (EvaluationProfile(),)
     composition: tuple = ()
     seed: int = 0
+
+
+def standard_path_traced_profile(
+    quality: float = 1.0,
+    resolution: tuple = (960, 540),
+    *,
+    denoise: bool = True,
+    watermark: bool = True,
+) -> RenderProfile:
+    """One-knob preset mirroring the reference StandardPathTracedProfile
+    (StandardPathTracedProfile.cs:17-105): albedo + path + normal_depth
+    evaluations, then denoise + postprocess composition. `quality` scales
+    sample counts and adaptive epoch budget."""
+    from .composition import AutoExposure, Bloom, LearnedDenoise, ToneMapper, Vignette, Watermark
+
+    spe = max(8, int(32 * quality))
+    max_epoch = max(2, int(12 * quality))
+    evaluations = (
+        EvaluationProfile(evaluator="albedo", layer_name="albedo"),
+        EvaluationProfile(
+            evaluator="path",
+            layer_name="main",
+            samples_per_epoch=spe,
+            min_epoch=1,
+            max_epoch=max_epoch,
+            noise_threshold=0.045 / max(quality, 0.25),
+        ),
+        EvaluationProfile(evaluator="normal_depth", layer_name="normal_depth"),
+    )
+    stack = []
+    if denoise:
+        stack.append(LearnedDenoise())
+    stack += [AutoExposure(), Bloom(), ToneMapper(curve="aces"), Vignette()]
+    if watermark:
+        stack.append(Watermark())
+    return RenderProfile(
+        resolution=tuple(resolution), evaluations=evaluations, composition=tuple(stack)
+    )
 
 
 def _sample_frame(scene: PreparedScene, evaluator: str, resolution, seed, sample_start,
@@ -286,6 +327,9 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
     acc = acc_mod.create((n,), channels=channels, device=scene.device)
     total_samples = 0
     dispatch = dispatch_summary(scene)
+    # one log line per layer naming the integrator/accelerator path and why
+    diagnostics.log_event(diagnostics.get_logger("render"), "dispatch",
+                          layer=profile.layer_name, **dispatch)
     # the wavefront's counters cost nothing extra; asking for them on a
     # megakernel frame would bypass the kernel
     stats_on = profile.evaluator == "path" and dispatch["integrator"] == "wavefront"
@@ -303,11 +347,17 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
     epoch = -1
     for epoch in range(full_epochs):
         log.append(dict(epoch=epoch + 1, active=n, read_at=time.perf_counter()))
-        out = _sample_frame(
+        sample_args = (
             scene, profile.evaluator, tuple(resolution), seed,
             epoch * profile.samples_per_epoch, profile.samples_per_epoch,
-            profile.bounce_limit, profile.survivability, return_stats=stats_on,
+            profile.bounce_limit, profile.survivability,
         )
+        if epoch == 0 and diagnostics.device_checks_enabled():
+            # debug runs (ECHO_DEBUG_DEVICE=1): the first epoch under
+            # run_checked, so path_step's dchecks raise with their messages
+            out = diagnostics.run_checked(_sample_frame, *sample_args, return_stats=stats_on)
+        else:
+            out = _sample_frame(*sample_args, return_stats=stats_on)
         s_sum, s_sq = out[0], out[1]
         if stats_on:
             iterations += out[2]["Loop/Iterations"]
@@ -351,18 +401,29 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
     return image, info
 
 
+def compose_on(device, layers: dict, operators) -> tuple[dict, dict]:
+    """Run a composition stack on `device`: the (numpy) layers are uploaded
+    once, composed there and downloaded. Returns (numpy layers, errors)."""
+    from .composition import compose
+
+    composed, errors = compose(layers, operators, device=device)
+    return {k: v.cpu().numpy() for k, v in composed.items()}, errors
+
+
 def render(scene: PreparedScene, profile: RenderProfile, progress=None):
-    """Render all layers of a profile. Returns dict layer_name -> image,
-    plus an info dict under '__info__'."""
-    if profile.composition:
-        raise NotImplementedError(
-            "the composition stack is not in the PyTorch port yet "
-            "(ROADMAP.md: queue 1, composition)"
-        )
+    """Render all layers of a profile, then run the composition stack on
+    the scene's device. Returns dict layer_name -> image, plus an info
+    dict under '__info__' (reference ScheduledRender: evaluations then
+    CompositionOperation); an operator that failed is skipped and named in
+    info["composition_errors"]."""
     layers, infos = {}, {}
     for ep in profile.evaluations:
         img, info = render_layer(scene, ep, profile.resolution, profile.seed, progress)
         layers[ep.layer_name] = img
         infos[ep.layer_name] = info
+    if profile.composition:
+        layers, errors = compose_on(scene.device, layers, profile.composition)
+        if errors:
+            infos["composition_errors"] = errors
     layers["__info__"] = infos
     return layers

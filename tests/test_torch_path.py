@@ -105,9 +105,20 @@ def test_render_layer_counts_samples_and_iterations():
 
 
 def test_unported_render_options_raise():
+    """What the port still lacks raises: the image readers behind ImportGrid
+    and hdr_environment(hdr_path=...). A composition stack runs, and an
+    operator that fails is recorded, as in the JAX package."""
+    from echorenderer_tpu_torch.textures.grids import ImportGrid
+
     scene = prepare_scene(tscenes.material_ball(), device="cpu")
-    with pytest.raises(NotImplementedError, match="composition"):
-        render(scene, RenderProfile(resolution=(8, 8), composition=("tonemap",)))
+    out = render(scene, RenderProfile(resolution=(8, 8), composition=("tonemap",), evaluations=(
+        EvaluationProfile(evaluator="albedo"),)))
+    assert out["__info__"]["composition_errors"] == {"str": "'str' object has no attribute 'apply'"}
+    assert out["main"].shape == (8, 8, 3)
+    with pytest.raises(NotImplementedError, match="io/images.py"):
+        tscenes.hdr_environment(hdr_path="sky.hdr")
+    with pytest.raises(NotImplementedError, match="io/images.py"):
+        ImportGrid("wood.png")
 
 
 def test_port_runs_without_jax():
@@ -137,6 +148,10 @@ def test_port_runs_without_jax():
         "assert info['epochs'] > 1 and info['samples'] < 3 * 2 * 48, info\n"
         "alb, _ = render_layer(c, EvaluationProfile(evaluator='albedo'), (8, 6))\n"
         "assert alb.shape == (6, 8, 3) and float(alb.min()) >= 0.0\n"
+        "from echorenderer_tpu_torch.processes.render import render, standard_path_traced_profile\n"
+        "out = render(c, standard_path_traced_profile(0.25, (24, 16)))\n"
+        "assert out['main'].shape == (16, 24, 3) and 'composition_errors' not in out['__info__']\n"
+        "from echorenderer_tpu_torch.processes import checkpoint, scheduler\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'echorenderer_tpu' or m.startswith('echorenderer_tpu.')]\n"
         "print(bad)\n"
