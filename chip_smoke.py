@@ -62,7 +62,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        split form, ms, bound, % of bound), printed again, "[mega]", before
        the kernels line;
      - the megakernel's textured form the same way on the showcase
-       (scenes/showcase.echo, transcribed in `showcase_scene`), on
+       (scenes/showcase.echo through the port's loader, `showcase_scene`), on
        tests/test_megakernel.py's cloud-and-gradient scene and sphere-texture
        scene and on a normal-map and roughness-ramp scene at 320x180, 8 spp,
        bounce 16, and on the main path's showcase launch (960x540, 64 spp);
@@ -263,7 +263,30 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      there, equal bitwise), and run_checked over a non-finite card tensor
      raises; a Device().schedule_render of the standard profile at 320x180
      on material_ball gives render's layers bitwise.
- 10. summary: a JSON line of the kernels, then the last line
+ 10. frontend: the CLI as a user runs it, `python -m
+     echorenderer_tpu_torch.terminal -p scenes/showcase.echo --profile-name
+     standard` in a subprocess writing main as EXR and PNG and albedo as
+     PFM: exit 0, the main layer's line naming the textured megakernel at a
+     Mspps above 0, every SAH build on the C++ builder; its EXR and PFM
+     bitwise equal to an in-process render of the same profile (960x540)
+     and its PNG the u8 encoding of it; wall seconds and each layer's.
+     scenes/cornell.echo's :fast profile through terminal.main in-process
+     (its Pure albedos are atlas textures: the textured megakernel alone),
+     its EXR bitwise equal to render's; the same profile rendered with
+     preview_progress into a PreviewServer on 127.0.0.1 with
+     tile_progress=16, bitwise equal to the untiled render, /status.json
+     (tile_batch [16, 16]) and the last frame PNG fetched and decoded.
+     sphere_grid(1_000_000)'s mesh written as a binary PLY beside a .echo
+     of sphere_grid's plane, light and camera: load_profile's seconds,
+     prepare_scene's seconds and its SAH builds, the prim, chunk-tree and
+     geometry tables bitwise equal to those of the 1M scene above; then
+     rendered through terminal.main at 960x540 (one path epoch of 16 spp)
+     on the walk and the binned kernels alone, the EXR read back finite
+     with mean luminance in (0.01, 10). The C++ builder against the numpy
+     builder on sphere_grid(250_000)'s prim and chunk boxes and on the 1M
+     prim boxes, every array and the root bitwise (seconds of both), and
+     every prepare_scene of the run on the C++ builder.
+ 11. summary: a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -354,45 +377,16 @@ def fail(msg: str) -> int:
 
 
 def showcase_scene(fifth_texture: bool = False):
-    """scenes/showcase.echo built with the port's classes (the port has no
-    .echo loader yet), every value copied from the file; the comments give
-    its lines. Colors as the loader parses them: rgb(...) is 0-255 sRGB,
-    decoded to linear; hdr(...) is linear. A Pure(...) albedo stays a
-    texture, so the atlas holds 4 slices: the cloud, the gradient and the
-    two Pure colors. `fifth_texture` adds a cloud-textured fifth sphere: 5
-    slices, outside the megakernel's envelope."""
-    import numpy as np
+    """scenes/showcase.echo's Scene through the port's .echo loader. Its
+    Pure(...) albedos stay textures, so the atlas holds 4 slices: the
+    cloud, the gradient and the two Pure colors. `fifth_texture` adds a
+    cloud-textured fifth sphere: 5 slices, outside the megakernel's
+    envelope."""
+    from echorenderer_tpu_torch.io.echo_dsl import EchoSource
+    from echorenderer_tpu_torch.scene import Diffuse, Scene, SphereEntity
+    from echorenderer_tpu_torch.textures import CloudTexture
 
-    from echorenderer_tpu_torch.scene import (AmbientLight, BoxEntity, CoatedDiffuse, Conductor,
-                                              Dielectric, Diffuse, Emissive, PerspectiveCamera,
-                                              PlaneEntity, Scene, SphereEntity)
-    from echorenderer_tpu_torch.textures import CloudTexture, GradientTexture, Pure
-
-    def rgb(*c):
-        v = np.asarray(c, np.float64) / 255.0
-        lin = np.where(v <= 0.04045, v / 12.92, ((v + 0.055) / 1.055) ** 2.4)
-        return tuple(lin.astype(np.float32))
-
-    scene = Scene()  # :2
-    ground = Diffuse(albedo=CloudTexture(scale=6.0, seed=3))  # :4
-    scene.add(PlaneEntity(material=ground, size=(24.0, 24.0)))  # :6
-    scene.add(SphereEntity(  # :8-12
-        material=Conductor(albedo=rgb(244, 180, 90), edge=rgb(255, 255, 255), roughness=0.12),
-        radius=1.0, position=(-2.4, 1, 0)))
-    scene.add(SphereEntity(material=Dielectric(refractive_index=1.5),  # :13-17
-                           radius=1.0, position=(0, 1, 0)))
-    scene.add(SphereEntity(  # :18-22
-        material=CoatedDiffuse(albedo=Pure((0.55, 0.12, 0.1)), refractive_index=1.5),
-        radius=1.0, position=(2.4, 1, 0)))
-    scene.add(BoxEntity(  # :23-27
-        material=Diffuse(albedo=GradientTexture(start=(0.1, 0.2, 0.7), end=(0.9, 0.85, 0.3),
-                                                axis=1)),
-        size=(1.2, 2.4, 1.2), position=(0, 1.2, 2.8), rotation=(0, 30, 0)))
-    scene.add(PlaneEntity(material=Emissive(albedo=Pure((14.0, 13.0, 11.0))),  # :29-33
-                          size=(3.0, 3.0), position=(0, 7, 0), rotation=(180, 0, 0)))
-    scene.add(AmbientLight(intensity=(0.12, 0.14, 0.2)))  # :34
-    scene.add(PerspectiveCamera(name="main", field_of_view=42.0,  # :36
-                                position=(0, 2.6, -8), rotation=(12, 0, 0)))
+    scene = EchoSource(REPO / "scenes" / "showcase.echo").construct_first(Scene)
     if fifth_texture:
         scene.add(SphereEntity(material=Diffuse(albedo=CloudTexture(scale=3.0, seed=9)),
                                radius=0.5, position=(-1.2, 0.5, -1.5)))
@@ -2975,6 +2969,294 @@ def compose_phase(dev, smi, bench, large) -> None:
 
 
 
+# tables of a prepared scene the frontend phase compares: the prim rows, the
+# chunk tree and the geometry they were packed from
+FRONTEND_TABLES = ("prim_soa.", "hier_soa.", "geometry.")
+GRID_ECHO = """# sphere_grid(1_000_000)'s scene, its mesh read from a binary PLY
+:scene = new Scene
+{{
+    .Add(new MeshEntity {{ .Source = "grid.ply" .Material = new Diffuse {{ .Albedo = "0.7 0.6 0.5" }} }})
+    .Add(new PlaneEntity {{ .Size = "{plane} {plane}" .Material = new Diffuse {{ .Albedo = "0.4 0.4 0.4" }} }})
+    .Add(new AmbientLight {{ .Intensity = "0.5 0.6 0.8" }})
+    .Add(new PerspectiveCamera {{ .FieldOfView = "50" .Position = "{eye}" .Rotation = "{pitch!r} 0 0" }})
+}}
+:prof = new RenderProfile
+{{
+    .Scene = link scene
+    .Resolution = "960 540"
+    .EvaluationProfiles = [ new EvaluationProfile {{ .Evaluator = new PathTracedEvaluator .LayerName = "main" .MinEpoch = "1" .MaxEpoch = "1" }} ]
+}}
+"""
+
+
+def tables_of(prepared) -> dict:
+    """A prepared scene's prim, chunk-tree and geometry tables on the host."""
+    from echorenderer_tpu_torch.scene.convert import to_arrays
+
+    return {k: v for k, v in to_arrays(prepared).items() if k.startswith(FRONTEND_TABLES)}
+
+
+def tables_differ(got: dict, want: dict) -> list:
+    """The keys whose arrays are not bitwise equal (shape, dtype, bytes)."""
+    import numpy as np
+
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        a, b = np.ascontiguousarray(got[k]), np.ascontiguousarray(want[k])
+        if a.shape != b.shape or a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            bad.append(k)
+    return bad
+
+
+def write_grid_ply(path, verts, faces) -> None:
+    """A binary little-endian PLY of an indexed triangle mesh: the header,
+    the float32 vertices, then a (count, 3 int32) row a face."""
+    import numpy as np
+
+    rows = np.empty(len(faces), dtype=[("n", "u1"), ("ids", "<i4", (3,))])
+    rows["n"] = 3
+    rows["ids"] = faces
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(verts)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              f"element face {len(faces)}\nproperty list uchar int vertex_indices\n"
+              "end_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(np.ascontiguousarray(verts, "<f4").tobytes())
+        f.write(rows.tobytes())
+
+
+class BuildRecorder:
+    """Records every SAH build prepare_scene makes while active: its boxes,
+    leaf_max and seconds, and which builder took it."""
+
+    def __init__(self):
+        self.builds = []
+
+    def __enter__(self):
+        from echorenderer_tpu_torch.aggregation import bvh
+        from echorenderer_tpu_torch.ops import pallas_hier
+        from echorenderer_tpu_torch.scene import prepare
+
+        real = bvh.build_bvh
+
+        def record(lo, hi, leaf_max=bvh.LEAF_MAX):
+            native = bvh.build_bvh.native_calls
+            t = time.perf_counter()
+            out = real(lo, hi, leaf_max)
+            self.builds.append(dict(lo=lo, hi=hi, leaf_max=leaf_max,
+                                    seconds=time.perf_counter() - t,
+                                    native=bvh.build_bvh.native_calls > native))
+            return out
+
+        self._patched = [(prepare, "build_bvh", prepare.build_bvh),
+                         (pallas_hier, "build_bvh", pallas_hier.build_bvh)]
+        for mod, name, _ in self._patched:
+            setattr(mod, name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._patched:
+            setattr(mod, name, fn)
+
+
+def same_tree(a, b) -> bool:
+    return a.root_code == b.root_code and all(
+        getattr(a, f).tobytes() == getattr(b, f).tobytes()
+        for f in ("child_min", "child_max", "child_code", "prim_order"))
+
+
+def frontend_phase(dev, smi, grid_tables: dict) -> None:
+    """Phase 10 (see the module docstring): the CLI as a user runs it, the
+    showcase from its file, cornell.echo through terminal.main and the live
+    preview, the 1M-triangle mesh from a PLY file, and the C++ BVH builder.
+    Raises on the first failed check."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from echorenderer_tpu_torch import terminal
+    from echorenderer_tpu_torch.aggregation import bvh
+    from echorenderer_tpu_torch.io import exr, images
+    from echorenderer_tpu_torch.io.echo_dsl import EchoSource
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.processes.render import render
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+    from echorenderer_tpu_torch.ui.preview import PreviewServer, PreviewState, preview_progress
+    from echorenderer_tpu_torch.utils.colors import luminance
+
+    t0 = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory(prefix="echo_frontend_")
+    tmp = Path(tmp_dir.name)
+    # --- 1. the CLI as a user runs it, in a subprocess ---
+    outs = dict(exr=tmp / "s.exr", png=tmp / "s.png", pfm=tmp / "a.pfm")
+    cmd = [sys.executable, "-m", "echorenderer_tpu_torch.terminal", "-p", "scenes/showcase.echo",
+           "--profile-name", "standard", "-o", f"main={outs['exr']}", "-o", f"main={outs['png']}",
+           "-o", f"albedo={outs['pfm']}"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t
+    layer_lines = [ln for ln in proc.stderr.splitlines() if re.match(r"\[\w+\] [\d,]+ samples", ln)]
+    for line in proc.stderr.splitlines():
+        if line.startswith(("prepared", "[", "saved")) and "epoch" not in line:
+            log(f"[frontend]   cli: {line}")
+    log(f"[frontend] CLI `python -m echorenderer_tpu_torch.terminal -p scenes/showcase.echo "
+        f"--profile-name standard` exit {proc.returncode} in {cli_s:.2f} s wall | {smi}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed:\n{proc.stdout}\n{proc.stderr}")
+    main_line = next(ln for ln in layer_lines if ln.startswith("[main]"))
+    cli_mspps = float(re.search(r"\(([\d.]+) Mspps\)", main_line).group(1))
+    if "megakernel (fully fused trace+shade, textured form)" not in main_line or cli_mspps <= 0:
+        raise AssertionError(f"the CLI's main layer is not on the textured megakernel: {main_line}")
+    if ", 0 numpy" not in proc.stderr:
+        raise AssertionError("the CLI's prepare_scene did not take the C++ BVH builder")
+    prof = EchoSource(REPO / "scenes" / "showcase.echo").construct("standard")
+    t = time.perf_counter()
+    out = render(prepare_scene(prof.scene, prof.camera_name, device=dev), prof)
+    torch.cuda.synchronize()
+    inproc_s = time.perf_counter() - t
+    for name, info in out["__info__"].items():
+        if isinstance(info, dict):
+            log(f"[frontend]   in-process {name}: {info['seconds']:.4f} s, {info['epochs']} "
+                f"epochs, {info['samples']} samples, "
+                f"{info['samples_per_second'] / 1e6:.3f} Mspps")
+    same_exr = exr.load_exr(outs["exr"]).tobytes() == out["main"].tobytes()
+    same_png = outs["png"].read_bytes() == images.encode_png(out["main"])
+    same_pfm = images.load(outs["pfm"]).tobytes() == out["albedo"].tobytes()
+    log(f"[frontend] in-process render of the same profile {prof.resolution[0]}x"
+        f"{prof.resolution[1]}: {inproc_s:.2f} s; the CLI's EXR "
+        f"{'bitwise equal' if same_exr else 'DIFFERENT'}, PNG "
+        f"{'equal to its u8 encoding' if same_png else 'DIFFERENT'}, albedo PFM "
+        f"{'bitwise equal' if same_pfm else 'DIFFERENT'}")
+    if not (same_exr and same_png and same_pfm) or prof.resolution != (960, 540):
+        raise AssertionError("the CLI's images differ from the in-process render")
+
+    # --- 3. cornell.echo's :fast profile through terminal.main, then the preview ---
+    cornell = REPO / "scenes" / "cornell.echo"
+    zero_launch_counts()
+    t = time.perf_counter()
+    terminal.main(["-p", str(cornell), "--profile-name", "fast", "-o", f"main={tmp / 'c.exr'}"])
+    main_s = time.perf_counter() - t
+    counts = {k: v for k, v in launch_counts().items() if v}
+    prof = EchoSource(cornell).construct("fast")
+    scene = prepare_scene(prof.scene, prof.camera_name, device=dev)
+    plain = render(scene, prof)
+    state = PreviewState()
+    server = PreviewServer(state, host="127.0.0.1", port=0).start()
+    try:
+        tiled = render(scene, prof, progress=preview_progress(state, scene, prof), tile_progress=16)
+        base = f"http://127.0.0.1:{server.port}"
+        import urllib.request
+
+        with urllib.request.urlopen(f"{base}/status.json", timeout=10) as r:
+            status = json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/frame.png", timeout=10) as r:
+            frame = r.read()
+    finally:
+        server.stop()
+    (tmp / "frame.png").write_bytes(frame)
+    decoded = images.load(tmp / "frame.png")
+    same_tiled = tiled["main"].tobytes() == plain["main"].tobytes()
+    same_cli = exr.load_exr(tmp / "c.exr").tobytes() == plain["main"].tobytes()
+    log(f"[frontend] cornell.echo :fast {prof.resolution[0]}x{prof.resolution[1]} through "
+        f"terminal.main in {main_s:.2f} s: launches {counts}; its EXR "
+        f"{'bitwise equal' if same_cli else 'DIFFERENT'} to render's; preview render "
+        f"(tile_progress=16) {'bitwise equal' if same_tiled else 'DIFFERENT'} to the untiled "
+        f"one; /status.json {status}; last frame {len(frame)} bytes, decoded "
+        f"{decoded.shape}")
+    if not (counts.get("mega", 0) + counts.get("mega_textured", 0)) or set(counts) - {
+            "mega", "mega_textured"}:
+        raise AssertionError(f"cornell.echo did not run on the megakernel alone: {counts}")
+    if not (same_tiled and same_cli) or decoded.shape != (180, 320, 3) or status.get(
+            "tile_batch") != [16, 16]:
+        raise AssertionError("the preview's tiled render or its frames are wrong")
+
+    # --- 4. the 1M-triangle mesh from a PLY file, at full size ---
+    k, subdiv = 59, 12  # sphere_grid(1_000_000)
+    verts, faces = scenes.sphere_grid_mesh(k, subdiv)
+    t = time.perf_counter()
+    write_grid_ply(tmp / "grid.ply", verts, faces)
+    write_s = time.perf_counter() - t
+    extent = k * 2.5
+    eye = (extent * 0.5, extent * 0.8, -extent * 0.6)
+    # sphere_grid's camera looks at (extent / 2, 0, extent / 2): a pitch down
+    pitch = float(np.degrees(np.arctan2(eye[1], extent * 0.5 - eye[2])))
+    (tmp / "grid.echo").write_text(GRID_ECHO.format(
+        plane=extent * 4, eye=" ".join(repr(float(v)) for v in eye), pitch=pitch))
+    args = terminal.build_argparser().parse_args(["-p", str(tmp / "grid.echo")])
+    t = time.perf_counter()
+    prof = terminal.load_profile(args)
+    load_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with BuildRecorder() as rec:
+        big = prepare_scene(prof.scene, prof.camera_name, device=dev)
+        torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t
+    differ = tables_differ(tables_of(big), grid_tables)
+    log(f"[frontend] sphere_grid_mesh(59, 12) as a binary PLY: {len(faces):,} triangles, "
+        f"{(tmp / 'grid.ply').stat().st_size / 2 ** 20:.1f} MiB written in {write_s:.2f} s; "
+        f"load_profile (.echo + PLY) {load_s:.2f} s, prepare_scene {prep_s:.2f} s (SAH builds "
+        + ", ".join(f"{len(b['lo'])} boxes leaf_max {b['leaf_max']} "
+                    f"{'C++' if b['native'] else 'numpy'} {b['seconds']:.3f} s"
+                    for b in rec.builds)
+        + f"); prim, chunk-tree and geometry tables against prepare_scene(sphere_grid(1_000_000)): "
+        f"{'bitwise equal' if not differ else f'DIFFERENT: {differ}'} | {smi}")
+    if differ or not all(b["native"] for b in rec.builds):
+        raise AssertionError("the PLY scene's tables differ from sphere_grid(1_000_000)'s")
+    prim_build = next(b for b in rec.builds if b["leaf_max"] == bvh.LEAF_MAX)
+    del big
+    zero_launch_counts()
+    err = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        terminal.main(["-p", str(tmp / "grid.echo"), "-r", "960x540", "-o",
+                       f"main={tmp / 'g.exr'}"])
+    grid_main_s = time.perf_counter() - t
+    counts = {k: v for k, v in launch_counts().items() if v}
+    for line in err.getvalue().splitlines():
+        if "epoch" not in line:
+            log(f"[frontend]   grid cli: {line}")
+    image = exr.load_exr(tmp / "g.exr")
+    lum = float(luminance(torch.as_tensor(np.ascontiguousarray(image))).mean())
+    log(f"[frontend] the PLY scene 960x540 through terminal.main: {grid_main_s:.2f} s (load, "
+        f"prepare, render, write); launches {counts}; EXR {image.shape}, mean luminance "
+        f"{lum:.4f} | {smi}")
+    if image.shape != (540, 960, 3) or not np.isfinite(image).all() or not 0.01 < lum < 10:
+        raise AssertionError(f"the PLY scene's image is not finite or its luminance {lum} is out "
+                             f"of (0.01, 10)")
+    if min(counts.get(k, 0) for k in ("hier_trace", "setup", "select", "seg")) <= 0 or (
+            set(counts) - {"hier_trace", "hier_occlude", "setup", "select", "seg"}):
+        raise AssertionError(f"the PLY scene did not run on the hier and binned kernels: {counts}")
+
+    # --- 5. the C++ builder against the numpy builder ---
+    with BuildRecorder() as rec250:
+        prepare_scene(scenes.sphere_grid(250_000), device=dev)
+    for b in rec250.builds + [prim_build]:
+        t = time.perf_counter()
+        want = bvh.build_bvh_numpy(b["lo"], b["hi"], b["leaf_max"])
+        numpy_s = time.perf_counter() - t
+        got = bvh.build_bvh(b["lo"], b["hi"], b["leaf_max"])
+        same = same_tree(got, want)
+        log(f"[frontend] SAH build of {len(b['lo']):,} boxes leaf_max {b['leaf_max']}: C++ "
+            f"{b['seconds']:.3f} s (in prepare_scene), numpy {numpy_s:.3f} s; child_min, "
+            f"child_max, child_code, prim_order, root {'bitwise equal' if same else 'DIFFERENT'}"
+            f" | {smi}")
+        if not same:
+            raise AssertionError("the C++ BVH builder disagrees with the numpy builder")
+    log(f"[frontend] sphere_grid(1_000_000) from its PLY: prepare_scene {prep_s:.2f} s with the "
+        f"C++ build {prim_build['seconds']:.3f} s | {smi}")
+    log(f"[frontend] SAH builds of the run: {bvh.build_bvh.native_calls} C++, "
+        f"{bvh.build_bvh.numpy_calls} numpy")
+    if bvh.build_bvh.numpy_calls or not bvh.build_bvh.native_calls:
+        raise AssertionError("a prepare_scene of the run did not take the C++ BVH builder")
+    tmp_dir.cleanup()
+    log(f"[frontend] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3179,6 +3461,7 @@ def main() -> int:
     t_prep = time.perf_counter() - t_prep
     prep_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     hsoa = grid.hier_soa
+    grid_tables = tables_of(grid)  # for the frontend phase's PLY scene
     log(f"[kernels] sphere_grid(1_000_000): {grid.geometry.num_triangles} triangles, "
         f"{grid.geometry.num_primitives} prims, {hsoa.num_chunks} chunks, "
         f"{hsoa.codes.numel() // 2} nodes, tree depth {hsoa.stack_size - 8} (stack "
@@ -3422,6 +3705,12 @@ def main() -> int:
 
     # --- composition, denoiser, checkpoints, device checks, scheduler ---
     compose_phase(dev, smi, bench, large)
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
+    # --- the frontends: the CLI, the .echo loader, the preview, the mesh files,
+    # the C++ BVH builder ---
+    frontend_phase(dev, smi, grid_tables)
+    del grid_tables
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     kernels = [

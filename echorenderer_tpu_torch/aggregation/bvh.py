@@ -1,5 +1,5 @@
-"""Host-side SAH BVH build (counterpart of the numpy build in
-echorenderer_tpu/aggregation/bvh.py). The port traces through the dense
+"""Host-side SAH BVH build (counterpart of echorenderer_tpu/aggregation/bvh.py's
+build, C++ with its numpy plain version). The port traces through the dense
 chunk kernels, which only need the BVH's leaf order of the prims, so the
 tree is built here and its `prim_order` packs spatially tight chunks. A
 prepared scene keeps the tree on its device (`on_device`) for
@@ -50,7 +50,33 @@ def build_bvh(aabb_min: np.ndarray, aabb_max: np.ndarray,
               leaf_max: int = LEAF_MAX) -> FlatBVH:
     """Full-sweep SAH build over primitive AABBs: sort by centroid on the
     major axis of the centroid bounds, scan prefix/suffix surface areas,
-    split at the minimum SAH cost (reference SweepBuilder.cs)."""
+    split at the minimum SAH cost (reference SweepBuilder.cs). Runs the C++
+    builder (native/, csrc/bvh_builder.cpp), or `build_bvh_numpy`, its
+    plain version, when no g++ is on PATH; the two give the same arrays
+    bit for bit. `build_bvh.native_calls` and `build_bvh.numpy_calls`
+    count the builds each took."""
+    from ..native import build_bvh_native
+
+    aabb_min = np.asarray(aabb_min, np.float32)
+    aabb_max = np.asarray(aabb_max, np.float32)
+    assert aabb_min.shape[0] > 0
+    out = build_bvh_native(aabb_min, aabb_max, leaf_max)
+    if out is None:
+        build_bvh.numpy_calls += 1
+        return build_bvh_numpy(aabb_min, aabb_max, leaf_max)
+    build_bvh.native_calls += 1
+    cmin, cmax, ccode, order, root = out
+    return FlatBVH(child_min=cmin, child_max=cmax, child_code=ccode, prim_order=order,
+                   root_code=root)
+
+
+build_bvh.native_calls = 0
+build_bvh.numpy_calls = 0
+
+
+def build_bvh_numpy(aabb_min: np.ndarray, aabb_max: np.ndarray,
+                    leaf_max: int = LEAF_MAX) -> FlatBVH:
+    """`build_bvh` in numpy: the C++ builder's plain version."""
     aabb_min = np.asarray(aabb_min, np.float32)
     aabb_max = np.asarray(aabb_max, np.float32)
     n = aabb_min.shape[0]

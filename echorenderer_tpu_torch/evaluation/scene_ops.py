@@ -151,7 +151,8 @@ def dispatch_summary(scene: PreparedScene, return_stats: bool = False) -> dict:
     elif return_stats:
         integ, iwhy = "wavefront", "stats render (megakernel bypassed)"
     elif megakernel.supported(scene):
-        integ, iwhy = "megakernel", "fully fused trace+shade"
+        form = "textured" if scene.tex_atlas.shape[0] else "untextured"
+        integ, iwhy = "megakernel", f"fully fused trace+shade, {form} form"
     elif _use_mega_hier(scene):
         integ, iwhy = "megakernel-hier", "ECHO_MEGA_HIER fat-chunk kernel"
     else:

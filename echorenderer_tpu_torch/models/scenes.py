@@ -9,8 +9,9 @@ benchmarks/instanced_tpu_check.py).
 
 Copied from echorenderer_tpu/models/scenes.py and, for `sphere_grid` and
 `instanced_sphere_grids`, from benchmarks/scene_throughput.py and
-benchmarks/instanced_tpu_check.py. Reading a sky or a mesh from a file
-waits for the image and model loaders this package does not have yet."""
+benchmarks/instanced_tpu_check.py. `hdr_environment(hdr_path=...)` reads
+its sky through io/images.py and `load_mesh_scene` its mesh through
+io/models.py."""
 
 from __future__ import annotations
 
@@ -159,31 +160,30 @@ def sphere_field(count: int = 80, seed: int = 3) -> Scene:
 
 def hdr_environment(hdr_path=None, resolution=(256, 128), sun_elevation=35.0) -> Scene:
     """HDR-environment showcase (BASELINE config #4): glossy + diffuse +
-    glass objects under an importance-sampled equirectangular sky, a
-    procedural sun and gradient (reading an .hdr/.exr sky waits for the
-    image loaders)."""
+    glass objects under an importance-sampled equirectangular sky. Uses a
+    procedural sun+gradient sky unless an .hdr/.exr path is given."""
     from ..textures import CylindricalTexture
 
     if hdr_path is not None:
-        raise NotImplementedError(
-            "hdr_environment(hdr_path=...) reads an image file, which is not in the "
-            "PyTorch port yet (ROADMAP.md: queue 1, scheduler and frontends: io/images.py)"
-        )
-    h, w = resolution[1], resolution[0]
-    v = (np.arange(h, dtype=np.float32) + 0.5) / h  # 0 = down, 1 = up
-    u = (np.arange(w, dtype=np.float32) + 0.5) / w
-    uu, vv = np.meshgrid(u, v)
-    horizon = np.clip((vv - 0.5) * 2.0, 0.0, 1.0)
-    sky = np.stack(
-        [0.25 + 0.25 * horizon, 0.35 + 0.35 * horizon, 0.55 + 0.45 * horizon], -1
-    ).astype(np.float32)
-    ground = vv < 0.5
-    sky[ground] = [0.18, 0.15, 0.12]
-    # sun disk
-    el = np.radians(sun_elevation)
-    sun_v = 0.5 + el / np.pi
-    d2 = ((uu - 0.72) * 2.0) ** 2 + ((vv - sun_v) * 1.0) ** 2
-    sky += np.where(d2[..., None] < 0.0006, np.asarray([900.0, 820.0, 700.0]), 0.0)
+        from ..io.images import load
+
+        sky = load(hdr_path)[..., :3]
+    else:
+        h, w = resolution[1], resolution[0]
+        v = (np.arange(h, dtype=np.float32) + 0.5) / h  # 0 = down, 1 = up
+        u = (np.arange(w, dtype=np.float32) + 0.5) / w
+        uu, vv = np.meshgrid(u, v)
+        horizon = np.clip((vv - 0.5) * 2.0, 0.0, 1.0)
+        sky = np.stack(
+            [0.25 + 0.25 * horizon, 0.35 + 0.35 * horizon, 0.55 + 0.45 * horizon], -1
+        ).astype(np.float32)
+        ground = vv < 0.5
+        sky[ground] = [0.18, 0.15, 0.12]
+        # sun disk
+        el = np.radians(sun_elevation)
+        sun_v = 0.5 + el / np.pi
+        d2 = ((uu - 0.72) * 2.0) ** 2 + ((vv - sun_v) * 1.0) ** 2
+        sky += np.where(d2[..., None] < 0.0006, np.asarray([900.0, 820.0, 700.0]), 0.0)
 
     scene = Scene()
     scene.add(PlaneEntity(size=(30, 30), material=Diffuse(albedo=(0.5, 0.5, 0.5))))
@@ -193,6 +193,28 @@ def hdr_environment(hdr_path=None, resolution=(256, 128), sun_elevation=35.0) ->
     scene.add(AmbientLight(intensity=(1, 1, 1), texture=CylindricalTexture(sky)))
     cam = PerspectiveCamera(field_of_view=45.0, position=(0, 2.0, -8.0))
     cam.look_at((0, 1.0, 0))
+    scene.add(cam)
+    return scene
+
+
+def load_mesh_scene(path, material=None, scale=1.0, env=(0.6, 0.7, 0.9)) -> Scene:
+    """A loaded OBJ/PLY mesh on a ground plane under an ambient sky."""
+    from ..io.models import load_model
+
+    model = load_model(path)
+    scene = Scene()
+    mat = material or Diffuse(albedo=(0.7, 0.7, 0.7))
+    lo = model.vertices.min(axis=0)
+    hi = model.vertices.max(axis=0)
+    center = (lo + hi) / 2
+    size = float(np.max(hi - lo))
+    norm = 2.0 * scale / max(size, 1e-9)
+    mesh = MeshEntity(source=model, material=mat, scale=norm, position=tuple(-center * norm + np.array([0, (hi - lo)[1] / 2 * norm, 0])))
+    scene.add(mesh)
+    scene.add(PlaneEntity(size=(30, 30), material=Diffuse(albedo=(0.45, 0.45, 0.45))))
+    scene.add(AmbientLight(intensity=env))
+    cam = PerspectiveCamera(field_of_view=45.0, position=(0, scale * 1.2, -scale * 3.2))
+    cam.look_at((0, scale * 0.6, 0))
     scene.add(cam)
     return scene
 

@@ -22,8 +22,7 @@ package builds it. Packs placed by PackInstances are baked into the world
 scene/instancing.py), as the JAX package decides (`_shared_packs`).
 Each textured AmbientLight becomes an env map (`env_maps`) with a light
 record of its own; constant ambients add up into one record after them.
-ImportGrid textures raise NotImplementedError naming the ROADMAP.md item
-that brings them (textures/grids.py).
+The SAH BVH comes from aggregation/bvh.build_bvh (the C++ builder).
 """
 
 from __future__ import annotations

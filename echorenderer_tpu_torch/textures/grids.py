@@ -142,14 +142,27 @@ TextureGrid = ArrayGrid  # the reference's name
 
 
 class ImportGrid(Texture):
-    """An image file as a texture: it needs the image readers of io/images.py,
-    which the port does not have yet."""
+    """Lazily imported image texture (reference ImportGrid.cs); `srgb=True`
+    decodes gamma on load, except for the float formats."""
 
     def __init__(self, path, srgb=True, **kw):
-        raise NotImplementedError(
-            "ImportGrid (an image file as a texture) is not in the PyTorch port yet "
-            "(ROADMAP.md: queue 1, scheduler and frontends: io/images.py)"
-        )
+        super().__init__(**kw)
+        self.path = str(path)
+        self.srgb = bool(srgb)
+        self._loaded = None
+
+    def data(self):
+        if self._loaded is None:
+            from ..io.images import load_image
+
+            img = load_image(self.path)
+            floats = (".hdr", ".exr", ".fpi", ".pfm", ".npy")
+            if self.srgb and not self.path.lower().endswith(floats):
+                rgb = np.asarray(img[..., :3], np.float32)
+                lin = np.where(rgb <= 0.04045, rgb / 12.92, ((rgb + 0.055) / 1.055) ** 2.4)
+                img = np.concatenate([lin, img[..., 3:]], axis=-1) if img.shape[-1] == 4 else lin
+            self._loaded = np.asarray(img, np.float32)
+        return self._loaded
 
 
 class Pure(Texture):

@@ -105,20 +105,35 @@ def test_render_layer_counts_samples_and_iterations():
 
 
 def test_unported_render_options_raise():
-    """What the port still lacks raises: the image readers behind ImportGrid
-    and hdr_environment(hdr_path=...). A composition stack runs, and an
-    operator that fails is recorded, as in the JAX package."""
-    from echorenderer_tpu_torch.textures.grids import ImportGrid
-
+    """The composition-error half of what this test held while the image
+    readers were missing (ImportGrid and hdr_environment(hdr_path=...) now
+    work: test_image_texture_and_hdr_sky_work): a composition stack runs,
+    and an operator that fails is recorded, as in the JAX package."""
     scene = prepare_scene(tscenes.material_ball(), device="cpu")
     out = render(scene, RenderProfile(resolution=(8, 8), composition=("tonemap",), evaluations=(
         EvaluationProfile(evaluator="albedo"),)))
     assert out["__info__"]["composition_errors"] == {"str": "'str' object has no attribute 'apply'"}
     assert out["main"].shape == (8, 8, 3)
-    with pytest.raises(NotImplementedError, match="io/images.py"):
-        tscenes.hdr_environment(hdr_path="sky.hdr")
-    with pytest.raises(NotImplementedError, match="io/images.py"):
-        ImportGrid("wood.png")
+
+
+def test_image_texture_and_hdr_sky_work(tmp_path):
+    """ImportGrid and hdr_environment(hdr_path=...), which raised before the
+    image readers were ported, prepare and render."""
+    from echorenderer_tpu_torch.io import images
+    from echorenderer_tpu_torch.scene import Diffuse
+    from echorenderer_tpu_torch.textures.grids import ImportGrid
+
+    rs = np.random.RandomState(4)
+    images.save(tmp_path / "wood.png", rs.uniform(0, 1, (8, 8, 3)).astype(np.float32))
+    images.save(tmp_path / "sky.hdr", rs.uniform(0.1, 3, (8, 16, 3)).astype(np.float32))
+    ball = prepare_scene(tscenes.material_ball(Diffuse(albedo=ImportGrid(tmp_path / "wood.png"))),
+                         device="cpu")
+    sky = prepare_scene(tscenes.hdr_environment(hdr_path=tmp_path / "sky.hdr"), device="cpu")
+    assert ball.tex_atlas.shape[0] == 1 and len(sky.env_maps) == 1
+    for scene in (ball, sky):
+        out = render(scene, RenderProfile(resolution=(8, 8), evaluations=(
+            EvaluationProfile(evaluator="albedo"),)))
+        assert np.isfinite(out["main"]).all() and out["main"].max() > 0
 
 
 def test_port_runs_without_jax():
@@ -152,6 +167,15 @@ def test_port_runs_without_jax():
         "out = render(c, standard_path_traced_profile(0.25, (24, 16)))\n"
         "assert out['main'].shape == (16, 24, 3) and 'composition_errors' not in out['__info__']\n"
         "from echorenderer_tpu_torch.processes import checkpoint, scheduler\n"
+        "from echorenderer_tpu_torch import native, terminal, ui\n"
+        "from echorenderer_tpu_torch.io import echo_dsl, echo_registry, exr, images, models\n"
+        "from echorenderer_tpu_torch.ui import preview\n"
+        "from echorenderer_tpu_torch.aggregation.bvh import build_bvh\n"
+        "src = echo_dsl.EchoSource('scenes/cornell.echo')\n"
+        "prof = src.construct('fast')\n"
+        "c2 = prepare_scene(prof.scene, device='cpu')\n"
+        "assert c2.geometry.num_triangles == 36 and build_bvh.native_calls + build_bvh.numpy_calls\n"
+        "assert images.encode_png(alb)[:4] == b'\\x89PNG'\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'echorenderer_tpu' or m.startswith('echorenderer_tpu.')]\n"
         "print(bad)\n"

@@ -329,13 +329,20 @@ def test_grid_examples():
     assert float(g.sample_uv([[0.99, 0.5]])[0, 0]) > 0.95
 
 
-def test_image_files_wait_for_the_loaders():
-    """ImportGrid and an hdr_environment sky read from a file both need
-    io/images.py: queue 1 item 10."""
-    with pytest.raises(NotImplementedError, match="queue 1, scheduler and frontends"):
-        ttx.ImportGrid("sky.hdr")
-    with pytest.raises(NotImplementedError, match="queue 1, scheduler and frontends"):
-        tscenes.hdr_environment(hdr_path="sky.hdr")
+def test_image_files_wait_for_the_loaders(tmp_path):
+    """ImportGrid and an hdr_environment sky read from a file waited for
+    io/images.py, which the port now has: both read the file, lazily
+    (tests/test_torch_io.py holds their tables to the JAX package's)."""
+    from echorenderer_tpu_torch.io import images
+
+    img = _env_img()
+    images.save(tmp_path / "sky.hdr", img)
+    grid = ttx.ImportGrid(tmp_path / "missing.hdr")  # nothing read yet
+    grid.path = str(tmp_path / "sky.hdr")
+    np.testing.assert_array_equal(grid.data(), images.load(tmp_path / "sky.hdr"))
+    sky = next(e for e in tscenes.hdr_environment(hdr_path=tmp_path / "sky.hdr").children
+               if getattr(e, "texture", None) is not None).texture
+    np.testing.assert_array_equal(sky.data(), grid.data()[..., :3])
 
 
 def _env_img():
