@@ -286,7 +286,23 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      builder on sphere_grid(250_000)'s prim and chunk boxes and on the 1M
      prim boxes, every array and the root bitwise (seconds of both), and
      every prepare_scene of the run on the C++ builder.
- 11. summary: a JSON line of the kernels, then the last line
+ 11. multigpu: parallel/ on the card, counters zeroed before each render.
+     The bench frame (sphere_field(80), 960x540, 64 spp, bounce 16: the
+     megakernel) through render_epoch_sharded over meshes of 1 (make_mesh(1)),
+     2 and 4 shards on cuda:0: sums and squares bitwise equal to one
+     unsharded sample_frame_wavefront call over every lane in tile order,
+     Mspps (best of 3), the counter (padded lanes x spp) and one megakernel
+     launch a shard. instanced_sphere_grids() (TLAS) at 1920x1080, 1 spp,
+     bounce 6, over 1 and 2 shards: the instanced kernels alone, bitwise
+     equal. Three spawned processes at once on cuda:0: two gloo ranks over
+     a file store, each rendering its half of the bench frame at 16 spp
+     through render_frame_multihost, and one NCCL world of one (its gather
+     all_gather_into_tensor on the card); each renders the frame twice and
+     reports the all-gather's ms; every image bitwise equal to the
+     in-process render_frame_sharded frame over 2 shards; a process that
+     fails or outlives its 150 s join timeout fails the phase. Then
+     entry.dryrun_multichip(4) (the mesh repeats cuda:0).
+ 12. summary: a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -3257,6 +3273,218 @@ def frontend_phase(dev, smi, grid_tables: dict) -> None:
     log(f"[frontend] phase {time.perf_counter() - t0:.1f} s")
 
 
+MULTIGPU_RES = (960, 540)  # the bench frame
+MULTIGPU_SPP = 64  # the bench render's epoch
+MULTIGPU_PROCESS_SPP = 16  # the multi-process frame
+MULTIGPU_SHARDS = (1, 2, 4)
+MULTIGPU_JOIN_S = 150  # a rank's join timeout
+
+
+def multigpu_rank(rank: int, world: int, backend: str, store_path: str, out_path: str) -> None:
+    """One process of the [multigpu] phase's multi-process frame (spawned):
+    join the group over a file store, render this rank's shards of the
+    bench frame through render_frame_multihost on cuda:0, save the image
+    and a JSON of its times beside it."""
+    from datetime import timedelta
+
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.parallel import multihost
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+
+    t0 = time.perf_counter()
+    store = dist.FileStore(store_path, world)
+    if world > 1:
+        if not multihost.initialize(store, world_size=world, rank=rank, backend=backend,
+                                    timeout_s=MULTIGPU_JOIN_S):
+            raise AssertionError("initialize() did not join the process group")
+    else:  # initialize() does nothing for a world of one: join it directly
+        dist.init_process_group(backend, store=store, world_size=1, rank=0,
+                                timeout=timedelta(seconds=MULTIGPU_JOIN_S))
+    mesh = multihost.make_global_mesh(devices=["cuda:0"])
+    info = multihost.process_shard_info(mesh)
+    if info != (rank, world, 1) or dist.get_backend() != backend:
+        raise AssertionError(f"shard info {info}, backend {dist.get_backend()}")
+    scene = prepare_scene(scenes.sphere_field(80), device="cuda:0")
+    torch.cuda.synchronize()
+    times = dict(set_up_s=time.perf_counter() - t0, frame_s=[], gather_ms=[])
+    for run in range(2):  # the first gather also sets up the backend's communicator
+        t1 = time.perf_counter()
+        img = multihost.render_frame_multihost(mesh, scene, MULTIGPU_RES,
+                                               spp=MULTIGPU_PROCESS_SPP, bounce_limit=16)
+        times["frame_s"].append(time.perf_counter() - t1)
+        times["gather_ms"].append(multihost.render_frame_multihost.gather_ms)
+        if run == 0:
+            first = img
+    if not np.array_equal(first, img):
+        raise AssertionError("the second frame differs from the first")
+    np.save(out_path, img)
+    with open(out_path + ".json", "w") as f:
+        json.dump(times, f)
+    dist.destroy_process_group()
+
+
+def multigpu_processes(tmp: str) -> list:
+    """The [multigpu] phase's processes, all at once on cuda:0: two gloo
+    ranks and one NCCL world of one. Returns (label, rank, image path) of
+    each; raises when a process fails or outlives its join timeout."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    runs = [("gloo", 2, r, f"{tmp}/gloo.store") for r in range(2)]
+    runs.append(("nccl", 1, 0, f"{tmp}/nccl.store"))
+    procs = []
+    for backend, world, rank, store in runs:
+        out = f"{tmp}/{backend}{rank}.npy"
+        p = ctx.Process(target=multigpu_rank, args=(rank, world, backend, store, out))
+        p.start()
+        procs.append((p, (f"{backend} world {world}", rank, out)))
+    deadline = time.monotonic() + MULTIGPU_JOIN_S
+    failed = []
+    for p, (label, rank, _) in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+        if p.is_alive():
+            failed.append(f"{label} rank {rank} still running after {MULTIGPU_JOIN_S} s")
+        elif p.exitcode != 0:
+            failed.append(f"{label} rank {rank} exit code {p.exitcode}")
+    for p, _ in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return [meta for _, meta in procs]
+
+
+def multigpu_phase(dev, smi, bench) -> None:
+    """Phase 11 (see the module docstring): the pixel shards of parallel/ on
+    the card. Raises on the first failed check."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from echorenderer_tpu_torch.entry import dryrun_multichip
+    from echorenderer_tpu_torch.evaluation.wavefront import sample_frame_wavefront
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.ops import megakernel as mk
+    from echorenderer_tpu_torch.parallel import (make_mesh, render_epoch_sharded,
+                                                 render_frame_sharded)
+    from echorenderer_tpu_torch.processes.tiles import lane_order
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+
+    t_phase = time.perf_counter()
+    # --- 1. the bench frame over 1, 2 and 4 shards and unsharded
+    res, spp = MULTIGPU_RES, MULTIGPU_SPP
+    n_px = res[0] * res[1]
+    perm, inv = lane_order(res)
+    pid = torch.as_tensor(perm.astype(np.int64), device=dev)
+    pxy = torch.stack([pid % res[0], pid // res[0]], dim=-1).to(torch.int32)
+    inv = torch.as_tensor(inv.astype(np.int64), device=dev)
+    zero_launch_counts()
+    ref_sum, ref_sq = sample_frame_wavefront(bench, pid, pxy, res, 0, 0, spp, bounce_limit=16)
+    ref_launches = mk.sample_frame_mega.launches
+    ref_sum, ref_sq = ref_sum[inv], ref_sq[inv]
+    for k in MULTIGPU_SHARDS:
+        mesh = make_mesh(1) if k == 1 else make_mesh(devices=[dev] * k)
+        secs = []
+        for run in range(3):
+            if run == 0:
+                zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_sum, s_sq, counter = render_epoch_sharded(mesh, bench, res, 0, 0, spp,
+                                                        bounce_limit=16)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if run == 0:
+                grew = launch_counts()
+            if not (torch.equal(s_sum, ref_sum) and torch.equal(s_sq, ref_sq)):
+                differ = int((s_sum != ref_sum).any(-1).sum())
+                raise AssertionError(f"bench over {k} shard(s): {differ} pixels not bitwise the "
+                                     f"unsharded call's")
+        padded = -(-n_px // k) * k
+        others = {key: v for key, v in grew.items() if v and key != "mega"}
+        log(f"[multigpu] sphere_field(80) {res[0]}x{res[1]} {spp} spp bounce 16 over {k} "
+            f"shard(s) on {[str(d) for d in mesh.devices]}: {n_px * spp / min(secs) / 1e6:.3f} "
+            f"Mspps (best of 3; seconds " + ", ".join(f"{t:.4f}" for t in secs) + f"), counter "
+            f"{float(counter[0]):.0f} = {padded} x {spp}, megakernel launches {grew['mega']} "
+            f"(unsharded call: {ref_launches}), bitwise the unsharded call | {smi}")
+        if grew["mega"] != k or others or float(counter[0]) != padded * spp:
+            raise AssertionError(f"bench over {k} shards: launches {grew}, counter "
+                                 f"{float(counter[0])}")
+    del ref_sum, ref_sq, s_sum, s_sq, pid, pxy, inv
+
+    # --- 2. the TLAS slice at its full width over 1 and 2 shards
+    t0 = time.perf_counter()
+    tlas = prepare_scene(scenes.instanced_sphere_grids(), instancing="tlas", device=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    res = INSTANCED_RES
+    sums = {}
+    for k in (1, 2):
+        mesh = make_mesh(devices=[dev] * k)
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_sum, s_sq, _ = render_epoch_sharded(mesh, tlas, res, 0, 0, 1, bounce_limit=6)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        grew = launch_counts()
+        sums[k] = (s_sum, s_sq)
+        log(f"[multigpu] instanced_sphere_grids() (TLAS) {res[0]}x{res[1]} 1 spp bounce 6 over "
+            f"{k} shard(s): {res[0] * res[1] / secs / 1e6:.4f} Mspps ({secs:.3f} s; prepare "
+            f"{prep_s:.2f} s); launches " + ", ".join(f"{key} {v}" for key, v in grew.items() if v)
+            + f" | {smi}")
+        others = [key for key, v in grew.items() if v and key not in INSTANCED_PATH]
+        if min(grew[key] for key in INSTANCED_PATH) <= 0 or others:
+            raise AssertionError(f"TLAS over {k} shards not on the instanced kernels alone: {grew}")
+    (a, a2), (b, b2) = sums[1], sums[2]
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("TLAS frame not finite")
+    if not (torch.equal(a, b) and torch.equal(a2, b2)):
+        differ = (a != b).any(-1)
+        raise AssertionError(f"TLAS over 2 shards: {int(differ.sum())} pixels not bitwise the "
+                             f"1-shard frame's (largest difference "
+                             f"{float((a - b).abs().max()):.3e})")
+    log(f"[multigpu] TLAS 1 and 2 shards bitwise equal")
+    del tlas, sums, a, a2, b, b2, s_sum, s_sq
+
+    # --- 3. two gloo processes and one NCCL world of one, all on cuda:0
+    res = MULTIGPU_RES
+    want = render_frame_sharded(make_mesh(devices=[dev] * 2), bench, res,
+                                spp=MULTIGPU_PROCESS_SPP, bounce_limit=16)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        runs = multigpu_processes(tmp)
+        wall = time.perf_counter() - t0
+        for label, rank, out in runs:
+            img = np.load(out)
+            with open(out + ".json") as f:
+                times = json.load(f)
+            same = img.shape == want.shape and np.array_equal(img, want)
+            log(f"[multigpu] {label} rank {rank}: set-up {times['set_up_s']:.2f} s; two frames "
+                f"(the first gather sets up the communicator): "
+                + ", ".join(f"{f:.3f} s with an all-gather of {g:.3f} ms"
+                            for f, g in zip(times["frame_s"], times["gather_ms"]))
+                + f"; image {'bitwise' if same else 'NOT bitwise'} the in-process 2-shard frame "
+                  f"({res[0]}x{res[1]}, {MULTIGPU_PROCESS_SPP} spp) | {smi}")
+            if not same:
+                raise AssertionError(f"{label} rank {rank}: image differs from the in-process "
+                                     f"frame")
+    log(f"[multigpu] processes: {len(runs)} in {wall:.1f} s wall, spawn to join")
+
+    # --- 4. the dry run over 4 shards
+    t0 = time.perf_counter()
+    dryrun_multichip(4)
+    log(f"[multigpu] dryrun_multichip(4) passed in {time.perf_counter() - t0:.2f} s; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3711,6 +3939,10 @@ def main() -> int:
     # the C++ BVH builder ---
     frontend_phase(dev, smi, grid_tables)
     del grid_tables
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
+    # --- multi-GPU: pixel shards, processes, the dry run ---
+    multigpu_phase(dev, smi, bench)
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     kernels = [

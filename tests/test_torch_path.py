@@ -8,8 +8,9 @@
   the only difference).
 - The port's `_sample_frame` against the committed golden images with
   tests/test_golden.py's tolerances.
-- Importing and running the port (an adaptive layer and an albedo layer
-  included) leaves jax out of the process.
+- Importing and running the port (an adaptive layer, an albedo layer and
+  a frame sharded over two CPU shards included) leaves jax out of the
+  process.
 """
 
 import subprocess
@@ -176,6 +177,12 @@ def test_port_runs_without_jax():
         "c2 = prepare_scene(prof.scene, device='cpu')\n"
         "assert c2.geometry.num_triangles == 36 and build_bvh.native_calls + build_bvh.numpy_calls\n"
         "assert images.encode_png(alb)[:4] == b'\\x89PNG'\n"
+        "import numpy as np\n"
+        "from echorenderer_tpu_torch.parallel import make_mesh, render_frame_sharded\n"
+        "from echorenderer_tpu_torch.parallel import multihost\n"
+        "img = render_frame_sharded(make_mesh(devices=['cpu'] * 2), c, (8, 6), spp=2,\n"
+        "                           bounce_limit=3)\n"
+        "assert img.shape == (6, 8, 3) and bool(np.isfinite(img).all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'echorenderer_tpu' or m.startswith('echorenderer_tpu.')]\n"
         "print(bad)\n"
