@@ -222,16 +222,27 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      (echorenderer_tpu_torch.benchmarks.plucker_micro, csrc/plucker.cu) at
      2^20 rays against its 256-triangle soup, counters zeroed: its numerics
      as its main() drives them (1 MT launch, 2 each of the Plücker form at
-     HIGHEST and DEFAULT), every key array bitwise against its plain
-     version, the agreement of each Plücker form with MT (key agreement,
-     prim flips, hit/miss flips, largest relative t gap) in the scene frame
-     and the chunk-local frame; per kernel the median ms on the chunk-local
+     HIGHEST and DEFAULT), the MT and HIGHEST key arrays bitwise against
+     their plain versions, the DEFAULT ones (the wgmma form) within
+     plucker_micro.default_within_contract, its counts printed (prim and
+     hit/miss flips, differing keys, keys off by other than one band, the
+     largest |key difference| of the rays without a flip), the agreement
+     of each Plücker form with MT
+     (key agreement, prim flips, hit/miss flips, largest relative t gap) in
+     the scene frame and the chunk-local frame; each kernel's form (rays a
+     thread or prims a wgmma product, ptxas registers and spills, which
+     must be none, dynamic shared memory, resident warps/SM) and the HGMMA
+     instructions in the DEFAULT kernel's SASS (cuobjdump -sass; none
+     fails); per kernel the median ms on the chunk-local
      inputs, the plain ms, the bound (MT: 45 flops a (ray, triangle);
-     Plücker: 45 a pair at 67 TFLOP/s, or at DEFAULT its 44 product flops
-     at the bf16 tensor-core rate and the division at 67 TFLOP/s) and, for
+     Plücker: the edge volumes' 33 flops a pair, at 67 TFLOP/s or at
+     DEFAULT at the bf16 tensor-core rate, and 12 more only on the pairs
+     that pass the sign test, counted from this run's data) and, for
      the Plücker form, torch.matmul of its two products alone as a
      yardstick. The kernels line adds plucker_mt, plucker_plk_highest and
-     plucker_plk_default; binned_seg_exact counts the exact launches of
+     plucker_plk_default (its max_abs_err the largest |key difference|
+     without a flip, its contract counts per frame under "contract");
+     binned_seg_exact counts the exact launches of
      the large-scene program's check above.
   9. compose: the README's call on the card, render(prepare_scene(
      scenes.material_ball()), standard_path_traced_profile(1.0, (1280,
@@ -367,11 +378,13 @@ FLOPS_XFORM = 18
 PEAK_BF16 = 989e12  # H100 SXM bf16 on the tensor cores, dense (data sheet)
 PLUCKER_SOURCE = "echorenderer_tpu_torch/csrc/plucker.cu"
 PLUCKER_SITES = dict(mt="benchmarks/plucker_micro.py:79", plk="benchmarks/plucker_micro.py:142")
-# the Plücker form's least float work for one (ray, triangle) pair, counted
-# from csrc/plucker.cu without its products by structural zeros: three edge
-# volumes of 6 products and 5 sums, n.d of 3 and 2, nv0 - n.o of 3 and 3,
-# the division (the kernel's 8- and 4-term sums do 58); per ray m = o x d, 9
-PLUCKER_PRODUCT_FLOPS = 44
+# the Plücker form's least float work, counted from csrc/plucker.cu without
+# its products by structural zeros: a (ray, triangle) pair's three edge
+# volumes of 6 products and 5 sums; on a pair that passes the sign test
+# only, n.d of 3 and 2, nv0 - n.o of 3 and 3 and the division; per ray
+# m = o x d, 9
+PLUCKER_EDGE_FLOPS = 33
+PLUCKER_INSIDE_FLOPS = 12
 PLUCKER_RAY_FLOPS = 9
 INSTANCED_RES = (1920, 1080)  # bench.py's large-scene frame, for the TLAS slice
 # live-pair bounds of the seg launches' buckets (< 2^14, < 2^18, the rest)
@@ -2252,15 +2265,130 @@ def mega_hier_slice(grid, res, program, walk_first, walk_mspps, main_mspps, smi)
                 plain_ms=ms["plain_ms"], bound_ms=bound[0], bound_by=bound[1], library_ms=None)
 
 
+def plucker_bounds(n: int, inside: dict) -> dict:
+    """{kernel: (bound ms, "operations" or "bytes", reckoning)} of the
+    Plücker micro-benchmark's kernels at n rays against its 256 triangles:
+    the larger of the least float work and the bytes (the 8 columns read,
+    the keys written, the table's rows read once). The float work: MT, 45
+    flops a (ray, triangle) (its test runs whole on every pair); Plücker,
+    the edge volumes' 33 flops a pair (at 67 TFLOP/s, or at DEFAULT at the
+    bf16 tensor-core 989 TFLOP/s) and, at 67 TFLOP/s, 9 a ray for m = o x d
+    and 12 (the plane and the division) on each of the inside[kernel] pairs
+    that pass the sign test in this run's data
+    (`plucker_micro.inside_pairs`)."""
+    H = 256
+    pairs = n * H
+    io_bytes = 8 * n * 4 + n * 4
+    plk_bytes = io_bytes + (6 * 3 + 3 + 4) * H * 4  # the rows the kernels read
+
+    def plk_work(kernel, peak, rate):
+        rest = PLUCKER_RAY_FLOPS * n + PLUCKER_INSIDE_FLOPS * inside[kernel]
+        return (PLUCKER_EDGE_FLOPS * pairs / peak * 1e3 + rest / PEAK_FLOPS * 1e3, plk_bytes,
+                f"{PLUCKER_EDGE_FLOPS} edge flops a pair at {rate}, {PLUCKER_RAY_FLOPS} a ray and "
+                f"{PLUCKER_INSIDE_FLOPS} on each of the {inside[kernel]} pairs inside the sign "
+                f"test at 67 TFLOP/s")
+
+    work = dict(
+        mt=(FLOPS_TRI * pairs / PEAK_FLOPS * 1e3, io_bytes + 10 * H * 4,
+            f"{FLOPS_TRI} flops a (ray, triangle) at 67 TFLOP/s"),
+        plk_highest=plk_work("plk_highest", PEAK_FLOPS, "67 TFLOP/s"),
+        plk_default=plk_work("plk_default", PEAK_BF16, "the bf16 tensor-core 989 TFLOP/s"))
+    out = {}
+    for name, (ops_ms, nbytes, reckoning) in work.items():
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        bound, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+        out[name] = (bound, by, f"{reckoning}: {ops_ms:.6f} ms; {nbytes} bytes at 3.35 TB/s: "
+                                f"{bytes_ms:.6f} ms")
+    return out
+
+
+def plucker_products(pm, plk, cols, dtype):
+    """Kernel 9's products as one library call each, the yardstick: lhs
+    (8, 3H) and (8, 2H) laid out as the JAX kernel's lhsA and lhsBC, against
+    the per-ray [d, m, 0, 0] and [d, o, 1, 0] columns of cols, in `dtype`
+    (the products alone, not the keys)."""
+    import torch
+
+    H = pm.H
+    ox, oy, oz, dx, dy, dz = cols[0:6]
+    zero, one = torch.zeros_like(ox), torch.ones_like(ox)
+    rhs_a = torch.stack([dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx,
+                         zero, zero])
+    rhs_b = torch.stack([dx, dy, dz, ox, oy, oz, one, zero])
+    lhs_a = plk[0:8, 0:3 * H]
+    lhs_bc = torch.zeros((8, 2 * H), device=plk.device)
+    lhs_bc[0:3, 0:H] = plk[0:3, 3 * H:4 * H]
+    lhs_bc[3:7, H:2 * H] = plk[6:10, 4 * H:5 * H]
+    a, b, c, d = (x.to(dtype) for x in (lhs_a.T, rhs_a, lhs_bc.T, rhs_b))
+    return lambda: (torch.matmul(a, b), torch.matmul(c, d))
+
+
+# the Plücker kernels' entry names in csrc/plucker.cu
+PLUCKER_ENTRIES = dict(mt="mt_kernel", plk_highest="highest_kernel", plk_default="default_kernel")
+
+
+def sass_functions(lib) -> dict:
+    """{function name: [SASS instructions]} of a built library (cuobjdump
+    -sass from nvcc's directory)."""
+    from echorenderer_tpu_torch.ops import cuda_build
+
+    text = subprocess.run([str(Path(cuda_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        got = re.search(r"Function : (\S+)", line)
+        if got:
+            name = got.group(1)
+            out[name] = []
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            out[name].append(re.sub(r"/\*.*?\*/", "", line).split(";")[0].strip())
+    return out
+
+
+def plucker_form_reports(pm, smi) -> dict:
+    """One "[plucker]" line a kernel: the form it launches (rays a thread or
+    prims a wgmma product), ptxas registers / stack frame / spills, dynamic
+    shared memory a block and resident warps/SM; and the DEFAULT kernel's
+    HGMMA instructions in its SASS (it fails without one, or on a spill).
+    Returns {kernel: line}."""
+    from echorenderer_tpu_torch.ops import cuda_build
+
+    built = cuda_build.build()["plucker"]
+    forms = pm.forms()
+    sass = sass_functions(built.path)
+    lines = {}
+    for kernel, entry in PLUCKER_ENTRIES.items():
+        reports = ptxas_forms(built.ptxas, entry)
+        if len(reports) != 1:
+            raise AssertionError(f"plucker: expected one {entry} in ptxas's report: {reports}")
+        (report,) = reports.values()
+        if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", report):
+            raise AssertionError(f"plucker: {entry} spills: {report}")
+        f = forms[kernel]
+        what = (f"{f['prims']} prims a wgmma product" if "prims" in f else
+                f"{f['rays']} rays a thread")
+        code = next(v for k, v in sass.items() if entry in k)
+        hgmma = sum(1 for ins in code if "HGMMA" in ins)
+        lines[kernel] = (f"{entry} ({what}): {report}; {f['smem']} bytes dynamic smem a "
+                         f"{f['threads']}-thread block, {f['blocks']} blocks = {f['warps']} "
+                         f"resident warps/SM on {f['sms']} SMs (persistent grid); "
+                         f"{len(code)} SASS instructions, {hgmma} HGMMA | {smi}")
+        if kernel == "plk_default" and not hgmma:
+            raise AssertionError(f"plucker: {entry} holds no HGMMA instruction")
+    return lines
+
+
 def plucker_phase(dev, smi) -> list:
     """The Plücker micro-benchmark (echorenderer_tpu_torch.benchmarks.
     plucker_micro) at 2^20 rays against its 256-triangle soup: its numerics
     as its main() drives them (counts from zero: one MT launch, two of each
-    Plücker precision), every key array bitwise against its plain version,
-    the MT/Plücker agreement statistics, then each kernel's ms on the
-    chunk-local inputs (as the script times them), plain ms, bound and the
-    library yardstick (kernel 9: torch.matmul of its two products alone).
-    Returns the kernels-line rows."""
+    Plücker precision), the MT and HIGHEST key arrays bitwise against their
+    plain versions, the DEFAULT ones (the tensor-core form) within
+    `default_within_contract` with its counts, the MT/Plücker agreement
+    statistics, each kernel's form (ptxas, residency, HGMMA), then each
+    kernel's ms on the chunk-local inputs (as the script times them), plain
+    ms, bound and the library yardstick (kernel 9: torch.matmul of its two
+    products alone). Returns the kernels-line rows."""
     import torch
 
     from echorenderer_tpu_torch.benchmarks import plucker_micro as pm
@@ -2279,87 +2407,76 @@ def plucker_phase(dev, smi) -> list:
         for prec in pm.PRECISIONS:
             plain[f"{frame} {prec}"] = lambda plk=plk, cc=cc, prec=prec: pm.keys_plk_plain(
                 plk, cc, prec)
-    err = {}  # the largest |kernel key - plain key| per kernel
+    # the largest |kernel key - plain key| per kernel; DEFAULT's over the rays
+    # without a prim or hit/miss flip (a flip's difference is no t gap), its
+    # contract counts per frame beside it
+    err, contract = {}, {}
     for name, fn in plain.items():
         want = fn()
         kernel = "mt" if name == "mt" else f"plk_{name.split()[1]}"
-        err[kernel] = max(err.get(kernel, 0), int((keys[name].long() - want.long()).abs().max()))
-        if not torch.equal(keys[name], want):
+        if kernel == "plk_default":
+            ok, counts = pm.default_within_contract(keys[name], want)
+            contract[name.split()[0]] = counts
+            err[kernel] = max(err.get(kernel, 0), counts["max_abs"])
+            log(f"[plucker] {name} against its plain version (the contract: prim + hit/miss "
+                f"flips <= {pm.DEFAULT_FLIPS_MAX:g} of rays, differing keys <= "
+                f"{pm.DEFAULT_DIFFER_MAX:g}, the rest one band of the same prim): "
+                f"{'within' if ok else 'OUTSIDE'}; {counts}")
+            if not ok:
+                raise AssertionError(f"plucker {name}: the kernel breaks its contract: {counts}")
+        elif not torch.equal(keys[name], want):
             raise AssertionError(f"plucker {name}: the kernel differs from its plain version on "
                                  f"{int((keys[name] != want).sum())} of {n} rays")
-    log(f"[plucker] every key array ({', '.join(plain)}) bitwise equal to its plain version")
+        else:
+            err[kernel] = 0
+    log("[plucker] MT and HIGHEST key arrays (mt, " + ", ".join(
+        f"{f} highest" for f in pm.FRAMES) + ") bitwise equal to their plain versions")
     for frame in pm.FRAMES:
         for prec in pm.PRECISIONS:
             a = pm.agreement(keys["mt"].cpu(), keys[f"{frame} {prec}"].cpu())
             log(f"[plucker] {frame} {prec.upper()} against MT: key agree {a['key_agree']:.7f}, "
                 f"prim flips {a['prim_flips']:.3e}, hit/miss flips {a['hit_flips']:.3e}, t rel max "
                 f"{a['t_rel_max']:.3e} ({a['hits']} of {n} rays hit)")
+    for line in plucker_form_reports(pm, smi).values():
+        log(f"[plucker] {line}")
 
     plk, local = inputs["chunk-local"]
     pairs = n * pm.H
-    io_bytes = cols.numel() * 4 + n * 4  # the 8 columns read, the keys written
-    ray_s = PLUCKER_RAY_FLOPS * n / PEAK_FLOPS * 1e3
-    # kernel 9's products as one library call each: lhs (8, 3H) and (8, 2H)
-    # laid out as the JAX kernel's lhsA and lhsBC, against the per-ray
-    # [d, m, 0, 0] and [d, o, 1, 0] columns
-    H = pm.H
-    ox, oy, oz, dx, dy, dz = local[0:6]
-    zero, one = torch.zeros_like(ox), torch.ones_like(ox)
-    rhs_a = torch.stack([dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx,
-                         zero, zero])
-    rhs_b = torch.stack([dx, dy, dz, ox, oy, oz, one, zero])
-    lhs_a = plk[0:8, 0:3 * H]
-    lhs_bc = torch.zeros((8, 2 * H), device=dev)
-    lhs_bc[0:3, 0:H] = plk[0:3, 3 * H:4 * H]
-    lhs_bc[3:7, H:2 * H] = plk[6:10, 4 * H:5 * H]
-
-    def products(dtype):
-        a, b, c, d = (x.to(dtype) for x in (lhs_a.T, rhs_a, lhs_bc.T, rhs_b))
-        return lambda: (torch.matmul(a, b), torch.matmul(c, d))
-
+    bounds = plucker_bounds(n, {f"plk_{prec}": pm.inside_pairs(plk, local, prec)
+                                for prec in pm.PRECISIONS})
     cases = [
         ("plucker_mt", PLUCKER_SITES["mt"], lambda: pm.keys_mt(prims, local),
-         lambda: pm.keys_mt_plain(prims, local),
-         (FLOPS_TRI * pairs / PEAK_FLOPS * 1e3, io_bytes + prims.numel() * 4,
-          f"{FLOPS_TRI} flops a (ray, triangle) at 67 TFLOP/s"), None),
+         lambda: pm.keys_mt_plain(prims, local), None),
         ("plucker_plk_highest", PLUCKER_SITES["plk"],
          lambda: pm.keys_plk(plk, local, "highest"),
          lambda: pm.keys_plk_plain(plk, local, "highest"),
-         ((PLUCKER_PRODUCT_FLOPS + 1) * pairs / PEAK_FLOPS * 1e3 + ray_s,
-          io_bytes + (8 * 3 + 3 + 4) * H * 4,
-          f"{PLUCKER_PRODUCT_FLOPS + 1} flops a pair and {PLUCKER_RAY_FLOPS} a ray at 67 TFLOP/s"),
-         products(torch.float32)),
+         plucker_products(pm, plk, local, torch.float32)),
         ("plucker_plk_default", PLUCKER_SITES["plk"],
          lambda: pm.keys_plk(plk, local, "default"),
          lambda: pm.keys_plk_plain(plk, local, "default"),
-         (PLUCKER_PRODUCT_FLOPS * pairs / PEAK_BF16 * 1e3 + (pairs / PEAK_FLOPS * 1e3 + ray_s),
-          io_bytes + (8 * 3 + 3 + 4) * H * 4,
-          f"{PLUCKER_PRODUCT_FLOPS} product flops a pair at the bf16 tensor-core 989 TFLOP/s, "
-          f"the division and {PLUCKER_RAY_FLOPS} flops a ray at 67 TFLOP/s"),
-         products(torch.bfloat16)),
+         plucker_products(pm, plk, local, torch.bfloat16)),
     ]
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products for the HIGHEST yardstick
     rows = []
     try:
-        for name, site, kernel, plain_fn, (ops_ms, nbytes, reckoning), library in cases:
-            ms = median_ms(kernel)
+        for name, site, kernel_fn, plain_fn, library in cases:
+            kernel = name.split("plucker_")[1]
+            bound, by, reckoning = bounds[kernel]
+            ms = median_ms(kernel_fn)
             plain_ms = median_ms(plain_fn, runs=3)
-            bytes_ms = nbytes / PEAK_BYTES * 1e3
-            bound, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
             lib_ms = median_ms(library, runs=5) if library else None
             torch.cuda.empty_cache()
             log(f"[plucker] {name}: {ms:.4f} ms ({ms * 1e6 / n:.3f} ns a ray, "
                 f"{ms * 1e6 / pairs:.5f} ns a (ray, triangle)), plain {plain_ms:.4f} ms; bound "
-                f"{bound:.6f} ms by {by} ({reckoning}: {ops_ms:.6f} ms; {nbytes} bytes at "
-                f"3.35 TB/s: {bytes_ms:.6f} ms), {100 * bound / ms:.2f}% of the kernel's time"
-                + (f"; torch.matmul of its two products alone (not the keys) {lib_ms:.4f} ms"
-                   if library else "") + f" | {smi}")
-            kernel = name.split("plucker_")[1]
+                f"{bound:.6f} ms by {by} ({reckoning}), {100 * bound / ms:.2f}% of the kernel's "
+                f"time" + (f"; torch.matmul of its two products alone (not the keys) "
+                           f"{lib_ms:.4f} ms" if library else "") + f" | {smi}")
             rows.append(dict(name=name, route="cuda", source=PLUCKER_SOURCE, replaces=site,
                              launches=launches[kernel], max_abs_err=float(err[kernel]),
                              ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                             library_ms=lib_ms))
+                             library_ms=lib_ms,
+                             **({"contract": contract} if kernel == "plk_default" else {})))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     return rows

@@ -28,9 +28,12 @@ Kernels (csrc/plucker.cu, built with nvcc on first use): `keys_mt` replaces
 `make_kern_plk` (:141-149, body `_plk_keyed` :99) at both precisions:
 "highest" sums the f32 products, "default" rounds the table and the
 per-ray operands to bf16 first (the TPU's one-pass bf16 product with f32
-sums). Each has a plain PyTorch version beside it, which CPU tensors take;
-both sum in the same fixed left-to-right order, so the kernels are bitwise
-equal to them.
+sums). Each has a plain PyTorch version beside it, which CPU tensors take.
+The MT and HIGHEST kernels sum in the plain versions' fixed left-to-right
+order and are bitwise equal to them. The DEFAULT kernel computes its
+products on the tensor cores (wgmma), which sum in their own order, as the
+TPU's matrix unit does: it is held to its plain version by
+`default_within_contract`, not bitwise.
 """
 
 from __future__ import annotations
@@ -150,43 +153,107 @@ def keys_mt_plain(prims, cols):
 
 def _dot(lhs, rhs):
     """(P, S) sums over k of lhs[k] (P,) x rhs[k] (S,), left to right from
-    the first product: the kernel's order."""
+    the first product: the CUDA-core kernels' order."""
     acc = lhs[0][:, None] * rhs[0][None]
     for k in range(1, len(rhs)):
         acc = acc + lhs[k][:, None] * rhs[k][None]
     return acc
 
 
-def keys_plk_plain(plk, cols, prec):
-    """Plain PyTorch keys through the Plücker form of the (16, 5H) table:
-    w = 8-term sums of rows 0:8 of groups 0..2 against [d, m, 0, 0], den =
-    rows 0:3 of group 3 against d, num = rows 6:10 of group 4 against [o,
-    1]; inside when min(w) >= 0 or max(w) <= 0; t = num / den; a hit when
-    t > EPS, t < t_max and prim != ignore. prec "default" rounds the table
-    and the per-ray operands to bf16 before the products."""
+def _plk_table(plk, prec):
+    """(the operand rounding of `prec`, the table rounded by it)."""
     if prec not in PRECISIONS:
         raise ValueError(f"prec must be one of {PRECISIONS}, got {prec!r}")
     rnd = _bf16 if prec == "default" else (lambda x: x)
-    lhs = rnd(plk)
-    edge, den_l, num_l = lhs[0:8, 0:3 * H], lhs[0:3, 3 * H:4 * H], lhs[6:10, 4 * H:5 * H]
+    return rnd, rnd(plk)
+
+
+def _plk_inside(lhs, cols, rnd):
+    """(the per-ray operands [d, m] rounded by `rnd`, the (H, S) sign test
+    of the edge volumes w = rows 0:6 of groups 0..2 against them) of the
+    rays cols (8, S)."""
+    ox, oy, oz, dx, dy, dz = cols[0:6]
+    ra = [rnd(x) for x in (dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx)]
+    w = _dot(lhs[0:6, 0:3 * H], ra)
+    w0, w1, w2 = w[0:H], w[H:2 * H], w[2 * H:3 * H]
+    inside = ((torch.minimum(torch.minimum(w0, w1), w2) >= 0.0)
+              | (torch.maximum(torch.maximum(w0, w1), w2) <= 0.0))
+    return ra, inside
+
+
+def inside_pairs(plk, cols, prec):
+    """The (ray, triangle) pairs of cols (8, N) against the (16, 5H) table
+    that pass the sign test at `prec`, as the plain version computes it:
+    the pairs on which the Plücker kernels compute the plane, the division
+    and the key (a Python int)."""
+    rnd, lhs = _plk_table(plk, prec)
+    return sum(int(_plk_inside(lhs, cols[:, s: s + PLAIN_SLICE], rnd)[1].sum())
+               for s in range(0, cols.shape[1], PLAIN_SLICE))
+
+
+def keys_plk_plain(plk, cols, prec):
+    """Plain PyTorch keys through the Plücker form of the (16, 5H) table:
+    w = 6-term sums of rows 0:6 of groups 0..2 against [d, m], den = rows
+    0:3 of group 3 against d, num = rows 6:10 of group 4 against [o, 1];
+    inside when min(w) >= 0 or max(w) <= 0; t = num / den; a hit when t >
+    EPS, t < t_max and prim != ignore. prec "default" rounds the table and
+    the per-ray operands to bf16 before the products. (The JAX kernel's
+    edge product also has rows 6:8 against two literal zeros; for a finite
+    table those products add +-0 to a w, which only the sign test reads,
+    and it treats +-0 alike, so the keys are the same without them.)"""
+    rnd, lhs = _plk_table(plk, prec)
+    den_l, num_l = lhs[0:3, 3 * H:4 * H], lhs[6:10, 4 * H:5 * H]
     n = cols.shape[1]
     out = torch.empty(n, dtype=torch.int32, device=cols.device)
     pid = torch.arange(H, dtype=torch.int32, device=cols.device)[:, None]
     for s in range(0, n, PLAIN_SLICE):
-        ox, oy, oz, dx, dy, dz, tm, ig = cols[:, s: s + PLAIN_SLICE]
-        zero = torch.zeros_like(ox)
-        ra = [rnd(x) for x in (dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
-                               ox * dy - oy * dx)] + [zero, zero]
+        c = cols[:, s: s + PLAIN_SLICE]
+        ox, oy, oz, tm, ig = c[0], c[1], c[2], c[6], c[7]
+        ra, inside = _plk_inside(lhs, c, rnd)
         rc = [rnd(ox), rnd(oy), rnd(oz), torch.ones_like(ox)]
-        w = _dot(edge, ra)
-        w0, w1, w2 = w[0:H], w[H:2 * H], w[2 * H:3 * H]
-        inside = ((torch.minimum(torch.minimum(w0, w1), w2) >= 0.0)
-                  | (torch.maximum(torch.maximum(w0, w1), w2) <= 0.0))
         t = _dot(num_l, rc) / _dot(den_l, ra[:3])
         valid = inside & (t > _EPS) & (t < tm[None]) & (pid != ig.to(torch.int32)[None])
         out[s: s + PLAIN_SLICE] = torch.where(valid, (_bits(t) & -(1 << _PBITS)) | pid,
                                               _INT_INF).amin(0)
     return out
+
+
+# the DEFAULT kernel's contract with its plain version, as shares of the rays
+DEFAULT_FLIPS_MAX = 1e-4  # prim flips plus hit/miss flips
+DEFAULT_DIFFER_MAX = 1e-3  # keys that differ at all
+BAND = 1 << _PBITS  # one t band of a key: |key difference| of a same-prim key one band away
+
+
+def default_within_contract(keys, plain):
+    """Whether DEFAULT keys (N,) hold to the plain version's (N,) keys by
+    the contract that replaces bitwise equality for the tensor-core form
+    (its products summed in the tensor cores' order, as on the TPU's
+    matrix unit): prim flips plus hit/miss flips on at most
+    DEFAULT_FLIPS_MAX of the rays, differing keys on at most
+    DEFAULT_DIFFER_MAX, and every other differing key the same prim one t
+    band away (|key difference| = 256). Returns (ok, counts) with counts
+    rays, differ, prim_flips, hit_flips, off_band (same prim, not one band
+    away) and max_abs (the largest |key difference| over the rays without
+    a prim or hit/miss flip, whose key difference is a t gap), Python
+    ints."""
+    keys, plain = torch.as_tensor(keys), torch.as_tensor(plain)
+    if keys.shape != plain.shape or keys.dim() != 1:
+        raise ValueError(f"two (N,) key arrays expected, got {tuple(keys.shape)} and "
+                         f"{tuple(plain.shape)}")
+    plain = plain.to(keys.device)
+    n = keys.shape[0]
+    hit_a, hit_b = keys != _INT_INF, plain != _INT_INF
+    differ = keys != plain
+    prim_flip = hit_a & hit_b & ((keys & 0xFF) != (plain & 0xFF))
+    hit_flip = hit_a != hit_b
+    delta = (keys.long() - plain.long()).abs()
+    off_band = differ & ~prim_flip & ~hit_flip & (delta != BAND)
+    counts = dict(rays=n, differ=int(differ.sum()), prim_flips=int(prim_flip.sum()),
+                  hit_flips=int(hit_flip.sum()), off_band=int(off_band.sum()),
+                  max_abs=int(torch.where(prim_flip | hit_flip, 0, delta).max()) if n else 0)
+    ok = (counts["prim_flips"] + counts["hit_flips"] <= DEFAULT_FLIPS_MAX * n
+          and counts["differ"] <= DEFAULT_DIFFER_MAX * n and counts["off_band"] == 0)
+    return ok, counts
 
 
 # ----------------------------------------------------------------------------
@@ -196,15 +263,23 @@ def keys_plk_plain(plk, cols, prec):
 _lib = None
 
 
+def _bind(lib):
+    """Set the argument and return types of a built plucker.cu's C
+    functions on its ctypes handle `lib` (plucker_form where the library
+    has it: older builds lack it); returns lib."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.plucker_mt.argtypes = [ptr, ptr, i32, ptr, ptr]
+    lib.plucker_plk.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
+    lib.plucker_mt.restype = lib.plucker_plk.restype = i32
+    if hasattr(lib, "plucker_form"):
+        lib.plucker_form.argtypes, lib.plucker_form.restype = [i32, ptr], i32
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = cuda_build.load("plucker")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.plucker_mt.argtypes = [ptr, ptr, i32, ptr, ptr]
-        lib.plucker_plk.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
-        lib.plucker_mt.restype = lib.plucker_plk.restype = i32
-        _lib = lib
+        _lib = _bind(cuda_build.load("plucker"))
     return _lib
 
 
@@ -219,7 +294,10 @@ def _route(name, table, rows, cols):
                          f"{cols.dtype}")
     if cols.shape[1] >= 2**31:
         raise ValueError(f"{name}: too many rays for int32 indexing")
-    return _device_route(name, cols, (table, cols))
+    route = _device_route(name, cols, (table, cols))
+    if route == "cuda" and table.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must start on a 16-byte boundary (bulk copies)")
+    return route
 
 
 def _launch(fn, name, table, cols, *extra):
@@ -232,6 +310,26 @@ def _launch(fn, name, table, cols, *extra):
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
         LAUNCHES[name] += 1
     return out
+
+
+KERNELS = ("mt", "plk_highest", "plk_default")  # plucker_form's kernel index order
+
+
+def forms() -> dict:
+    """{kernel: the form it launches}: resident blocks a SM, threads a
+    block, dynamic shared memory a block, SMs, and rays a thread (mt,
+    plk_highest) or prims a wgmma product (plk_default). Needs a card."""
+    lib = _load()
+    out = (ctypes.c_int * 5)()
+    got = {}
+    for i, name in enumerate(KERNELS):
+        err = lib.plucker_form(i, out)
+        if err:
+            raise RuntimeError(f"plucker_form({name}) failed: cudaError {err}")
+        got[name] = dict(blocks=out[0], threads=out[1], smem=out[2], sms=out[3],
+                         warps=out[0] * out[1] // 32,
+                         **({"prims": out[4]} if name == "plk_default" else {"rays": out[4]}))
+    return got
 
 
 def keys_mt(prims, cols):

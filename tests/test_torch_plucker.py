@@ -24,8 +24,20 @@ frames use one center.
   precision. It is held to the highest form: the same prim (or the same
   miss) on at least 95% of rays (measured 96.35% scene-frame, 98.17%
   chunk-local).
+- `keys_plk_plain` without the JAX kernel's products against two literal
+  zeros (rows 6:8 of the edge groups) gives the keys of the old 8-term
+  sums, kept here as `_keys_plk_plain_8term`, at both precisions.
+- `default_within_contract`, the DEFAULT kernel's contract with its plain
+  version: it holds for keys whose sums are exactly rounded (float64,
+  rounded once: another order of the same bf16 products, as a tensor
+  core's), and fails on one prim flip per 1,000 rays, on hit/miss flips
+  and on a key two t bands off; its max_abs measures t gaps only, not
+  flips.
+- `inside_pairs` (the pairs the bound charges the plane and the division)
+  against the sign test of the old 8-term sums.
 - The module's `main()` at `--device cpu`, and its refusal without a card.
-- The CUDA kernels are held bitwise to their plain versions on the card:
+- The CUDA kernels are held to their plain versions on the card, MT and
+  HIGHEST bitwise, DEFAULT by `default_within_contract`:
 
     python -m pytest --noconftest tests/test_torch_plucker.py -k cuda
 """
@@ -83,6 +95,48 @@ def micro():
     return dict(prims=prims, cols=cols, frames=frames, ref=ref, tables=tables)
 
 
+def _keys_plk_plain_8term(plk, cols, prec):
+    """`keys_plk_plain` as it was: the edge volumes as 8-term sums over rows
+    0:8 of groups 0..2 against [d, m, 0, 0], left to right."""
+    rnd = pm._bf16 if prec == "default" else (lambda x: x)
+    lhs = rnd(plk)
+    H = pm.H
+    edge, den_l, num_l = lhs[0:8, 0:3 * H], lhs[0:3, 3 * H:4 * H], lhs[6:10, 4 * H:5 * H]
+    ox, oy, oz, dx, dy, dz, tm, ig = cols
+    zero = torch.zeros_like(ox)
+    ra = [rnd(x) for x in (dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+                           ox * dy - oy * dx)] + [zero, zero]
+    rc = [rnd(ox), rnd(oy), rnd(oz), torch.ones_like(ox)]
+    return _keys_from(pm._dot(edge, ra), pm._dot(num_l, rc) / pm._dot(den_l, ra[:3]), tm, ig)
+
+
+def _keys_from(w, t, tm, ig):
+    """The plain version's keys from the (3H, N) edge volumes and (H, N) t."""
+    H = pm.H
+    w0, w1, w2 = w[0:H], w[H:2 * H], w[2 * H:3 * H]
+    inside = ((torch.minimum(torch.minimum(w0, w1), w2) >= 0.0)
+              | (torch.maximum(torch.maximum(w0, w1), w2) <= 0.0))
+    pid = torch.arange(H, dtype=torch.int32)[:, None]
+    valid = inside & (t > pm._EPS) & (t < tm[None]) & (pid != ig.to(torch.int32)[None])
+    return torch.where(valid, (pm._bits(t) & -(1 << pm._PBITS)) | pid, pm._INT_INF).amin(0)
+
+
+def _keys_default_exact(plk, cols):
+    """DEFAULT keys with every sum of the bf16 products exactly rounded:
+    summed in float64 (the products are exact there) and rounded to f32
+    once; t = num / den in f32."""
+    H = pm.H
+    lhs = pm._bf16(plk).double()
+    ox, oy, oz, dx, dy, dz, tm, ig = cols
+    ra = [pm._bf16(x).double() for x in (dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+                                         ox * dy - oy * dx)]
+    rc = [pm._bf16(x).double() for x in (ox, oy, oz)] + [torch.ones_like(ox).double()]
+    dot = lambda rows, r: sum(rows[k][:, None] * r[k][None] for k in range(len(r))).float()
+    w = dot(lhs[0:6, 0:3 * H], ra)
+    t = dot(lhs[6:10, 4 * H:5 * H], rc) / dot(lhs[0:3, 3 * H:4 * H], ra[:3])
+    return _keys_from(w, t, tm, ig)
+
+
 def _assert_band_only(got, want, most):
     """Keys equal but for band bits; the same hits and prims."""
     hit = want != pm._INT_INF
@@ -120,6 +174,81 @@ def test_default_precision_near_highest(micro, frame):
     prim = lambda k: np.where(k != pm._INT_INF, k & 0xFF, -1)
     same = prim(lo) == prim(hi)
     assert same.mean() >= DEFAULT_SAME_PRIM and (lo != hi).any()
+
+
+@pytest.mark.parametrize("prec", pm.PRECISIONS)
+@pytest.mark.parametrize("frame", pm.FRAMES)
+def test_plain_without_zero_operands_matches_8term(micro, frame, prec):
+    """Dropping the products against the literal zeros leaves every key."""
+    center, cols = micro["frames"][frame]
+    plk = pm.build_plk(micro["prims"], center)
+    got = pm.keys_plk_plain(plk, cols, prec)
+    assert torch.equal(got, _keys_plk_plain_8term(plk, cols, prec))
+    assert int((got != pm._INT_INF).sum()) > 1000
+
+
+@pytest.mark.parametrize("frame", pm.FRAMES)
+def test_default_contract_holds_on_exactly_rounded_sums(micro, frame):
+    """The contract admits the same bf16 products summed in another order."""
+    center, cols = micro["frames"][frame]
+    plk = pm.build_plk(micro["prims"], center)
+    plain = pm.keys_plk_plain(plk, cols, "default")
+    ok, counts = pm.default_within_contract(_keys_default_exact(plk, cols), plain)
+    assert ok, counts
+    assert counts["rays"] == N and counts["prim_flips"] == counts["hit_flips"] == 0
+    assert pm.default_within_contract(plain, plain) == (True, dict(
+        rays=N, differ=0, prim_flips=0, hit_flips=0, off_band=0, max_abs=0))
+
+
+@pytest.mark.parametrize("fault", ["prim flips", "hit/miss flips", "two bands off"])
+def test_default_contract_rejects(micro, fault):
+    """One prim flip or hit/miss flip per 1,000 rays, or a single key two t
+    bands off, breaks the contract."""
+    plk = pm.build_plk(micro["prims"])
+    plain = pm.keys_plk_plain(plk, micro["cols"], "default")
+    bad = plain.clone()
+    hits = torch.nonzero(plain != pm._INT_INF).flatten()
+    some = hits[:: len(hits) // (N // 1000)][: N // 1000]
+    if fault == "prim flips":
+        bad[some] = (plain[some] & ~0xFF) | ((plain[some] + 1) & 0xFF)
+        key = "prim_flips"
+    elif fault == "hit/miss flips":
+        bad[some] = pm._INT_INF
+        key = "hit_flips"
+    else:
+        some = some[:1]
+        bad[some] = plain[some] + 2 * pm.BAND
+        key = "off_band"
+    ok, counts = pm.default_within_contract(bad, plain)
+    assert not ok and counts[key] == len(some) == counts["differ"], counts
+    # max_abs is a t gap: flips are counted apart, not measured
+    assert counts["max_abs"] == (2 * pm.BAND if key == "off_band" else 0), counts
+    # one band off on as many rays passes
+    near = plain.clone()
+    near[some] = plain[some] + pm.BAND
+    assert pm.default_within_contract(near, plain)[0]
+
+
+@pytest.mark.parametrize("prec", pm.PRECISIONS)
+@pytest.mark.parametrize("frame", pm.FRAMES)
+def test_inside_pairs_counts_the_sign_test(micro, frame, prec):
+    """inside_pairs (the pairs the bound charges the plane and the division)
+    counts the pairs whose edge volumes, as the old 8-term sums give them,
+    pass the sign test."""
+    center, cols = micro["frames"][frame]
+    plk = pm.build_plk(micro["prims"], center)
+    rnd = pm._bf16 if prec == "default" else (lambda x: x)
+    H = pm.H
+    ox, oy, oz, dx, dy, dz = cols[0:6]
+    zero = torch.zeros_like(ox)
+    ra = [rnd(x) for x in (dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+                           ox * dy - oy * dx)] + [zero, zero]
+    w = pm._dot(rnd(plk)[0:8, 0:3 * H], ra)
+    w0, w1, w2 = w[0:H], w[H:2 * H], w[2 * H:3 * H]
+    want = int(((torch.minimum(torch.minimum(w0, w1), w2) >= 0.0)
+                | (torch.maximum(torch.maximum(w0, w1), w2) <= 0.0)).sum())
+    got = pm.inside_pairs(plk, cols, prec)
+    assert got == want and 0 < got < N * H // 100
 
 
 def test_run_keys_and_agreement():
@@ -168,6 +297,9 @@ def test_wrappers_reject_bad_inputs():
         pm.keys_mt(prims, cols.to("meta"))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         pm.keys_mt(prims.to("meta"), cols.to("meta"))
+    with pytest.raises(ValueError, match=r"two \(N,\) key arrays"):
+        pm.default_within_contract(torch.zeros(4, dtype=torch.int32),
+                                   torch.zeros(5, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +316,9 @@ def cuda():
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain(cuda):
+    """MT and HIGHEST bitwise, DEFAULT (the tensor-core form) by its
+    contract, over 100,000 rays (not a multiple of any tile) in both
+    frames."""
     prims, cols = pm.micro_scene(100_000, device=cuda)
     pm.reset_launches()
     keys, inputs = pm.run_keys(prims, cols)
@@ -191,6 +326,7 @@ def test_cuda_kernels_match_plain(cuda):
     assert torch.equal(keys["mt"], pm.keys_mt_plain(prims, cols))
     assert int((keys["mt"] != pm._INT_INF).sum()) > 10_000
     for frame, (plk, cc) in inputs.items():
-        for prec in pm.PRECISIONS:
-            assert torch.equal(keys[f"{frame} {prec}"], pm.keys_plk_plain(plk, cc, prec)), \
-                (frame, prec)
+        assert torch.equal(keys[f"{frame} highest"], pm.keys_plk_plain(plk, cc, "highest")), frame
+        ok, counts = pm.default_within_contract(keys[f"{frame} default"],
+                                                pm.keys_plk_plain(plk, cc, "default"))
+        assert ok, (frame, counts)

@@ -11,6 +11,8 @@ same inputs in one process, in turns (other, this, this, other).
     python3 tools/hier_ab.py --mega-stages [--other DIR] [--dump DIR]
     python3 tools/hier_ab.py --dense --other DIR  # the dense kernels' A/B only
     python3 tools/hier_ab.py --sweep dense   # the dense kernels' crossover and block size
+    python3 tools/hier_ab.py --plucker [--other DIR]  # the Plücker micro-benchmark's kernels
+    python3 tools/hier_ab.py --sweep plucker   # their forms (prims a wgmma product, rays a thread)
 
 Inputs, made on the card from fixed seeds:
   - sphere_grid(1_000_000) (bench.py's large scene) at 1920x1080, 1 spp,
@@ -95,6 +97,25 @@ C entry on the same three sets in two passes (the list, then reversed),
 each output held bitwise to this tree's, with each form's registers and
 resident warps/SM.
 
+--plucker times the Plücker micro-benchmark's three kernels (csrc/plucker.cu:
+mt_kernel, the Plücker form at HIGHEST and at DEFAULT) through their C
+entries on its inputs at 2^20 rays in the chunk-local frame (as its main()
+times them): this tree's and, with --other DIR, that checkout's plucker.cu
+built with this tree's flags, in turns (other, this, this, other), each
+the median of 10 runs (chip_smoke.entry_ms). Every output is held to this
+tree's plain versions: MT and HIGHEST bitwise, DEFAULT bitwise or within
+plucker_micro.default_within_contract (counts printed). Beside them, in
+the same call: the plain versions' ms, the bound (chip_smoke.plucker_bounds)
+and % of bound, and the library yardstick, torch.matmul of the Plücker
+form's two products alone in f32 (TF32 off) and bf16.
+
+--sweep plucker builds this tree's plucker.cu once for each form of
+PLUCKER_SWEEP (its kPlkN, kDefWarpgroups, kDefMinBlocks, kHighRays and kMtRays
+replaced)
+and times every form's three kernels in two passes (the list, then
+reversed), each output held as above, with each form's registers, spills
+and resident warps/SM.
+
 --mega-stages breaks the megakernel's untextured and textured forms down by
 stage on the bench, showcase, Cornell, material_ball and sphere_grid(1900)
 launches: this tree's megakernel.cu, or with --other DIR that checkout's
@@ -142,6 +163,13 @@ SHAPE_SWEEP = [dict(group=g, threads=t) for g in (1, 2, 4, 8, 16, 32) for t in (
 # csrc/dense_intersect.cu's kCoopMax (ballots of at most this many rays
 # spread their tests over the warp; 0: never) and kDenseWarps (warps a block)
 DENSE_SWEEP = [dict(kCoopMax=g, kDenseWarps=w) for g in (0, 8, 16, 24, 32) for w in (2, 4, 8)]
+# the Plücker kernels' forms --sweep plucker times: values of csrc/plucker.cu's
+# kPlkN (prims a wgmma product), kDefWarpgroups (warpgroups a block of the
+# wgmma kernel), kDefMinBlocks (its __launch_bounds__ blocks a SM, which caps
+# its registers), kHighRays and kMtRays (rays a thread)
+PLUCKER_SWEEP = [dict(kPlkN=n, kDefWarpgroups=w, kDefMinBlocks=b, kHighRays=r, kMtRays=r)
+                 for n, w, b, r in ((16, 2, 1, 4), (16, 2, 4, 4), (8, 2, 4, 4), (32, 2, 1, 4),
+                                    (16, 4, 1, 2), (16, 4, 2, 2))]
 # cycles the card spins (torch.cuda._sleep) before each timed C entry, so
 # that the host's ctypes call ends before the launch's start event: ~60 us
 SLEEP_CYCLES = 100_000
@@ -602,19 +630,10 @@ def mega_stages(root: Path, label: str, dump: Path | None, smi: str) -> None:
 def sass(lib: Path) -> dict:
     """{kernel: [instructions]} of a library, by cuobjdump -sass, with the
     addresses, encodings and the translation unit's hash left out."""
-    from echorenderer_tpu_torch.ops import cuda_build
+    from chip_smoke import sass_functions
 
-    text = subprocess.run([str(Path(cuda_build._nvcc()).parent / "cuobjdump"), "-sass",
-                           str(lib)], capture_output=True, text=True, check=True).stdout
-    out, name = {}, None
-    for line in text.splitlines():
-        got = re.search(r"Function : (\S+)", line)
-        if got:
-            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N_", got.group(1))
-            out[name] = []
-        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            out[name].append(re.sub(r"/\*.*?\*/", "", line).split(";")[0].strip())
-    return out
+    return {re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N_", name): code
+            for name, code in sass_functions(lib).items()}
 
 
 def compare_sass(other: dict, smi: str) -> None:
@@ -1409,6 +1428,150 @@ def render_paths(scenes_):
     }
 
 
+def build_plucker(csrc: Path, dest: Path, forms: dict) -> dict:
+    """csrc/plucker.cu of the directory `csrc` built with this tree's flags
+    once for each entry of `forms` ({name: {constant: value}}; {} builds it
+    as it is) under dest/<name>/: {name: (ctypes handle, ptxas report)}."""
+    from echorenderer_tpu_torch.benchmarks import plucker_micro as pm
+
+    procs = {}
+    for name, consts in forms.items():
+        d = dest / name
+        d.mkdir(parents=True, exist_ok=True)
+        for header in csrc.glob("*.cuh"):
+            shutil.copy(header, d)
+        src = (csrc / "plucker.cu").read_text()
+        for const, value in consts.items():
+            src, k = re.subn(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};",
+                             src)
+            if k != 1:
+                raise RuntimeError(f"plucker.cu has no single {const}")
+        (d / "plucker.cu").write_text(src)
+        procs[name] = nvcc(d / "plucker.cu", d / "libplucker.so")
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the Plücker form {name}:\n{err}")
+        libs[name] = (pm._bind(ctypes.CDLL(str(dest / name / "libplucker.so"))), err)
+    return libs
+
+
+def plucker_form_line(lib, ptxas: str) -> str:
+    """Each kernel's ptxas registers / spills and, where the library has the
+    form query, resident warps/SM and rays a thread or prims a product."""
+    from chip_smoke import PLUCKER_ENTRIES, ptxas_forms
+
+    parts = []
+    for i, (kernel, entry) in enumerate(PLUCKER_ENTRIES.items()):
+        reports = ptxas_forms(ptxas, entry) or ptxas_forms(ptxas, "plk_kernel" if i else entry)
+        report = "; ".join(r.split(", 0 bytes static")[0] for r in reports.values())
+        if hasattr(lib, "plucker_form"):
+            out = (ctypes.c_int * 5)()
+            lib.plucker_form(i, out)
+            report += (f"; {out[0] * out[1] // 32} warps/SM, "
+                       f"{out[4]} {'prims a product' if i == 2 else 'rays a thread'}")
+        parts.append(f"{kernel}: {report}")
+    return " | ".join(parts)
+
+
+def plucker_ab(other: Path | None, sweep: bool, smi: str) -> None:
+    """--plucker and --sweep plucker: the Plücker kernels' C entries of each
+    library in turns, every output held to this tree's plain versions; the
+    plain versions, the bound and the library yardstick beside them."""
+    import torch
+    from chip_smoke import entry_ms, median_ms, plucker_bounds, plucker_products
+    from echorenderer_tpu_torch.benchmarks import plucker_micro as pm
+    from echorenderer_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda")
+    n = 2 ** 20
+    prims, cols = pm.micro_scene(n, device=dev)
+    local, center = pm.local_frame(prims, cols)
+    plk = pm.build_plk(prims, center)
+    csrc = REPO / "echorenderer_tpu_torch" / "csrc"
+    dest = REPO / "echorenderer_tpu_torch" / "_build" / "plucker_ab"
+    if sweep:
+        forms = {"n{kPlkN}_wg{kDefWarpgroups}_b{kDefMinBlocks}_r{kHighRays}".format(**f): f
+                 for f in PLUCKER_SWEEP}
+        libs = build_plucker(csrc, dest, forms)
+    else:
+        libs = {"this": (pm._load(), cuda_build.build()["plucker"].ptxas)}
+        if other is not None:
+            libs = {"other": build_plucker(other / "echorenderer_tpu_torch" / "csrc", dest,
+                                           {"other": {}})["other"], **libs}
+    for name, (lib, ptxas) in libs.items():
+        print(f"[plucker-ab] {smi} | {name}: {plucker_form_line(lib, ptxas)}")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+
+    def call(lib, kernel):
+        def run():
+            if kernel == "mt":
+                err = lib.plucker_mt(prims.data_ptr(), local.data_ptr(), n, out.data_ptr(), stream)
+            else:
+                err = lib.plucker_plk(plk.data_ptr(), local.data_ptr(), n,
+                                      int(kernel == "plk_default"), out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+        return run
+
+    kernels = pm.KERNELS
+    plain = {"mt": lambda: pm.keys_mt_plain(prims, local),
+             "plk_highest": lambda: pm.keys_plk_plain(plk, local, "highest"),
+             "plk_default": lambda: pm.keys_plk_plain(plk, local, "default")}
+    want = {k: fn() for k, fn in plain.items()}
+    failed = []  # raised after the timings, which still say what a failing form costs
+    for name, (lib, _) in libs.items():
+        for kernel in kernels:
+            call(lib, kernel)()
+            torch.cuda.synchronize()
+            if torch.equal(out, want[kernel]):
+                verdict = "bitwise equal to the plain version"
+            elif kernel == "plk_default":
+                ok, counts = pm.default_within_contract(out, want[kernel])
+                verdict = f"{'within' if ok else 'BREAKS'} the DEFAULT contract: {counts}"
+                if not ok:
+                    failed.append(f"{name} {kernel}")
+            else:
+                verdict = (f"DIFFERS from the plain version on "
+                           f"{int((out != want[kernel]).sum())} rays")
+                failed.append(f"{name} {kernel}")
+            print(f"[plucker-ab] {smi} | {name} {kernel}: {verdict}")
+    turns = (list(libs) + list(libs)[::-1] if sweep else
+             ["other", "this", "this", "other"] if "other" in libs else ["this", "this"])
+    times = {name: {k: [] for k in kernels} for name in libs}
+    for name in turns:
+        for kernel in kernels:
+            times[name][kernel].append(entry_ms(call(libs[name][0], kernel)))
+    bounds = plucker_bounds(n, {k: pm.inside_pairs(plk, local, k.split("_")[1])
+                                for k in ("plk_highest", "plk_default")})
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        library = {"plk_highest": median_ms(plucker_products(pm, plk, local, torch.float32)),
+                   "plk_default": median_ms(plucker_products(pm, plk, local, torch.bfloat16))}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    for kernel in kernels:
+        bound, by, reckoning = bounds[kernel]
+        plain_ms = median_ms(plain[kernel], runs=3)
+        each = "; ".join(
+            f"{name} " + ", ".join(f"{t:.4f}" for t in times[name][kernel]) +
+            f" ms ({100.0 * bound / statistics.fmean(times[name][kernel]):.2f}% of bound)"
+            for name in libs)
+        ratio = ""
+        if "other" in libs:
+            mean = {name: statistics.fmean(times[name][kernel]) for name in ("this", "other")}
+            ratio = f"; this / other {mean['this'] / mean['other']:.3f}"
+        lib_ms = f"; library {library[kernel]:.4f} ms" if kernel in library else ""
+        print(f"[plucker-ab] {smi} | {kernel}: {each}{ratio}; plain {plain_ms:.4f} ms; bound "
+              f"{bound:.6f} ms by {by} ({reckoning}){lib_ms}; "
+              f"{n * pm.H} (ray, triangle) pairs")
+    if failed:
+        raise AssertionError(f"outputs that fail their check: {', '.join(failed)}")
+
+
 def path_turn(paths) -> dict:
     """Each path's Mspps: the median of 5 synchronised runs after a warm-up."""
     import torch
@@ -1430,9 +1593,14 @@ def path_turn(paths) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, help="a checkout to time against (the parent)")
-    ap.add_argument("--sweep", nargs="?", const="seg", choices=("seg", "select-setup", "dense"),
+    ap.add_argument("--sweep", nargs="?", const="seg",
+                    choices=("seg", "select-setup", "dense", "plucker"),
                     help="time the seg kernel's shapes of SWEEP, setup's and select's forms "
-                         "of SHAPE_SWEEP, or the dense kernels' forms of DENSE_SWEEP, instead")
+                         "of SHAPE_SWEEP, the dense kernels' forms of DENSE_SWEEP, or the "
+                         "Plücker kernels' forms of PLUCKER_SWEEP, instead")
+    ap.add_argument("--plucker", action="store_true",
+                    help="only the Plücker micro-benchmark's kernels (with --other DIR, both "
+                         "checkouts')")
     ap.add_argument("--dense", action="store_true",
                     help="with --other DIR: only the dense kernels' A/B")
     ap.add_argument("--shapes", action="store_true",
@@ -1441,8 +1609,9 @@ def main() -> int:
                     help="the megakernel's stage breakdown, of this tree or of --other DIR")
     ap.add_argument("--dump", type=Path, help="with --mega-stages: keep the disassembly here")
     a = ap.parse_args()
-    if not a.mega_stages and not a.shapes and (a.other is not None) == bool(a.sweep):
-        ap.error("give --other DIR, --sweep, --shapes or --mega-stages")
+    if (not a.mega_stages and not a.shapes and not a.plucker
+            and (a.other is not None) == bool(a.sweep)):
+        ap.error("give --other DIR, --sweep, --shapes, --plucker or --mega-stages")
     import torch
 
     if not torch.cuda.is_available():
@@ -1459,6 +1628,9 @@ def main() -> int:
     if a.mega_stages:
         root = REPO if a.other is None else a.other.resolve()
         mega_stages(root, "this" if a.other is None else "other", a.dump, smi)
+        return 0
+    if a.plucker or a.sweep == "plucker":
+        plucker_ab(None if a.other is None else a.other.resolve(), a.sweep == "plucker", smi)
         return 0
     this = dict(hier_walk=ph._load(), megakernel=mk._load(), binned=bt._load(), row=bt.ROW,
                 dense_intersect=pi._load())
