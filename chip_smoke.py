@@ -313,7 +313,23 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      in-process render_frame_sharded frame over 2 shards; a process that
      fails or outlives its 150 s join timeout fails the phase. Then
      entry.dryrun_multichip(4) (the mesh repeats cuda:0).
- 12. summary: a JSON line of the kernels, then the last line
+ 12. train: echorenderer_tpu_torch/tools/ on the card. The denoiser's
+     trainer at full width (WIDTH 32, 5 layers, batch 16, 64x64 crops) on
+     a dataset cut to 3 of its 10 scene variants (TRAIN_VARIANTS) and 1 of
+     its 4 noisy views each, at 192x128 with 1024 clean spp: the dataset's
+     seconds; the first 3 steps against the CPU on the same crops (each
+     step's loss and whole gradient against a float64 CPU step from the
+     card's own params, the CPU's Adam on the card's gradients against the
+     card's step, and a CPU float32 run of its own, within TRAIN_TOL),
+     beside the gap of the backward pass under torch's defaults (TF32),
+     which the bound refuses; 200 steps twice from one seed, loss
+     traces and params bitwise equal, steps/s, the mean loss of the last
+     20 steps below the first 20's; the cuDNN flags as they were. Then
+     gen_reference_stats' naive oracle for material_ball at 960x540 and
+     64 spp, and the worst and mean tile z of the port's 2-spp path render
+     against those stats and against the committed fixture, beside
+     TestTileStats's bounds (6.0, 1.5): a finding, gating nothing.
+ 13. summary: a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.
 """
 
@@ -3602,6 +3618,186 @@ def multigpu_phase(dev, smi, bench) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# the [train] phase: the denoiser's trainer at full width (WIDTH 32, 5
+# layers, batch 16, 64x64 crops) on a dataset cut to TRAIN_VARIANTS of the
+# tool's 10 variants and 1 of its 4 noisy views each (192x128, 1024 clean spp)
+TRAIN_VARIANTS = ("cornell", "ball-diffuse", "spheres-80")
+TRAIN_VIEWS = 1
+TRAIN_STEPS = 200
+TRAIN_CHECK_STEPS = 3
+TRAIN_WINDOW = 20  # the first and last steps whose mean loss must fall
+# the card against the CPU. Each of the first steps from the card's own
+# params on the same crops against the CPU's float64 step: the loss (rtol),
+# the whole gradient's L2 gap over its L2 length (an H100 at 700 W, float32:
+# 7.4e-7, 1.47e-4 and 9.6e-7 on the 3 steps, the second's in b1; its backward
+# under torch's defaults, TF32: 7.2e-4 to 8.0e-4, which the bound refuses);
+# the CPU's Adam on the card's gradients against the card's step. And a
+# CPU float32 run of its own: loss rtol, and each tensor's L2 gap over the
+# L2 length of the CPU params' move (Adam parts float32 trajectories at
+# ~1e-2, tests/test_torch_train.py)
+TRAIN_TOL = dict(loss=1e-5, grad=3e-4, adam_rtol=1e-6, adam_atol=2e-7, free_loss=1e-4,
+                 free_move=2e-2)
+TRAIN_STATS_SCENE = "material_ball"
+TRAIN_STATS_SPP = 64  # the JAX tool's 256, cut to keep the phase short
+TILE_BOUNDS = (6.0, 1.5)  # TestTileStats: worst and mean tile z
+
+
+def train_phase(dev, smi) -> None:
+    """Phase 12 (see the module docstring): the learned denoiser's trainer
+    and the tile-stats oracle of echorenderer_tpu_torch/tools/ on the card.
+    Raises on the first failed check."""
+    import numpy as np
+    import torch
+
+    from echorenderer_tpu_torch.models import scenes
+    from echorenderer_tpu_torch.processes import denoise as dn
+    from echorenderer_tpu_torch.processes.render import _sample_frame
+    from echorenderer_tpu_torch.scene.prepare import prepare_scene
+    from echorenderer_tpu_torch.tools import gen_reference_stats as gs
+    from echorenderer_tpu_torch.tools import train_denoiser as tr
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    t = time.perf_counter()
+    arrays = tr.build_dataset(None, device=dev, variants=TRAIN_VARIANTS, views=TRAIN_VIEWS,
+                              log=lambda m: None)
+    data_s = time.perf_counter() - t
+    want = (len(TRAIN_VARIANTS) * TRAIN_VIEWS, tr.RES[1], tr.RES[0], 3)
+    if any(a.shape != want or not np.isfinite(a).all() for a in arrays):
+        raise RuntimeError(f"[train] dataset shapes {[a.shape for a in arrays]}, want {want}, "
+                           "or non-finite values")
+    log(f"[train] dataset {', '.join(TRAIN_VARIANTS)} at {tr.RES[0]}x{tr.RES[1]}, "
+        f"{tr.CLEAN_SPP} clean spp, {TRAIN_VIEWS} noisy view each at {tr.NOISY_SPP} spp "
+        f"(cut: {len(TRAIN_VARIANTS)} of the tool's 10 variants, {TRAIN_VIEWS} of its "
+        f"{tr.NOISY_VIEWS} views): {want[0]} frames in {data_s:.2f} s | {smi}")
+    data = [torch.as_tensor(a, device=dev) for a in arrays]
+    data_cpu = [torch.as_tensor(a) for a in arrays]
+    size, n_frames = (tr.RES[0], tr.RES[1]), want[0]
+    batch, lr = 16, 2e-3
+
+    # --- 1. the card's first steps against the CPU on the same crops
+    params = tr.init_params(0, dev)
+    opt = tr.make_optimizer(params, lr)
+    mirror = tr.init_params(0, cpu)  # the CPU's Adam, fed the card's gradients
+    mirror_opt = tr.make_optimizer(mirror, lr)
+    free = tr.init_params(0, cpu)  # a CPU run of its own
+    free_opt = tr.make_optimizer(free, lr)
+    start = {k: v.detach().clone() for k, v in free.items()}
+    gen = torch.Generator().manual_seed(42)
+    worst = dict(loss=0.0, loss_cpu=0.0, adam=0.0, free_loss=0.0)
+    # each step's gap of the whole gradient over its L2 length, and the worst
+    # tensor's
+    gaps = {who: [] for who in ("card", "cpu", "tf32")}
+    for step in range(TRAIN_CHECK_STEPS):
+        f, y, x = tr.sample_crops(gen, n_frames, batch, size)
+        crops, crops_cpu = tr.crop(data, f, y, x), tr.crop(data_cpu, f, y, x)
+        # the same step's loss and gradients on the CPU from the card's
+        # params, in float32 and in float64 (the reference)
+        ref = {}
+        for dtype in (torch.float32, torch.float64):
+            here = {k: v.detach().cpu().to(dtype).requires_grad_() for k, v in params.items()}
+            with dn.float32_convs():
+                loss_here = tr.loss_fn(here, *(c.to(dtype) for c in crops_cpu))
+                loss_here.backward()
+            ref[dtype] = (float(loss_here.detach()), {k: v.grad.double() for k, v in here.items()})
+        # the backward pass as it ran before float32_convs: under torch's
+        # defaults (TF32 allowed), the forward in float32 inside apply
+        tf32 = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        tr.loss_fn(tf32, *crops).backward()
+        loss = float(tr.train_step(params, opt, crops))
+        grads = {k: v.grad.detach().cpu().clone() for k, v in params.items()}
+        loss64, g64 = ref[torch.float64]
+        worst["loss"] = max(worst["loss"], abs(loss - loss64) / loss64)
+        worst["loss_cpu"] = max(worst["loss_cpu"], abs(ref[torch.float32][0] - loss64) / loss64)
+        for who, g in (("card", grads), ("cpu", ref[torch.float32][1]),
+                       ("tf32", {k: v.grad.cpu() for k, v in tf32.items()})):
+            d2 = {k: float((g[k].double() - g64[k]).norm() ** 2) for k in g64}
+            n2 = {k: float(g64[k].norm() ** 2) for k in g64}
+            worst_k = max(g64, key=lambda k: d2[k] / n2[k])
+            gaps[who].append((np.sqrt(sum(d2.values()) / sum(n2.values())),
+                              np.sqrt(d2[worst_k] / n2[worst_k]), worst_k))
+        for k, v in mirror.items():
+            v.grad = grads[k].clone()
+        mirror_opt.step()
+        for k, v in mirror.items():
+            got, want = params[k].detach().cpu(), v.detach()
+            worst["adam"] = max(worst["adam"], float((got - want).abs().max()))
+            if not torch.allclose(got, want, rtol=TRAIN_TOL["adam_rtol"],
+                                  atol=TRAIN_TOL["adam_atol"]):
+                raise RuntimeError(f"[train] step {step} {k}: the card's Adam step is "
+                                   f"{float((got - want).abs().max()):.3e} from the CPU's on "
+                                   "the same gradients")
+        free_loss = float(tr.train_step(free, free_opt, crops_cpu))
+        worst["free_loss"] = max(worst["free_loss"], abs(loss - free_loss) / free_loss)
+    move = max(float((params[k].detach().cpu() - free[k].detach()).norm()
+                     / (free[k].detach() - start[k]).norm()) for k in free)
+    gap = lambda who: ", ".join(f"{a:.3e} ({b:.2e} {k})" for a, b, k in gaps[who])
+    grad_gap = max(a for a, _, _ in gaps["card"])
+    log(f"[train] the card's first {TRAIN_CHECK_STEPS} steps (batch {batch} of "
+        f"{tr.CROP}x{tr.CROP} crops, WIDTH {dn.WIDTH}, {len(dn.DILATIONS)} layers) against the "
+        f"CPU's float64 step from the same params on the same crops: loss {worst['loss']:.3e} "
+        f"(rtol {TRAIN_TOL['loss']}; the CPU's float32 {worst['loss_cpu']:.3e}); gradients, "
+        f"by step the whole gradient's gap over its L2 length (the worst tensor's): "
+        f"{gap('card')} (tol {TRAIN_TOL['grad']}; the CPU's float32 {gap('cpu')}; the "
+        f"card's backward under torch's defaults, TF32: {gap('tf32')}); the CPU's Adam on the "
+        f"card's gradients {worst['adam']:.3e} from the card's step (rtol "
+        f"{TRAIN_TOL['adam_rtol']}, atol {TRAIN_TOL['adam_atol']}); a CPU float32 run of its "
+        f"own: loss {worst['free_loss']:.3e} (rtol {TRAIN_TOL['free_loss']}), params "
+        f"{move:.3e} of their move (tol {TRAIN_TOL['free_move']}) | {smi}")
+    if worst["loss"] > TRAIN_TOL["loss"] or grad_gap > TRAIN_TOL["grad"]:
+        raise RuntimeError(f"[train] the card's loss or gradients outside tolerance: {worst}, "
+                           f"{gaps}")
+    if worst["free_loss"] > TRAIN_TOL["free_loss"] or move > TRAIN_TOL["free_move"]:
+        raise RuntimeError(f"[train] the free CPU run parted from the card's: {worst}, {move}")
+
+    # --- 2. two runs from one seed, bitwise; the loss falls
+    runs = []
+    for _ in range(2):
+        params = tr.init_params(0, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = tr.train(params, data, TRAIN_STEPS, batch, lr, seed=42, log_every=0)
+        torch.cuda.synchronize()
+        runs.append((losses.cpu(), {k: v.detach().cpu() for k, v in params.items()},
+                     time.perf_counter() - t))
+    (la, pa, sa), (lb, pb, sb) = runs
+    if not torch.equal(la, lb) or any(not torch.equal(pa[k], pb[k]) for k in pa):
+        raise RuntimeError("[train] two runs from one seed differ")
+    first, last = float(la[:TRAIN_WINDOW].mean()), float(la[-TRAIN_WINDOW:].mean())
+    log(f"[train] {TRAIN_STEPS} steps twice from one seed: loss traces and params bitwise "
+        f"equal; {TRAIN_STEPS / sa:.2f} and {TRAIN_STEPS / sb:.2f} steps/s ({sa:.2f} s, "
+        f"{sb:.2f} s); mean loss of the first {TRAIN_WINDOW} steps {first:.6f}, of the last "
+        f"{last:.6f} | {smi}")
+    if not last < first:
+        raise RuntimeError(f"[train] the loss did not fall: {first} -> {last}")
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic) != flags:
+        raise RuntimeError("[train] the cuDNN flags changed")
+
+    # --- 3. the tile-stats oracle at 960x540 against the port's 2-spp path
+    # render (a finding: gates nothing)
+    scene = prepare_scene(getattr(scenes, TRAIN_STATS_SCENE)(), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s_sum, s_sq = gs.naive_sums(scene, TRAIN_STATS_SPP, gs.RES)
+    stats_s = time.perf_counter() - t
+    stats = gs.stats_arrays(s_sum, s_sq, TRAIN_STATS_SPP, gs.RES)
+    if not all(np.isfinite(stats[k]).all() for k in ("mean", "var")):
+        raise RuntimeError("[train] non-finite tile statistics")
+    path_sum, _ = _sample_frame(scene, "path", gs.RES, 0, 0, 2, gs.BOUNCE_LIMIT, gs.SURVIVABILITY)
+    path_sum = path_sum.cpu().numpy()
+    z = gs.tile_z(path_sum, 2, stats)
+    with np.load(REPO / "tests" / "fixtures" / "tile_stats" / f"{TRAIN_STATS_SCENE}.npz") as ref:
+        z_fix = gs.tile_z(path_sum, 2, dict(ref))
+    log(f"[train] gen_reference_stats {TRAIN_STATS_SCENE} {gs.RES[0]}x{gs.RES[1]} naive "
+        f"{TRAIN_STATS_SPP} spp (the JAX tool's 256 cut) in {stats_s:.2f} s; the port's 2-spp "
+        f"path render against these card-made stats: worst tile z {float(z.max()):.4f}, mean "
+        f"{float(z.mean()):.4f} (TestTileStats's bounds {TILE_BOUNDS[0]} and {TILE_BOUNDS[1]}); "
+        f"against the committed TPU-made fixture: worst {float(z_fix.max()):.4f}, mean "
+        f"{float(z_fix.mean()):.4f} | {smi}")
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -4060,6 +4256,10 @@ def main() -> int:
 
     # --- multi-GPU: pixel shards, processes, the dry run ---
     multigpu_phase(dev, smi, bench)
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
+    # --- the offline tools: the denoiser's trainer, the tile-stats oracle ---
+    train_phase(dev, smi)
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     kernels = [

@@ -12,12 +12,15 @@ Convolutions are 3x3 with increasing dilation (1,1,2,4,1), zero padding
 ("SAME"), ~40k parameters. The weights are the JAX package's, committed
 byte for byte at echorenderer_tpu_torch/data/denoiser.npz in HWIO layout;
 the convolutions run in NCHW with OIHW weights. On the card they run in
-float32: cuDNN would otherwise compute them in TF32 (torch's default for
-convolutions), about 1e-3 off the float32 reference.
+float32 (`float32_convs`): cuDNN would otherwise compute them in TF32
+(torch's default for convolutions), about 1e-3 off the float32 reference.
+A trainer (echorenderer_tpu_torch/tools/train_denoiser.py) runs its
+backward pass under the same block, so its gradients are float32 too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 
@@ -38,8 +41,19 @@ WEIGHTS_PATH = os.path.join(
 
 # cudnn.flags sets process-wide flags for its block and restores the values
 # it found on exit: two denoises overlapping in threads (the scheduler's and
-# the caller's) could otherwise run in TF32 or leave the flags changed
-_CUDNN_FLAGS_LOCK = threading.Lock()
+# the caller's) could otherwise run in TF32 or leave the flags changed. An
+# RLock, since a training step holds it around `apply` and its backward pass
+_CUDNN_FLAGS_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def float32_convs():
+    """Float32, deterministic cuDNN convolutions for the block, forward and
+    backward, under the module's lock; safe to nest (the inner block sets
+    the same flags and restores them to the outer block's)."""
+    with _CUDNN_FLAGS_LOCK, torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        yield
 
 
 def init_params(generator: torch.Generator, device=None) -> dict:
@@ -75,8 +89,7 @@ def apply(params: dict, color, albedo, normal):
     # float32 convolutions on the card, for this block only (the flags are
     # restored on exit, under a lock); deterministic algorithms, so a frame
     # composes to the same bits
-    with _CUDNN_FLAGS_LOCK, torch.backends.cudnn.flags(
-            enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+    with float32_convs():
         for i, d in enumerate(DILATIONS):
             x = _conv(x, params[f"w{i}"], params[f"b{i}"], d)
             if i < len(DILATIONS) - 1:

@@ -183,6 +183,14 @@ def test_port_runs_without_jax():
         "img = render_frame_sharded(make_mesh(devices=['cpu'] * 2), c, (8, 6), spp=2,\n"
         "                           bounce_limit=3)\n"
         "assert img.shape == (6, 8, 3) and bool(np.isfinite(img).all())\n"
+        "from echorenderer_tpu_torch.tools import gen_reference_stats, showcase_renders\n"
+        "from echorenderer_tpu_torch.tools import train_denoiser\n"
+        "p = train_denoiser.init_params(0, 'cpu')\n"
+        "opt = train_denoiser.make_optimizer(p, 2e-3)\n"
+        "batch = [torch.rand(2, 16, 16, 3) for _ in range(4)]\n"
+        "assert bool(torch.isfinite(train_denoiser.train_step(p, opt, batch)))\n"
+        "s, q = gen_reference_stats.naive_sums(c, 2, (8, 6), step=1)\n"
+        "assert s.shape == (48, 3) and gen_reference_stats.tile_stats(s, q, 2, (8, 6), 3)[0].shape == (2, 2)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'echorenderer_tpu' or m.startswith('echorenderer_tpu.')]\n"
         "print(bad)\n"
