@@ -193,6 +193,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        1e-6.
      The kernels line's hier and binned rows take the largest error of the
      first adaptive epoch's checks too.
+  6b. bvh-oracle: the stack BVH walk (aggregation/bvh.intersect_bvh /
+     occlude_bvh, plain PyTorch on the card, which no render dispatches
+     to) against the dense kernels on 2^16 random rays of
+     sphere_field(80): hits and blocked flags identical, another prim
+     only on an exact t tie, t to rtol 1e-6.
   7. instanced: TLAS instancing, counters zeroed again:
      instanced_sphere_grids() (4 placements of a 123,008-triangle pack,
      ~2,000 global chunks, a ground plane, an ambient light) prepared with
@@ -2498,6 +2503,53 @@ def plucker_phase(dev, smi) -> list:
     return rows
 
 
+ORACLE_RAYS = 2 ** 16
+ORACLE_RTOL = 1e-6  # tests/test_torch_bvh_walk.py's rule against the dense kernels
+
+
+def bvh_oracle(label, geom, tree, soa, rays_np, smi):
+    """`intersect_bvh` / `occlude_bvh` (plain PyTorch on the card) against
+    the dense kernels on the same rays: hit or miss and blocked flags
+    identical; a prim differs only on an exact t tie; t to ORACLE_RTOL."""
+    import numpy as np
+    import torch
+
+    from echorenderer_tpu_torch.aggregation.bvh import intersect_bvh, occlude_bvh
+    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+
+    dev = soa.rows.device
+    o, d, t_max, ignore = (torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in rays_np)
+    t0 = time.perf_counter()
+    hit = intersect_bvh(geom, tree, o, d, t_max, ignore)
+    blocked = occlude_bvh(geom, tree, o, d, t_max, ignore)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    rays, ig = pi.ray_columns(o, d, t_max), pi._sorted_ignore(soa, ignore)
+    before = (pi.dense_trace.launches, pi.dense_occlude.launches)
+    t, slot, _, _ = pi.dense_trace(rays, ig, soa)
+    want_blocked = pi.dense_occlude(rays, ig, soa)
+    if (pi.dense_trace.launches, pi.dense_occlude.launches) != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"{label}: the dense kernels did not launch once each")
+    prim = torch.where(slot >= 0, soa.order[torch.clamp(slot, min=0).long()], -1)
+    found = hit.prim >= 0
+    differ = hit.prim != prim
+    ties = int(differ.sum())
+    off = int((hit.t[found] != t[found]).sum())
+    close = torch.allclose(hit.t[found], t[found], rtol=ORACLE_RTOL, atol=0.0)
+    same_found, same_blocked = torch.equal(found, prim >= 0), torch.equal(blocked, want_blocked)
+    log(f"[bvh-oracle] {label}: {len(o)} rays, {int(found.sum())} hits, {int(blocked.sum())} "
+        f"blocked; the stack walk {walk_s * 1e3:.1f} ms (trace + occlude) against the dense "
+        f"kernels: hit or miss {'identical' if same_found else 'DIFFERENT'}, {ties} rays with "
+        f"another prim (exact t ties), {off} hits with t not bitwise equal "
+        f"({'within' if close else 'OUTSIDE'} rtol {ORACLE_RTOL}), blocked flags "
+        f"{'identical' if same_blocked else 'DIFFERENT'} | {smi}")
+    if (not same_found or not torch.equal(hit.t[differ], t[differ]) or not close
+            or not same_blocked):
+        raise AssertionError(f"{label}: the BVH oracle disagrees with the dense kernels")
+    if not 0 < int(found.sum()) < len(o):
+        raise AssertionError(f"{label}: the oracle's rays hit nothing or everything")
+
+
 ADAPTIVE_LARGE = dict(samples_per_epoch=8, min_epoch=1, max_epoch=4, noise_threshold=0.045,
                       bounce_limit=6, survivability=2.5)  # bench.py's, max_epoch cut from 32
 
@@ -4234,6 +4286,12 @@ def main() -> int:
     # --- adaptive phase: adaptive epochs and the AOV evaluators ---
     adaptive = adaptive_phase(dev, smi, bench, showcase, large, mid, grid)
     del grid, hsoa, mid
+    log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
+
+    # --- the stack BVH walk against the dense kernels ---
+    bvh_oracle("sphere_field(80)", bench.geometry, bench.bvh, bench.prim_soa,
+               random_rays(np.random.RandomState(2020), ORACLE_RAYS, [-20, 0.05, -20],
+                           [20, 4, 20], bench.prim_soa.num_prims), smi)
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     # --- slice phase: TLAS instancing, counters from zero ---

@@ -1,9 +1,12 @@
-"""Host-side SAH BVH build (counterpart of echorenderer_tpu/aggregation/bvh.py's
-build, C++ with its numpy plain version). The port traces through the dense
-chunk kernels, which only need the BVH's leaf order of the prims, so the
-tree is built here and its `prim_order` packs spatially tight chunks. A
-prepared scene keeps the tree on its device (`on_device`) for
-`trace_cost`, the traversal-cost AOV's walk.
+"""SAH BVH (counterpart of echorenderer_tpu/aggregation/bvh.py): the host
+build, C++ with its numpy plain version, and the lockstep stack walk over
+the tree. The port traces through the dense chunk kernels, which only need
+the BVH's leaf order of the prims, so the tree is built here and its
+`prim_order` packs spatially tight chunks. A prepared scene keeps the tree
+on its device (`on_device`) for `trace_cost`, the traversal-cost AOV's
+walk, and for `intersect_bvh` / `occlude_bvh`: the JAX package's
+"bvh-lockstep" accelerator in plain PyTorch, an oracle of the hits over the
+binary tree that no render dispatches to.
 
 Leaf encoding in a child slot (int32):
   >= 0 : interior node index
@@ -18,10 +21,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.intersect import INF
+from ..ops.intersect import (
+    INF,
+    RAY_EPSILON,
+    FlatGeometry,
+    Hit,
+    ray_sphere_roots,
+    ray_triangle,
+    sphere_pick_root,
+)
 
 LEAF_MAX = 4  # max primitives per leaf
-STACK_DEPTH = 48  # trace_cost's traversal stack (the JAX package's)
+STACK_DEPTH = 48  # the walks' traversal stack (the JAX package's)
 
 
 def _encode_leaf(start: int, count: int) -> int:
@@ -44,6 +55,10 @@ class FlatBVH(NamedTuple):
     child_code: np.ndarray  # (B, 2) int32 (interior index or leaf code)
     prim_order: np.ndarray  # (P,) int32 leaf-contiguous primitive ids
     root_code: int
+
+    @property
+    def num_nodes(self) -> int:
+        return self.child_min.shape[0]
 
 
 def build_bvh(aabb_min: np.ndarray, aabb_max: np.ndarray,
@@ -222,6 +237,153 @@ def join(parts: list, bounds: list) -> FlatBVH:
                    root_code=0)
 
 
+def _inv_dir(d):
+    tiny = torch.where(d < 0, -1e-12, 1e-12)
+    return 1.0 / torch.where(torch.abs(d) < 1e-12, tiny, d)
+
+
+def _slab_test(o, inv_d, bmin, bmax, t_max):
+    """Batched ray/AABB slab test. o, inv_d: (..., 3); returns (hit, t_near)."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    hit = (t_near <= t_far) & (t_far > 0.0) & (t_near < t_max)
+    return hit, torch.clamp(t_near, min=0.0)
+
+
+def _new_stack(bvh: FlatBVH, n: int, dev):
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int32, device=dev)
+    stack[:, 0] = bvh.root_code
+    return stack, torch.ones(n, dtype=torch.int64, device=dev)
+
+
+def _pop(stack, sp, active):
+    """The top code of each active lane's stack (0, the root's index, past
+    the stack's last slot, as the JAX package's one-hot read gives) and
+    the popped stack pointers."""
+    top = STACK_DEPTH - 1
+    sp_idx = torch.clamp(sp - 1, min=0)
+    code = torch.gather(stack, 1, torch.clamp(sp_idx, max=top)[:, None])[:, 0]
+    code = torch.where(active & (sp_idx <= top), code, 0)
+    return code, torch.where(active, sp - 1, sp)
+
+
+def _push(stack, sp, child, child_hit):
+    """Push `child` where `child_hit`; pushes past the top land on the last
+    slot."""
+    idx = torch.clamp(sp, max=STACK_DEPTH - 1)[:, None]
+    cur = torch.gather(stack, 1, idx)
+    stack.scatter_(1, idx, torch.where(child_hit[:, None], child[:, None], cur))
+    return sp + child_hit.to(torch.int64)
+
+
+def _leaf_intersect(geom: FlatGeometry, bvh: FlatBVH, o, d, code, best, any_hit_tmax=None):
+    """Intersect the (masked) leaf `code` of every ray lane, slot by slot.
+    best = (t, prim, uv, ignore), the running closest hit. Returns the
+    updated best, or the lanes blocked before `any_hit_tmax` when given.
+    An ignored sphere is tested for its far root (findFar); an ignored
+    triangle is skipped."""
+    n = o.shape[0]
+    dev = o.device
+    num_tri, num_sph = geom.num_triangles, geom.num_spheres
+    start, count = _decode_leaf(code)
+    is_leaf = code < 0
+    best_t, best_prim, best_uv, ignore = best
+    blocked = torch.zeros(n, dtype=torch.bool, device=dev)
+    for i in range(LEAF_MAX):
+        live = is_leaf & (i < count)
+        slot = torch.clamp(start + i, 0, bvh.prim_order.shape[0] - 1).long()
+        pid = bvh.prim_order[slot]
+        is_tri = pid < num_tri
+        if num_tri:
+            ti = torch.clamp(pid, 0, num_tri - 1).long()
+            t_t, u, v, tv = ray_triangle(o, d, geom.tri_v0[ti], geom.tri_e1[ti], geom.tri_e2[ti])
+        else:
+            t_t = torch.full((n,), INF, dtype=torch.float32, device=dev)
+            u = v = torch.zeros(n, dtype=torch.float32, device=dev)
+            tv = torch.zeros(n, dtype=torch.bool, device=dev)
+        if num_sph:
+            si = torch.clamp(pid - num_tri, 0, num_sph - 1).long()
+            t_n, t_f, sok = ray_sphere_roots(o, d, geom.sph_center[si], geom.sph_radius[si])
+            t_s, sv = sphere_pick_root(t_n, t_f, sok, pid == ignore)
+        else:
+            t_s = torch.full((n,), INF, dtype=torch.float32, device=dev)
+            sv = torch.zeros(n, dtype=torch.bool, device=dev)
+        t = torch.where(is_tri, t_t, t_s)
+        valid = live & torch.where(is_tri, tv & (pid != ignore), sv) & (t > RAY_EPSILON)
+        if any_hit_tmax is not None:
+            blocked |= valid & (t < any_hit_tmax)
+        else:
+            closer = valid & (t < best_t)  # strictly: the first of equal t stays
+            best_t = torch.where(closer, t, best_t)
+            best_prim = torch.where(closer, pid, best_prim)
+            best_uv = torch.where(closer[:, None], torch.stack([u, v], dim=-1), best_uv)
+    if any_hit_tmax is not None:
+        return blocked
+    return best_t, best_prim, best_uv, ignore
+
+
+def _traverse(geom: FlatGeometry, bvh: FlatBVH, o, d, t_max, ignore, any_hit: bool):
+    """The lockstep stack walk shared by trace (closest) and occlude (any):
+    every lane pops a code a step; an interior node pushes the children
+    its ray enters before the lane's best t, the farther first, so the
+    nearer is popped first; a leaf tests its LEAF_MAX slots. An any-hit
+    lane stops at its first blocker. The loop reads whether any lane is
+    alive once a step."""
+    n = o.shape[0]
+    dev = o.device
+    inv_d = _inv_dir(d)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
+    ignore = torch.as_tensor(ignore, device=dev).to(torch.int32)
+    stack, sp = _new_stack(bvh, n, dev)
+    best_t = t_max.clone()
+    best_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_uv = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    blocked = torch.zeros(n, dtype=torch.bool, device=dev)
+    while True:
+        active = (sp > 0) & ~blocked if any_hit else sp > 0
+        if not bool(active.any()):
+            break
+        code, sp = _pop(stack, sp, active)
+        is_interior = active & (code >= 0)
+        node = torch.clamp(code, 0, bvh.num_nodes - 1).long()
+        limit = torch.where(blocked, -INF, best_t) if any_hit else best_t
+        hit, t_near = _slab_test(o[:, None, :], inv_d[:, None, :], bvh.child_min[node],
+                                 bvh.child_max[node], limit[:, None])
+        hit &= is_interior[:, None]
+        ccode = bvh.child_code[node]
+        near_first = t_near[:, 0] <= t_near[:, 1]
+        first = torch.where(near_first, ccode[:, 1], ccode[:, 0])
+        first_hit = torch.where(near_first, hit[:, 1], hit[:, 0])
+        second = torch.where(near_first, ccode[:, 0], ccode[:, 1])
+        second_hit = torch.where(near_first, hit[:, 0], hit[:, 1])
+        sp = _push(stack, sp, first, first_hit)
+        sp = _push(stack, sp, second, second_hit)
+        leaf_code = torch.where(active & (code < 0), code, 0)
+        best = (best_t, best_prim, best_uv, ignore)
+        if any_hit:
+            blocked |= _leaf_intersect(geom, bvh, o, d, leaf_code, best, best_t)
+        else:
+            best_t, best_prim, best_uv, _ = _leaf_intersect(geom, bvh, o, d, leaf_code, best)
+    if any_hit:
+        return blocked
+    return Hit(t=torch.where(best_prim >= 0, best_t, INF), prim=best_prim, uv=best_uv)
+
+
+def intersect_bvh(geom: FlatGeometry, bvh: FlatBVH, o, d, t_max, ignore) -> Hit:
+    """Closest hit over a tree on the rays' device (`on_device`; reference
+    Accelerator.Trace): prim ids original, t strictly below t_max and above
+    RAY_EPSILON, INF on a miss."""
+    return _traverse(geom, bvh, o, d, t_max, ignore, any_hit=False)
+
+
+def occlude_bvh(geom: FlatGeometry, bvh: FlatBVH, o, d, t_max, ignore) -> torch.Tensor:
+    """Any hit in (RAY_EPSILON, t_max) over the tree, each lane stopping at
+    its first blocker (reference Accelerator.Occlude)."""
+    return _traverse(geom, bvh, o, d, t_max, ignore, any_hit=True)
+
+
 def trace_cost(bvh: FlatBVH, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """Per-ray traversal cost of a tree on the rays' device (`on_device`):
     1 per interior node visited and LEAF_MAX per leaf, every box the ray
@@ -231,34 +393,20 @@ def trace_cost(bvh: FlatBVH, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     reads whether any ray's stack holds a node once a level."""
     n = o.shape[0]
     dev = o.device
-    tiny = torch.where(d < 0, -1e-12, 1e-12)
-    inv_d = 1.0 / torch.where(torch.abs(d) < 1e-12, tiny, d)
-    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int32, device=dev)
-    stack[:, 0] = bvh.root_code
-    sp = torch.ones(n, dtype=torch.int64, device=dev)
+    inv_d = _inv_dir(d)
+    stack, sp = _new_stack(bvh, n, dev)
     cost = torch.zeros(n, dtype=torch.float32, device=dev)
-    num_nodes = bvh.child_code.shape[0]
-    top = STACK_DEPTH - 1
     while bool((sp > 0).any()):
         active = sp > 0
-        sp_idx = torch.clamp(sp - 1, min=0)
-        code = torch.gather(stack, 1, torch.clamp(sp_idx, max=top)[:, None])[:, 0]
-        code = torch.where(active & (sp_idx <= top), code, 0)
-        sp = torch.where(active, sp - 1, sp)
+        code, sp = _pop(stack, sp, active)
         is_interior = active & (code >= 0)
-        node = torch.clamp(code, 0, num_nodes - 1).long()
-        t0 = (bvh.child_min[node] - o[:, None, :]) * inv_d[:, None, :]
-        t1 = (bvh.child_max[node] - o[:, None, :]) * inv_d[:, None, :]
-        t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
-        t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
-        hit = (t_near <= t_far) & (t_far > 0.0) & (t_near < INF) & is_interior[:, None]
+        node = torch.clamp(code, 0, bvh.num_nodes - 1).long()
+        hit, _ = _slab_test(o[:, None, :], inv_d[:, None, :], bvh.child_min[node],
+                            bvh.child_max[node], INF)
+        hit &= is_interior[:, None]
         ccode = bvh.child_code[node]
         for side in range(2):
-            idx = torch.clamp(sp, max=top)[:, None]
-            cur = torch.gather(stack, 1, idx)
-            stack.scatter_(1, idx, torch.where(hit[:, side:side + 1], ccode[:, side:side + 1],
-                                               cur))
-            sp = sp + hit[:, side].to(torch.int64)
+            sp = _push(stack, sp, ccode[:, side], hit[:, side])
         cost = cost + torch.where(is_interior, 1.0, 0.0)
         cost = cost + torch.where(active & (code < 0), float(LEAF_MAX), 0.0)
     return cost

@@ -67,7 +67,7 @@ def path_step(scene: PreparedScene, stream: SampleStream, st: dict, live, *,
     seg_t = torch.where(live, INF, 0.0)
     hit = scene_ops.trace(scene, st["o"], st["d"], seg_t, st["ignore"], st.get("ignore_inst"),
                           coherent=coherent)
-    hit_inst = hit.inst if hit.inst is not None else torch.zeros_like(hit.prim)
+    hit_inst = hit.inst_or_zero
     found = live & hit.found
     contact = scene_ops.interact(scene, hit, st["o"], st["d"])
 
@@ -264,8 +264,7 @@ def naive_trace(scene: PreparedScene, stream: SampleStream, origin, direction, *
         o = _offset_origin(contact.point, contact.geo_normal, wi_world)
         d = torch.where(active[..., None], wi_world, d)
         ignore = torch.clamp(hit.prim, min=0).to(torch.int32)
-        ignore_inst = (hit.inst if hit.inst is not None
-                       else torch.zeros_like(hit.prim)).to(torch.int32)
+        ignore_inst = hit.inst_or_zero.to(torch.int32)
     return radiance
 
 

@@ -33,6 +33,11 @@ class Hit(NamedTuple):
     def found(self) -> torch.Tensor:
         return self.prim >= 0
 
+    @property
+    def inst_or_zero(self) -> torch.Tensor:
+        """`inst`, or zeros like `prim` where the accelerator reports none."""
+        return torch.zeros_like(self.prim) if self.inst is None else self.inst
+
 
 def ray_triangle(o, d, v0, e1, e2):
     """Möller-Trumbore. Shapes broadcast; returns (t, u, v, valid)."""

@@ -126,3 +126,18 @@ def test_spawn_rays_matches_jax(kind):
                              torch.as_tensor(lens), res)
     _close(to, jo)
     _close(td, jd)
+
+
+
+def test_inst_or_zero_matches_jax():
+    """`Hit.inst_or_zero`: zeros like `prim` where the accelerator reports
+    no instance, else `inst` itself."""
+    from echorenderer_tpu.ops import intersect as jint
+    from echorenderer_tpu_torch.ops import intersect as tint
+
+    prim = np.array([3, -1, 7], np.int32)
+    hit = tint.Hit(t=torch.zeros(3), prim=torch.as_tensor(prim), uv=torch.zeros(3, 2))
+    ref = jint.Hit(t=jnp.zeros(3), prim=jnp.asarray(prim), uv=jnp.zeros((3, 2)))
+    np.testing.assert_array_equal(hit.inst_or_zero.numpy(), np.asarray(ref.inst_or_zero))
+    inst = torch.tensor([1, 0, 2], dtype=torch.int32)
+    assert hit._replace(inst=inst).inst_or_zero is inst
