@@ -421,6 +421,21 @@ def log(*args):
     print(*args, flush=True)
 
 
+def count_of(name: str) -> int:
+    """A host counter of the port (`utils.diagnostics`), 0 where it never
+    moved."""
+    from echorenderer_tpu_torch.utils import diagnostics
+
+    return diagnostics.counts()[name]
+
+
+def binned_reads() -> int:
+    """The binned traversal's host reads, its `reads.binned_*` counters."""
+    from echorenderer_tpu_torch.utils import diagnostics
+
+    return sum(v for k, v in diagnostics.counts().items() if k.startswith("reads.binned_"))
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
@@ -811,16 +826,15 @@ class RayWork:
         import torch
 
         from echorenderer_tpu_torch.evaluation import scene_ops
-        from echorenderer_tpu_torch.ops import binned_trace as bt
         from echorenderer_tpu_torch.ops import pallas_hier as ph
         from echorenderer_tpu_torch.ops import pallas_intersect as pi
 
         self._saved = trace, occlude = scene_ops.trace, scene_ops.occlude
 
         def counts():
-            return (bt.LAUNCHES["setup"], bt.LAUNCHES["select"],
-                    bt.LAUNCHES["seg"] + bt.LAUNCHES_INSTANCED["seg"], bt.STATS["rounds"],
-                    bt.STATS["syncs"])
+            return (count_of("launches.binned_setup"), count_of("launches.binned_select"),
+                    count_of("launches.binned_seg") + count_of("launches.binned_seg_instanced"),
+                    count_of("binned.rounds"), binned_reads())
 
         def add(kind, scene, o, d, t_max, ignore, ignore_inst, coherent, before, t_end=None):
             rays = pi.ray_columns(o, d, t_max)
@@ -938,8 +952,8 @@ class BinnedCheck:
     traversal call it belongs to, kernel and plain ms (CUDA events), the
     least float work and the bytes the launch must move, the bound; with
     `library`, for setup also the ms of torch.sort over the same (N, S) key
-    matrix. The kernels count their launches in binned_trace.LAUNCHES, as
-    on the main path."""
+    matrix. The kernels count their launches in the port's host counters
+    (`launches.binned_*`), as on the main path."""
 
     def __init__(self, soa, library: bool = False):
         self.library = library
@@ -956,7 +970,7 @@ class BinnedCheck:
         self._saved = setup_k, select_k, seg_k = bt.setup_rank, bt.select, bt.seg_keys
 
         def record(kind, k_ms, p_ms, flops, nbytes, **extra):
-            self.rows[kind].append(dict(call=bt.STATS["calls"], ms=k_ms, plain_ms=p_ms,
+            self.rows[kind].append(dict(call=count_of("binned.calls"), ms=k_ms, plain_ms=p_ms,
                                         flops=flops, bound=bound_ms(flops, nbytes), **extra))
 
         def differ(kind, got, want):
@@ -1553,12 +1567,12 @@ def renders_against_dense(scene, res, spp, bounce):
     from echorenderer_tpu_torch.evaluation.wavefront import cascade_widths
     from echorenderer_tpu_torch.ops import binned_trace as bt
     from echorenderer_tpu_torch.ops import pallas_hier as ph
-    from echorenderer_tpu_torch.ops import pallas_intersect as pi
     from echorenderer_tpu_torch.processes.render import _sample_frame
     from echorenderer_tpu_torch.processes.tiles import lane_order
 
-    counts = lambda: (bt.LAUNCHES["seg"], ph.hier_trace.launches + ph.hier_occlude.launches,
-                      pi.dense_trace.launches + pi.dense_occlude.launches)
+    counts = lambda: (count_of("launches.binned_seg"),
+                      count_of("launches.walk_trace") + count_of("launches.walk_occlude"),
+                      count_of("launches.dense_trace") + count_of("launches.dense_occlude"))
     sums, grew = [], []
     saved = scene_ops.HIER_TRACE_MIN
     try:
@@ -1748,7 +1762,7 @@ def gate_keeps_wavefront(dev, prof):
         for label, scene, want in cases:
             zero_launch_counts()
             image, info = render_layer(scene, prof, (320, 180))
-            hier = mk.sample_frame_mega.launches_hier
+            hier = count_of("launches.mega_hier")
             d = info["dispatch"]
             log(f"[kernels] under ECHO_MEGA_HIER: {label} ({scene.tex_atlas.shape[0]} atlas "
                 f"textures) 320x180 8 spp via {d['integrator']} ({d['integrator_reason']}), "
@@ -1837,8 +1851,6 @@ def golden_phase(dev):
 
     from echorenderer_tpu_torch.evaluation.wavefront import run_wavefront
     from echorenderer_tpu_torch.models import scenes
-    from echorenderer_tpu_torch.ops import megakernel as mk
-    from echorenderer_tpu_torch.ops import pallas_intersect as pi
     from echorenderer_tpu_torch.processes.render import _sample_frame
     from echorenderer_tpu_torch.scene.prepare import prepare_scene
 
@@ -1846,8 +1858,8 @@ def golden_phase(dev):
         "cornell": (scenes.cornell_box, (32, 24), 8, 4),
         "spheres": (lambda: scenes.sphere_field(80), (32, 18), 4, 6),
     }
-    counts = lambda: (mk.sample_frame_mega.launches, pi.dense_trace.launches,
-                      pi.dense_occlude.launches)
+    counts = lambda: (count_of("launches.mega"), count_of("launches.dense_trace"),
+                      count_of("launches.dense_occlude"))
     for name, (maker, res, spp, bounce) in cfg.items():
         scene = prepare_scene(maker(), device=dev)
         ref = np.load(REPO / "tests" / "golden" / f"{name}.npy")
@@ -1895,36 +1907,27 @@ def timed_programs(program, count: int = 8):
 
 
 def zero_launch_counts():
-    """Every kernel wrapper's launch count to 0."""
+    """Every host counter of the port (launches, binned rounds and calls,
+    host reads) and the binned traversal's recovery misses to 0."""
     from echorenderer_tpu_torch.ops import binned_trace as bt
-    from echorenderer_tpu_torch.ops import megakernel as mk
-    from echorenderer_tpu_torch.ops import pallas_hier as ph
-    from echorenderer_tpu_torch.ops import pallas_intersect as pi
+    from echorenderer_tpu_torch.utils import diagnostics
 
-    mk.sample_frame_mega.launches = mk.sample_frame_mega.launches_textured = 0
-    mk.sample_frame_mega.launches_hier = 0
-    pi.dense_trace.launches = pi.dense_occlude.launches = 0
-    for fn in (ph.hier_trace, ph.hier_occlude):
-        fn.launches = fn.launches_instanced = 0
-    bt.reset_stats()  # the binned kernels' launch counts too
+    diagnostics.reset_counts()
+    bt.STATS["misses"] = 0
+
+
+# launch_counts()' keys and the counters they read
+LAUNCH_COUNTERS = dict(
+    hier_trace="walk_trace", hier_occlude="walk_occlude", hier_trace_inst="walk_trace_instanced",
+    hier_occlude_inst="walk_occlude_instanced", setup="binned_setup", select="binned_select",
+    seg="binned_seg", seg_inst="binned_seg_instanced", seg_exact="binned_seg_exact",
+    seg_exact_inst="binned_seg_exact_instanced", dense_trace="dense_trace",
+    dense_occlude="dense_occlude", mega="mega", mega_textured="mega_textured",
+    mega_hier="mega_hier")
 
 
 def launch_counts() -> dict:
-    from echorenderer_tpu_torch.ops import binned_trace as bt
-    from echorenderer_tpu_torch.ops import megakernel as mk
-    from echorenderer_tpu_torch.ops import pallas_hier as ph
-    from echorenderer_tpu_torch.ops import pallas_intersect as pi
-
-    return dict(hier_trace=ph.hier_trace.launches, hier_occlude=ph.hier_occlude.launches,
-                hier_trace_inst=ph.hier_trace.launches_instanced,
-                hier_occlude_inst=ph.hier_occlude.launches_instanced,
-                setup=bt.LAUNCHES["setup"], select=bt.LAUNCHES["select"], seg=bt.LAUNCHES["seg"],
-                seg_inst=bt.LAUNCHES_INSTANCED["seg"], seg_exact=bt.LAUNCHES["seg_exact"],
-                seg_exact_inst=bt.LAUNCHES_INSTANCED["seg_exact"],
-                dense_trace=pi.dense_trace.launches,
-                dense_occlude=pi.dense_occlude.launches, mega=mk.sample_frame_mega.launches,
-                mega_textured=mk.sample_frame_mega.launches_textured,
-                mega_hier=mk.sample_frame_mega.launches_hier)
+    return {k: count_of(f"launches.{c}") for k, c in LAUNCH_COUNTERS.items()}
 
 
 INSTANCED_PATH = ("hier_trace_inst", "hier_occlude_inst", "setup", "select", "seg_inst")
@@ -2113,11 +2116,11 @@ def instanced_phase(dev, rs, smi):
             ph._ignore_inst(soa, ignore, inst))
     calls = dict(trace=[call], occlude=[call])
     err_rnd, _, _ = compare_hier("instanced random rays", soa, calls)
-    bt.reset_stats()
+    zero_launch_counts()
     with BinnedCheck(soa) as check_rnd:
         bt._Walk(*call[:2], soa, False, call[2]).traverse()
         bt._Walk(*call[:2], soa, True, call[2]).traverse()
-    log(f"[instanced] random rays, binned: {bt.STATS['rounds']} rounds, {bt.STATS['syncs']} "
+    log(f"[instanced] random rays, binned: {count_of('binned.rounds')} rounds, {binned_reads()} "
         f"host reads over 2 calls")
     b_rnd = check_rnd.summary("instanced random rays",
                               kinds=("setup", "select", "seg_instanced", "seg_exact_instanced"))
@@ -2132,7 +2135,7 @@ def instanced_phase(dev, rs, smi):
     seconds, warm_s, first, s_sum = timed_programs(program)
     grew = launch_counts()
     slice_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    rounds, syncs, b_calls = bt.STATS["rounds"], bt.STATS["syncs"], bt.STATS["calls"]
+    rounds, syncs, b_calls = count_of("binned.rounds"), binned_reads(), count_of("binned.calls")
     misses += int(bt.STATS["misses"])
     mspps = n_px * 8 / sum(seconds) / 1e6
     lum = float(luminance(s_sum.reshape(res[1], res[0], 3)).mean())
@@ -2163,7 +2166,7 @@ def instanced_phase(dev, rs, smi):
     bake_prep_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     bsum = dispatch_summary(bake)
     torch.cuda.reset_peak_memory_stats()
-    bt.reset_stats()
+    zero_launch_counts()
     b_seconds, b_warm, _, b_sum = timed_programs(
         lambda start: _sample_frame(bake, "path", res, 0, start, 1, 6, 2.5))
     bake_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2172,18 +2175,19 @@ def instanced_phase(dev, rs, smi):
         f"{bsum['accelerator']}): {n_px * 8 / sum(b_seconds) / 1e6:.4f} Mspps over 8 programs; "
         f"program seconds " + ", ".join(f"{t:.4f}" for t in b_seconds)
         + f"; warm-up {b_warm:.3f} s; prepare {bake_prep_s:.2f} s (peak {bake_prep_gib:.3f} "
-          f"GiB); peak memory {bake_gib:.3f} GiB (TLAS {slice_gib:.3f}); {bt.STATS['calls']} "
-          f"binned calls, {bt.STATS['rounds']} rounds, {bt.STATS['syncs']} host reads; mean "
+          f"GiB); peak memory {bake_gib:.3f} GiB (TLAS {slice_gib:.3f}); {count_of('binned.calls')} "
+          f"binned calls, {count_of('binned.rounds')} rounds, {binned_reads()} host reads; mean "
           f"luminance {b_lum:.4f} (TLAS {lum:.4f}) | {smi}")
     if not bool(torch.isfinite(b_sum).all()):
         raise AssertionError("the baked twin's frame is not finite")
     del bake, b_sum
 
     # --- the first timed program once more, every kernel call checked ---
-    bt.reset_stats()
+    zero_launch_counts()
     with RayWork(cull=True, record=True) as rec, BinnedCheck(soa) as check:
         again, _, stats = _sample_frame(tlas, "path", res, 0, 1, 1, 6, 2.5, return_stats=True)
-    exact_launches = bt.LAUNCHES_INSTANCED["seg_exact"]  # no render path launches it
+    # no render path launches it
+    exact_launches = count_of("launches.binned_seg_exact_instanced")
     log(f"[instanced] the first program again, recorded: {stats['Loop/Iterations']} wavefront "
         f"iterations, {stats['Ray/Traced']} traced and {stats['Ray/Shadow']} shadow rays, sums "
         f"{'bitwise equal' if torch.equal(again, first) else 'DIFFERENT'}")
@@ -2416,10 +2420,10 @@ def plucker_phase(dev, smi) -> list:
 
     n = N_RAYS
     prims, cols = pm.micro_scene(n, device=dev)
-    pm.reset_launches()
+    zero_launch_counts()
     keys, inputs = pm.run_keys(prims, cols)
     torch.cuda.synchronize()
-    launches = dict(pm.LAUNCHES)
+    launches = {k: count_of(f"launches.plucker_{k}") for k in ("mt", "plk_highest", "plk_default")}
     log(f"[plucker] {n} rays against {pm.H} triangles through run_keys: launches {launches}")
     if launches != dict(mt=1, plk_highest=2, plk_default=2):
         raise AssertionError(f"the micro-benchmark did not run on its kernels: {launches}")
@@ -2525,10 +2529,11 @@ def bvh_oracle(label, geom, tree, soa, rays_np, smi):
     torch.cuda.synchronize()
     walk_s = time.perf_counter() - t0
     rays, ig = pi.ray_columns(o, d, t_max), pi._sorted_ignore(soa, ignore)
-    before = (pi.dense_trace.launches, pi.dense_occlude.launches)
+    before = (count_of("launches.dense_trace"), count_of("launches.dense_occlude"))
     t, slot, _, _ = pi.dense_trace(rays, ig, soa)
     want_blocked = pi.dense_occlude(rays, ig, soa)
-    if (pi.dense_trace.launches, pi.dense_occlude.launches) != (before[0] + 1, before[1] + 1):
+    after = (count_of("launches.dense_trace"), count_of("launches.dense_occlude"))
+    if after != (before[0] + 1, before[1] + 1):
         raise AssertionError(f"{label}: the dense kernels did not launch once each")
     prim = torch.where(slot >= 0, soa.order[torch.clamp(slot, min=0).long()], -1)
     found = hit.prim >= 0
@@ -2623,8 +2628,8 @@ def adaptive_against_wavefront(label, scene, res, smi, max_epoch=None):
     prof = rd.EvaluationProfile()
     prof.max_epoch = max_epoch or prof.max_epoch
     image, info, rows, peak = counted_render(scene, prof, res)
-    launches = dict(mega=mk.sample_frame_mega.launches,
-                    textured=mk.sample_frame_mega.launches_textured)
+    launches = dict(mega=count_of("launches.mega"),
+                    textured=count_of("launches.mega_textured"))
     n = res[0] * res[1]
     log(f"[adaptive] {label} {res[0]}x{res[1]} EvaluationProfile() (spe "
         f"{prof.samples_per_epoch}, epochs {prof.min_epoch}..{prof.max_epoch}, threshold "
@@ -3320,7 +3325,7 @@ def frontend_phase(dev, smi, grid_tables: dict) -> None:
     torch.cuda.synchronize()
     inproc_s = time.perf_counter() - t
     for name, info in out["__info__"].items():
-        if isinstance(info, dict):
+        if isinstance(info, dict) and "epochs" in info:  # a layer's, not the stack's
             log(f"[frontend]   in-process {name}: {info['seconds']:.4f} s, {info['epochs']} "
                 f"epochs, {info['samples']} samples, "
                 f"{info['samples_per_second'] / 1e6:.3f} Mspps")
@@ -3556,7 +3561,6 @@ def multigpu_phase(dev, smi, bench) -> None:
     from echorenderer_tpu_torch.entry import dryrun_multichip
     from echorenderer_tpu_torch.evaluation.wavefront import sample_frame_wavefront
     from echorenderer_tpu_torch.models import scenes
-    from echorenderer_tpu_torch.ops import megakernel as mk
     from echorenderer_tpu_torch.parallel import (make_mesh, render_epoch_sharded,
                                                  render_frame_sharded)
     from echorenderer_tpu_torch.processes.tiles import lane_order
@@ -3572,7 +3576,7 @@ def multigpu_phase(dev, smi, bench) -> None:
     inv = torch.as_tensor(inv.astype(np.int64), device=dev)
     zero_launch_counts()
     ref_sum, ref_sq = sample_frame_wavefront(bench, pid, pxy, res, 0, 0, spp, bounce_limit=16)
-    ref_launches = mk.sample_frame_mega.launches
+    ref_launches = count_of("launches.mega")
     ref_sum, ref_sq = ref_sum[inv], ref_sq[inv]
     for k in MULTIGPU_SHARDS:
         mesh = make_mesh(1) if k == 1 else make_mesh(devices=[dev] * k)
@@ -4031,7 +4035,7 @@ def main() -> int:
     reason = mk.unsupported_reason(five)
     zero_launch_counts()
     five_img, five_info = render_layer(five, prof8, (320, 180))
-    five_mega = mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured
+    five_mega = count_of("launches.mega") + count_of("launches.mega_textured")
     log(f"[kernels] showcase + a fifth texture: {five.tex_atlas.shape[0]} atlas textures, "
         f"unsupported_reason {reason!r}; render_layer 320x180 8 spp via "
         f"{five_info['dispatch']['integrator']} ({five_info['dispatch']['integrator_reason']}), "
@@ -4070,12 +4074,12 @@ def main() -> int:
                                dict(trace=[call], occlude=[call]))
     # the binned traversal on the same rays: every launch checked, then
     # each call against the hier kernels
-    bt.reset_stats()
+    zero_launch_counts()
     with BinnedCheck(hsoa) as check_rnd:
         bt._Walk(*call, hsoa, False).traverse()
         bt._Walk(*call, hsoa, True).traverse()
-    log(f"[kernels] sphere_grid(1M) random rays, binned: {bt.STATS['rounds']} rounds, "
-        f"{bt.STATS['syncs']} host reads over 2 calls")
+    log(f"[kernels] sphere_grid(1M) random rays, binned: {count_of('binned.rounds')} rounds, "
+        f"{binned_reads()} host reads over 2 calls")
     b_rnd = check_rnd.summary("sphere_grid(1M) random rays")
     compare_binned("sphere_grid(1M) random rays", hsoa, dict(trace=[call], occlude=[call]))
     del call, o, d, t_max, ignore
@@ -4094,9 +4098,7 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_run:.1f} s after the build")
 
     # --- slice phase: the megakernel path, counters from zero ---
-    mk.sample_frame_mega.launches = 0
-    pi.dense_trace.launches = 0
-    pi.dense_occlude.launches = 0
+    zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     fn, args = entry()
     t_entry = time.perf_counter()
@@ -4111,8 +4113,8 @@ def main() -> int:
     prof = EvaluationProfile(samples_per_epoch=64, max_epoch=1, bounce_limit=16,
                              survivability=2.5, adaptive=False)
     image, info = render_layer(bench, prof, (960, 540))
-    mega_launches = mk.sample_frame_mega.launches
-    dense_on_mega = (pi.dense_trace.launches, pi.dense_occlude.launches)
+    mega_launches = count_of("launches.mega")
+    dense_on_mega = (count_of("launches.dense_trace"), count_of("launches.dense_occlude"))
     lum = float(luminance(torch.as_tensor(image)).mean())
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     mspps = info["samples_per_second"] / 1e6
@@ -4141,9 +4143,9 @@ def main() -> int:
     zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     image, info = render_layer(showcase, prof, (960, 540))
-    tex_launches = mk.sample_frame_mega.launches_textured
-    dense_on_tex = (pi.dense_trace.launches, pi.dense_occlude.launches,
-                    mk.sample_frame_mega.launches)
+    tex_launches = count_of("launches.mega_textured")
+    dense_on_tex = (count_of("launches.dense_trace"), count_of("launches.dense_occlude"),
+                    count_of("launches.mega"))
     show_lum = float(luminance(torch.as_tensor(image)).mean())
     show_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     show_mspps = info["samples_per_second"] / 1e6
@@ -4160,17 +4162,15 @@ def main() -> int:
         return fail(f"showcase render non-finite or mean luminance {show_lum} out of (0.01, 10)")
 
     # --- slice phase: the wavefront path (outside the envelope) ---
-    mk.sample_frame_mega.launches = 0
-    pi.dense_trace.launches = 0
-    pi.dense_occlude.launches = 0
+    zero_launch_counts()
     image, info = render_layer(large, prof8, (320, 180))
-    dense = dict(trace=pi.dense_trace.launches, occlude=pi.dense_occlude.launches)
+    dense = dict(trace=count_of("launches.dense_trace"), occlude=count_of("launches.dense_occlude"))
     log(f"[slice] sphere_field(2400) ({large.prim_soa.padded} padded prims) 320x180 8 spp via "
         f"render_layer ({info['dispatch']['integrator']}: "
         f"{info['dispatch']['integrator_reason']}): {info['samples_per_second'] / 1e6:.3f} "
         f"Mspps, {info['wavefront_iterations']} wavefront iterations; launches dense {dense}, "
-        f"megakernel {mk.sample_frame_mega.launches}")
-    if not np.isfinite(image).all() or min(dense.values()) <= 0 or mk.sample_frame_mega.launches:
+        f"megakernel {count_of('launches.mega')}")
+    if not np.isfinite(image).all() or min(dense.values()) <= 0 or count_of("launches.mega"):
         return fail("the wavefront path did not run on the dense kernels")
 
     # --- slice phase: an env map, through the wavefront ---
@@ -4179,7 +4179,7 @@ def main() -> int:
                                survivability=2.5, adaptive=False)
     zero_launch_counts()
     image, info = render_layer(hdr, prof16, (960, 540))
-    hdr_mega = mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured
+    hdr_mega = count_of("launches.mega") + count_of("launches.mega_textured")
     hdr_lum = float(luminance(torch.as_tensor(image)).mean())
     log(f"[slice] hdr_environment (256x128 procedural sky, {hdr.geometry.num_primitives} prims) "
         f"960x540 16 spp bounce 16 via render_layer ({info['dispatch']['integrator']}: "
@@ -4197,8 +4197,8 @@ def main() -> int:
     zero_launch_counts()
     image, info = render_layer(sky, prof8, (320, 180))
     sky_lum = float(luminance(torch.as_tensor(image)).mean())
-    dense_sky = (pi.dense_trace.launches, pi.dense_occlude.launches)
-    sky_mega = mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured
+    dense_sky = (count_of("launches.dense_trace"), count_of("launches.dense_occlude"))
+    sky_mega = count_of("launches.mega") + count_of("launches.mega_textured")
     log(f"[slice] sphere_field(80) under the same sky ({len(sky.env_maps)} env map, "
         f"{int((sky.lights.kind == 2).sum())} ambient records) 320x180 8 spp via "
         f"{info['dispatch']['integrator']} ({info['dispatch']['integrator_reason']}): "
@@ -4221,14 +4221,15 @@ def main() -> int:
     zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     seconds, warm_s, first, s_sum = timed_programs(program)
-    hier = dict(trace=ph.hier_trace.launches, occlude=ph.hier_occlude.launches)
-    binned = {k: bt.LAUNCHES[k] for k in ("setup", "select", "seg")}
-    exact_on_path = bt.LAUNCHES["seg_exact"]  # the exact form: no render path launches it
-    others = (pi.dense_trace.launches, pi.dense_occlude.launches,
-              mk.sample_frame_mega.launches + mk.sample_frame_mega.launches_textured
-              + mk.sample_frame_mega.launches_hier)
+    hier = dict(trace=count_of("launches.walk_trace"), occlude=count_of("launches.walk_occlude"))
+    binned = {k: count_of(f"launches.binned_{k}") for k in ("setup", "select", "seg")}
+    # the exact form: no render path launches it
+    exact_on_path = count_of("launches.binned_seg_exact")
+    others = (count_of("launches.dense_trace"), count_of("launches.dense_occlude"),
+              count_of("launches.mega") + count_of("launches.mega_textured")
+              + count_of("launches.mega_hier"))
     slice_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    rounds, syncs, calls = bt.STATS["rounds"], bt.STATS["syncs"], bt.STATS["calls"]
+    rounds, syncs, calls = count_of("binned.rounds"), binned_reads(), count_of("binned.calls")
     misses = int(bt.STATS["misses"])
     big_mspps = n_px * 8 / sum(seconds) / 1e6
     img = (s_sum / 1.0).reshape(res[1], res[0], 3)
@@ -4262,10 +4263,10 @@ def main() -> int:
     del walk_first
     # the first timed program once more, its kernel calls recorded and every
     # binned launch checked against its plain version
-    bt.reset_stats()
+    zero_launch_counts()
     with RayWork(cull=True, record=True) as rec, BinnedCheck(hsoa, library=True) as check:
         again, _, stats = _sample_frame(grid, "path", res, 0, 1, 1, 6, 2.5, return_stats=True)
-    exact_launches = bt.LAUNCHES["seg_exact"]  # no render path launches it
+    exact_launches = count_of("launches.binned_seg_exact")  # no render path launches it
     log(f"[slice] the first program again, recorded: {stats['Loop/Iterations']} wavefront "
         f"iterations, {stats['Ray/Traced']} traced and {stats['Ray/Shadow']} shadow rays, "
         f"sums {'bitwise equal' if torch.equal(again, first) else 'DIFFERENT'}")

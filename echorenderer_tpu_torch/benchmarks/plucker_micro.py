@@ -49,6 +49,7 @@ import torch
 from ..ops import cuda_build
 from ..ops.binned_trace import _route as _device_route
 from ..ops.pallas_intersect import _EPS, _chunk_hits
+from ..utils import diagnostics
 
 _INF = 3.4e38
 _INT_INF = 2**31 - 1
@@ -57,12 +58,6 @@ _PBITS = 8
 PRECISIONS = ("highest", "default")
 FRAMES = ("scene-frame", "chunk-local")
 PLAIN_SLICE = 2**14  # rays per pass of the plain versions
-# kernel launches per wrapper (CUDA tensors only)
-LAUNCHES = dict(mt=0, plk_highest=0, plk_default=0)
-
-
-def reset_launches():
-    LAUNCHES.update(mt=0, plk_highest=0, plk_default=0)
 
 
 def _bits(x):
@@ -308,7 +303,7 @@ def _launch(fn, name, table, cols, *extra):
                  torch.cuda.current_stream(cols.device).cuda_stream)
         if err:
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
-        LAUNCHES[name] += 1
+        diagnostics.count(f"launches.plucker_{name}")  # CUDA tensors only
     return out
 
 

@@ -56,6 +56,7 @@ from ..scene.prepare import (
     LIGHT_POINT,
     PreparedScene,
 )
+from ..utils import diagnostics
 from ..utils import rng as rng_mod
 from ..utils import vec
 from .bsdf import GatheredMaterial
@@ -170,35 +171,44 @@ def trace(scene: PreparedScene, o, d, t_max, ignore, ignore_inst=None,
     first wave), which a large scene sends to the chunk-tree walk; every
     other population of such a scene takes the binned traversal.
     `ignore_inst` is the instance of each ray's ignored prim (TLAS scenes;
-    other scenes ignore it)."""
-    if scene.instances is not None:
-        if _use_binned_instanced(scene) and not coherent:
-            return trace_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore, ignore_inst)
-        return intersect_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore, ignore_inst)
-    if scene.geometry.num_primitives < LINEAR_THRESHOLD:
-        return intersect_linear(scene.geometry, o, d, t_max, ignore)
-    if _use_binned(scene) and not coherent:
-        return trace_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
-    if _use_hier(scene):
-        return intersect_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
-    return intersect_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
+    other scenes ignore it). The call is one `echo.trace` span; its rays
+    count in `rays.trace`."""
+    diagnostics.count("rays.trace", o.shape[0])
+    with diagnostics.span("echo.trace"):
+        if scene.instances is not None:
+            if _use_binned_instanced(scene) and not coherent:
+                return trace_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore,
+                                    ignore_inst)
+            return intersect_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore,
+                                  ignore_inst)
+        if scene.geometry.num_primitives < LINEAR_THRESHOLD:
+            return intersect_linear(scene.geometry, o, d, t_max, ignore)
+        if _use_binned(scene) and not coherent:
+            return trace_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
+        if _use_hier(scene):
+            return intersect_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
+        return intersect_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
 
 
 def occlude(scene: PreparedScene, o, d, t_max, ignore, ignore_inst=None,
             coherent: bool = False) -> torch.Tensor:
-    """See trace()."""
-    if scene.instances is not None:
-        if _use_binned_instanced(scene) and not coherent:
-            return occlude_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore,
-                                  ignore_inst)
-        return occlude_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore, ignore_inst)
-    if scene.geometry.num_primitives < LINEAR_THRESHOLD:
-        return occlude_linear(scene.geometry, o, d, t_max, ignore)
-    if _use_binned(scene) and not coherent:
-        return occlude_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
-    if _use_hier(scene):
-        return occlude_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
-    return occlude_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
+    """See trace(): one `echo.occlude` span, its rays counted in
+    `rays.occlude`."""
+    diagnostics.count("rays.occlude", o.shape[0])
+    with diagnostics.span("echo.occlude"):
+        if scene.instances is not None:
+            if _use_binned_instanced(scene) and not coherent:
+                return occlude_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore,
+                                      ignore_inst)
+            return occlude_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore,
+                                ignore_inst)
+        if scene.geometry.num_primitives < LINEAR_THRESHOLD:
+            return occlude_linear(scene.geometry, o, d, t_max, ignore)
+        if _use_binned(scene) and not coherent:
+            return occlude_binned(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
+        if _use_hier(scene):
+            return occlude_hier(scene.geometry, scene.hier_soa, o, d, t_max, ignore)
+        return occlude_pallas(scene.geometry, scene.prim_soa, o, d, t_max, ignore)
 
 
 def _sample_atlas(atlas, tid, uv):

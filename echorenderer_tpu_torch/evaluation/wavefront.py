@@ -24,7 +24,7 @@ import torch
 from ..ops import megakernel
 from ..scene.cameras import spawn_rays
 from ..scene.prepare import PreparedScene
-from ..utils import vec
+from ..utils import diagnostics, vec
 from ..utils.rng import SampleStream, as_u32
 from .integrators import path_step
 from .scene_ops import dispatch_summary
@@ -108,7 +108,19 @@ def run_wavefront(
     the stage's results are scattered back at its end. A lane keeps its
     pixel and sample identity, and every draw keys on (pixel, sample, dim),
     so its sums are bitwise the same; the counters and the iteration count
-    carry across stages."""
+    carry across stages.
+
+    The call is one `echo.wavefront` span and each iteration an
+    `echo.wavefront.step` span, counted in `wavefront.iterations`; the six
+    event counters (STAT_NAMES) are kept on the device only for
+    `return_stats`."""
+    with diagnostics.span("echo.wavefront"):
+        return _run_wavefront(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
+                              bounce_limit, survivability, return_stats)
+
+
+def _run_wavefront(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count: int,
+                   bounce_limit: int, survivability: float, return_stats: bool):
     dev = scene.device
     n = pixel_id.shape[0]
     seed_t = as_u32(seed, dev)
@@ -144,11 +156,12 @@ def run_wavefront(
         ignore=torch.full((n,), -1, dtype=torch.int32, device=dev),
         ignore_inst=torch.zeros(n, dtype=torch.int32, device=dev),
     )
-    counters = torch.zeros(6, dtype=torch.int64, device=dev)  # exact past 2^24 events
-    iters = 0
+    # the six event counters, for `return_stats` alone (int64: exact past 2^24 events)
+    counters = torch.zeros(6, dtype=torch.int64, device=dev) if return_stats else None
+    iters_before = diagnostics.counts()["wavefront.iterations"] if return_stats else 0
 
     def step(ln, coherent=False):
-        nonlocal counters, iters
+        nonlocal counters
         live = ~ln["lane_done"]
         out = path_step(
             scene, stream_lanes(ln, ln["sample"]), ln, live,
@@ -167,15 +180,16 @@ def run_wavefront(
 
         cam_o, cam_d = spawn(ln, sample)
         r3 = respawn[..., None]
-        iters += 1
-        counters = counters + torch.stack([
-            live.sum(),  # Ray/Traced
-            aux["candidate"].sum(),  # Ray/Shadow
-            bank.sum(),  # Sample/Completed
-            (path_done & ~finite).sum(),  # Sample/Rejected
-            aux["found"].sum(),  # Bounce/Created
-            (aux["has_bounce"] & ~aux["survived"]).sum(),  # Path/RRKilled
-        ])
+        diagnostics.count("wavefront.iterations")
+        if return_stats:
+            counters = counters + torch.stack([
+                live.sum(),  # Ray/Traced
+                aux["candidate"].sum(),  # Ray/Shadow
+                bank.sum(),  # Sample/Completed
+                (path_done & ~finite).sum(),  # Sample/Rejected
+                aux["found"].sum(),  # Bounce/Created
+                (aux["has_bounce"] & ~aux["survived"]).sum(),  # Path/RRKilled
+            ])
         return dict(
             pid=ln["pid"],
             pxy=ln["pxy"],
@@ -196,10 +210,15 @@ def run_wavefront(
             ignore_inst=torch.where(respawn, 0, out["hit_inst"]).to(torch.int32),
         )
 
+    def live_count(ln) -> int:
+        with diagnostics.host_read("wavefront_live"):
+            return int((~ln["lane_done"]).sum())
+
     def run_until(ln, floor):
         """Step until at most `floor` lanes are live."""
-        while int((~ln["lane_done"]).sum()) > floor:
-            ln = step(ln)
+        while live_count(ln) > floor:
+            with diagnostics.span("echo.wavefront.step"):
+                ln = step(ln)
         return ln
 
     # iteration 0 is peeled: every lane holds its first camera ray, in
@@ -207,7 +226,8 @@ def run_wavefront(
     # (the chunk-tree walk on a large scene, `scene_ops.trace`); the loop,
     # the counters and the cascade carry on from it
     if count >= 1:
-        lane = step(lane, coherent=True)
+        with diagnostics.span("echo.wavefront.step"):
+            lane = step(lane, coherent=True)
     widths = cascade_widths(n)
     lane = run_until(lane, widths[0] if widths else 0)
     for i, width in enumerate(widths):
@@ -219,7 +239,8 @@ def run_wavefront(
             lane[k] = lane[k].index_copy(0, take, v)
 
     if return_stats:
-        stats = dict(zip(STAT_NAMES, counters.tolist()))
-        stats["Loop/Iterations"] = iters
+        with diagnostics.host_read("wavefront_stats"):
+            stats = dict(zip(STAT_NAMES, counters.tolist()))
+        stats["Loop/Iterations"] = diagnostics.counts()["wavefront.iterations"] - iters_before
         return lane["s_sum"], lane["s_sq"], stats
     return lane["s_sum"], lane["s_sq"]

@@ -52,8 +52,13 @@ the JAX package, the traversal itself never calls it. The refill, the pair
 sort and the record gather stay PyTorch ops, as they are XLA ops in the
 JAX package. The engine is the JAX
 package's fused one (a ray's refill decision is the previous round's) at
-any ray count. Each round reads one flag back to the host (`STATS`); the
-wrappers count their kernel launches in `LAUNCHES`.
+any ray count. Each round reads one flag back to the host. The host
+counters are `utils.diagnostics`' registry: `binned.calls`,
+`binned.rounds`, the reads `reads.binned_any` and `reads.binned_compact`,
+and the wrappers' kernel launches, `launches.binned_setup`,
+`launches.binned_select`, `launches.binned_seg` and
+`launches.binned_seg_exact` (`_instanced` on the pairs of an instanced
+scene). Each refill, round and compaction is an `echo.binned.*` span.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ import ctypes
 
 import torch
 
+from ..utils import diagnostics
 from . import cuda_build
 from .intersect import INF, FlatGeometry, Hit
 from .pallas_hier import HCHUNK, HierSoA, _ignore_inst, _sorted_ignore, to_instance
@@ -91,23 +97,9 @@ MAX_ROUNDS = 4096  # safety cap on the rounds of a phase that runs to its end
 SETUP_MAX_PAD = 512  # padded super count the setup kernel takes; above, a torch row sort
 PLAIN_SLICE = 2**16  # rays (setup) or pairs (seg) per pass of the plain versions
 
-# per-process counts of the traversal: calls, rounds, host reads, and the
-# rays whose winning prim missed on re-evaluation (a device tensor: reading
-# it syncs, so callers read it when they want it)
-STATS = dict(calls=0, rounds=0, syncs=0, misses=0)
-# kernel launches per wrapper (CUDA tensors only; the plain versions add
-# none): LAUNCHES on the pairs of a flat scene, LAUNCHES_INSTANCED on those
-# of an instanced scene (setup and select are the same kernels for both);
-# "seg" counts seg_keys, "seg_exact" seg_hits
-LAUNCHES = dict(setup=0, select=0, seg=0, seg_exact=0)
-LAUNCHES_INSTANCED = dict(seg=0, seg_exact=0)
-
-
-def reset_stats():
-    """Zero STATS, LAUNCHES and LAUNCHES_INSTANCED."""
-    STATS.update(calls=0, rounds=0, syncs=0, misses=0)
-    LAUNCHES.update(setup=0, select=0, seg=0, seg_exact=0)
-    LAUNCHES_INSTANCED.update(seg=0, seg_exact=0)
+# the rays whose winning prim missed on re-evaluation, a correctness tally
+# (a device tensor: reading it syncs, so callers read it when they want it)
+STATS = dict(misses=0)
 
 
 # ----------------------------------------------------------------------------
@@ -371,7 +363,7 @@ def setup_rank(rays, sup_cb, sbits, cap=None):
         err = _load().binned_setup(rays.data_ptr(), n, sup_cb.data_ptr(), s_count, sbits, s_out,
                                    out.data_ptr(), _stream(rays))
         _raise_on("setup_rank", err)
-        LAUNCHES["setup"] += 1
+        diagnostics.count("launches.binned_setup")
     return out
 
 
@@ -404,7 +396,7 @@ def select(cand, new_keys, best_t, do_refill, k, cbits):
                                     do_refill.data_ptr(), k, cbits, pop.data_ptr(),
                                     live.data_ptr(), mink.data_ptr(), _stream(cand))
         _raise_on("select", err)
-        LAUNCHES["select"] += 1
+        diagnostics.count("launches.binned_select")
     return pop, live, mink
 
 
@@ -481,7 +473,8 @@ def _launch_seg(name, rec, chunk, prim_chunks, has_tri, has_sph, inst, out):
         err = fn(rec.data_ptr(), chunk.data_ptr(), rec.shape[0], prim_chunks.data_ptr(),
                  n_chunks, int(has_tri), int(has_sph), ROW, *ptrs, out.data_ptr(), _stream(rec))
         _raise_on(name, err)
-        (LAUNCHES if inst is None else LAUNCHES_INSTANCED)[name] += 1
+        diagnostics.count(f"launches.binned_{name}" if inst is None
+                          else f"launches.binned_{name}_instanced")
     return out
 
 
@@ -544,8 +537,8 @@ class _Tables:
 
 
 def _any(x) -> bool:
-    STATS["syncs"] += 1
-    return bool(x.any())
+    with diagnostics.host_read("binned_any"):
+        return bool(x.any())
 
 
 class _Walk:
@@ -555,7 +548,7 @@ class _Walk:
 
     def __init__(self, rays, ign, soa: HierSoA, occlude, ign_inst=None):
         _check_soa(soa, ign_inst)
-        STATS["calls"] += 1
+        diagnostics.count("binned.calls")
         self.rays, self.soa, self.occlude = rays, soa, occlude
         self.ign_f = ign.to(torch.float32)
         # the chunks are global chunks with world boxes on an instanced pack
@@ -662,7 +655,8 @@ class _Walk:
         the least remaining key under the new best t."""
         tb = self.tb
         best_t = st["best_t"]
-        new_keys, cursor, next_sup = self.refill(st, ksup)
+        with diagnostics.span("echo.binned.refill"):
+            new_keys, cursor, next_sup = self.refill(st, ksup)
         pop, live, mink = select(st["cand"], new_keys, best_t, st["do_refill"], k, tb.cbits)
         sel_c = torch.where(pop != _INT_INF, pop & ((1 << tb.cbits) - 1), -1)
         pk = self.pairs(sel_c, st["rays"], best_t, st["ign_f"], st["ii_f"])
@@ -680,13 +674,14 @@ class _Walk:
         out["best_t"] = new_t
         out["do_refill"] = (live < k) & (next_t < new_t)
         out["pend"] = (_dec_t(mink, tb.cbits) < new_t) | (next_t < new_t)
-        STATS["rounds"] += 1
+        diagnostics.count("binned.rounds")
         return out
 
     def run(self, st, k, ksup, cap):
         rounds = 0
         while rounds < cap and _any(st["pend"]):
-            st = self.round(st, k, ksup)
+            with diagnostics.span("echo.binned.round"):
+                st = self.round(st, k, ksup)
             rounds += 1
         return st
 
@@ -695,8 +690,8 @@ class _Walk:
         sub-problem under their current best t, run it (at most `bounded`
         rounds, else to the end), and scatter its results back; a ray
         retires where the sub-run finished it."""
-        idx = torch.nonzero(stf["pend"] & ~stf["retired"]).squeeze(1)
-        STATS["syncs"] += 1
+        with diagnostics.host_read("binned_compact"):
+            idx = torch.nonzero(stf["pend"] & ~stf["retired"]).squeeze(1)
         take = min(idx.numel(), width)
         dev = idx.device
         idxs = torch.zeros(width, dtype=torch.int64, device=dev)
@@ -735,13 +730,15 @@ class _Walk:
             if n >= CASCADE_MIN:
                 if _any(st["pend"] & ~st["retired"]):
                     mid_w = -(-(n // MID_FRACTION) // 1024) * 1024
-                    st = self.compact(st, mid_w, MID_K, MID_KSUP, MID_ROUNDS)
+                    with diagnostics.span("echo.binned.compact"):
+                        st = self.compact(st, mid_w, MID_K, MID_KSUP, MID_ROUNDS)
                 final_w = max(1024, -(-(n // FINAL_FRACTION) // 1024) * 1024)
             else:
                 final_w = nc
             outer, outer_cap = 0, (n // final_w + 2) * 4
             while outer < outer_cap and _any(st["pend"] & ~st["retired"]):
-                st = self.compact(st, final_w, K_STRAGGLER, TAIL_KSUP, None)
+                with diagnostics.span("echo.binned.compact"):
+                    st = self.compact(st, final_w, K_STRAGGLER, TAIL_KSUP, None)
                 outer += 1
         if self.occlude:
             return (best_t0 > 0.0) & (st["best_t"] <= 0.0)

@@ -48,6 +48,7 @@ import torch
 
 from ..scene.cameras import PERSPECTIVE
 from ..scene.prepare import LIGHT_AMBIENT, LIGHT_DIRECTIONAL, LIGHT_POINT
+from ..utils import diagnostics
 from ..utils.rng import as_u32
 from . import cuda_build
 from .pallas_hier import check_tables
@@ -408,7 +409,8 @@ def sample_frame_mega(scene, pixel_id, pixel_xy, resolution, seed, sample_start,
     variant), for scenes inside `supported_hier`.
 
     A CPU scene runs the plain version; a CUDA scene launches the kernel
-    or raises."""
+    or raises, counting it in `launches.mega`, `launches.mega_textured` or
+    `launches.mega_hier` by its form."""
     dev = scene.device
     if dev.type == "cpu":
         return sample_frame_mega_plain(scene, pixel_id, pixel_xy, resolution, seed,
@@ -429,11 +431,11 @@ def sample_frame_mega(scene, pixel_id, pixel_xy, resolution, seed, sample_start,
     if err:
         raise RuntimeError(f"megakernel launch failed: cudaError {err}")
     if hier:
-        sample_frame_mega.launches_hier += 1
+        diagnostics.count("launches.mega_hier")
     elif launch.args.ints[15]:  # atlas textures: the textured form ran
-        sample_frame_mega.launches_textured += 1
+        diagnostics.count("launches.mega_textured")
     else:
-        sample_frame_mega.launches += 1
+        diagnostics.count("launches.mega")
     return s_sum, s_sq
 
 
@@ -461,29 +463,27 @@ def _prepare_launch(scene, pixel_id, pixel_xy, resolution, seed, sample_start, c
                     bounce_limit, k_slots, hier: bool = False) -> _Launch:
     """Everything `sample_frame_mega` hands the C entry, on a CUDA scene
     (tools/hier_ab.py times the C entry alone through this and
-    `_run_launch`)."""
-    args = _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
-                        bounce_limit, k_slots, hier)
-    dev, n, ints = scene.device, args.s_sum.shape[0], args.ints
-    work = torch.empty(1, dtype=torch.int32, device=dev)  # the pool's work counter
-    samples = (torch.empty((n, count, 3), dtype=torch.float32, device=dev)
-               if split_form(scene, n, count, hier) else None)
-    ptrs = args.ptrs + [work.data_ptr(), 0 if samples is None else samples.data_ptr()]
-    return _Launch(args, [work, samples], (ctypes.c_void_p * len(ptrs))(*ptrs),
-                   (ctypes.c_int * len(ints))(*ints), hier)
+    `_run_launch`), in one `echo.mega.prepare` span."""
+    with diagnostics.span("echo.mega.prepare"):
+        args = _kernel_args(scene, pixel_id, pixel_xy, resolution, seed, sample_start, count,
+                            bounce_limit, k_slots, hier)
+        dev, n, ints = scene.device, args.s_sum.shape[0], args.ints
+        work = torch.empty(1, dtype=torch.int32, device=dev)  # the pool's work counter
+        samples = (torch.empty((n, count, 3), dtype=torch.float32, device=dev)
+                   if split_form(scene, n, count, hier) else None)
+        ptrs = args.ptrs + [work.data_ptr(), 0 if samples is None else samples.data_ptr()]
+        return _Launch(args, [work, samples], (ctypes.c_void_p * len(ptrs))(*ptrs),
+                       (ctypes.c_int * len(ints))(*ints), hier)
 
 
 def _run_launch(scene, launch: _Launch, survivability: float) -> int:
-    """Launch a prepared megakernel call on the current stream; returns the
-    C entry's CUDA error."""
-    stream = torch.cuda.current_stream(scene.device).cuda_stream
-    if launch.hier:
-        c_hier = (ctypes.c_void_p * 3)(*launch.args.hier_ptrs)
-        return _load().megakernel_hier(launch.c_ptrs, launch.c_ints, c_hier,
-                                       scene.hier_soa.root_code, float(survivability), stream)
-    return _load().megakernel(launch.c_ptrs, launch.c_ints, float(survivability), stream)
-
-
-# launches of the kernel: the untextured, the textured and the chunk-tree form
-sample_frame_mega.launches = sample_frame_mega.launches_textured = 0
-sample_frame_mega.launches_hier = 0
+    """Launch a prepared megakernel call on the current stream, in one
+    `echo.mega.launch` span; returns the C entry's CUDA error."""
+    with diagnostics.span("echo.mega.launch"):
+        stream = torch.cuda.current_stream(scene.device).cuda_stream
+        if launch.hier:
+            c_hier = (ctypes.c_void_p * 3)(*launch.args.hier_ptrs)
+            return _load().megakernel_hier(launch.c_ptrs, launch.c_ints, c_hier,
+                                           scene.hier_soa.root_code, float(survivability),
+                                           stream)
+        return _load().megakernel(launch.c_ptrs, launch.c_ints, float(survivability), stream)

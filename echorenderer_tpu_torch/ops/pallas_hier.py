@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from ..aggregation.bvh import build_bvh
-from ..utils import vec
+from ..utils import diagnostics, vec
 from . import cuda_build
 from .intersect import INF, FlatGeometry, Hit
 from .pallas_intersect import (CULL_MARGIN, _chunk_hits, _safe_inv, pack_sorted_prims,
@@ -620,11 +620,10 @@ def _kernel_args(rays, ignore, soa: HierSoA, ign_inst):
             int(soa.num_prims > soa.num_tris), int(inst))
 
 
-def _count(fn, soa: HierSoA):
-    if soa.instanced:
-        fn.launches_instanced += 1
-    else:
-        fn.launches += 1
+def _count(name: str, soa: HierSoA):
+    """Count a launch of the walk in `launches.<name>` (`_instanced` on
+    instanced tables)."""
+    diagnostics.count(f"launches.{name}_instanced" if soa.instanced else f"launches.{name}")
 
 
 def hier_trace(rays, ignore, soa: HierSoA, ign_inst=None):
@@ -652,7 +651,7 @@ def hier_trace(rays, ignore, soa: HierSoA, ign_inst=None):
                              torch.cuda.current_stream(rays.device).cuda_stream)
         if err:
             raise RuntimeError(f"hier_trace launch failed: cudaError {err}")
-        _count(hier_trace, soa)
+        _count("walk_trace", soa)
     return (t, prim, u, v, inst) if soa.instanced else (t, prim, u, v)
 
 
@@ -673,13 +672,9 @@ def hier_occlude(rays, ignore, soa: HierSoA, ign_inst=None):
                                torch.cuda.current_stream(rays.device).cuda_stream)
         if err:
             raise RuntimeError(f"hier_occlude launch failed: cudaError {err}")
-        _count(hier_occlude, soa)
+        _count("walk_occlude", soa)
     return blocked
 
-
-# launches of the kernel per wrapper: non-instanced and instanced tables
-hier_trace.launches = hier_trace.launches_instanced = 0
-hier_occlude.launches = hier_occlude.launches_instanced = 0
 
 
 # ----------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import diagnostics
 from . import cuda_build
 from .intersect import INF, FlatGeometry, Hit
 
@@ -427,7 +428,7 @@ def dense_trace(rays, ignore, soa: PrimSoA):
                               torch.cuda.current_stream(rays.device).cuda_stream)
         if err:
             raise RuntimeError(f"dense_trace launch failed: cudaError {err}")
-        dense_trace.launches += 1
+        diagnostics.count("launches.dense_trace")
     return t, prim, u, v
 
 
@@ -447,12 +448,9 @@ def dense_occlude(rays, ignore, soa: PrimSoA):
                                 torch.cuda.current_stream(rays.device).cuda_stream)
         if err:
             raise RuntimeError(f"dense_occlude launch failed: cudaError {err}")
-        dense_occlude.launches += 1
+        diagnostics.count("launches.dense_occlude")
     return blocked
 
-
-dense_trace.launches = 0
-dense_occlude.launches = 0
 
 
 # ----------------------------------------------------------------------------

@@ -27,7 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..utils import colors
+from ..utils import colors, diagnostics
 
 F32 = torch.float32
 
@@ -426,7 +426,8 @@ def compose(layers: dict, operators, device="cuda"):
     their own device, and each operator computes on its layers' device.
     Returns (new_layers, errors) with tensor layers: an operator whose
     `validate` or `apply` raises is recorded under its class name and
-    skipped (reference CompositionOperation.cs error capture)."""
+    skipped (reference CompositionOperation.cs error capture). Each
+    operator's `apply` is one `echo.compose.<its class>` span."""
     errors = {}
     valid = []
     for op in operators:
@@ -440,7 +441,8 @@ def compose(layers: dict, operators, device="cuda"):
            for k, v in layers.items()}
     for op in valid:
         try:
-            out = op.apply(dict(out))
+            with diagnostics.span("echo.compose." + type(op).__name__):
+                out = op.apply(dict(out))
         except Exception as exc:  # noqa: BLE001 — recorded, the stack goes on
             errors[type(op).__name__] = str(exc)
     return out, errors

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import diagnostics
+
 KERNEL = 5  # predicted filter size (5x5 softmax weights per pixel)
 WIDTH = 32  # conv channels
 DILATIONS = (1, 1, 2, 4, 1)
@@ -111,11 +113,13 @@ def apply(params: dict, color, albedo, normal):
 
 def load_params(device=None) -> dict | None:
     """Committed weights on `device`, or None when absent (callers fall
-    back to the cross-bilateral filter)."""
-    if not os.path.exists(WEIGHTS_PATH):
-        return None
-    with np.load(WEIGHTS_PATH) as data:
-        return {k: torch.as_tensor(data[k], device=device) for k in data.files}
+    back to the cross-bilateral filter); one `echo.denoise.load_params`
+    span."""
+    with diagnostics.span("echo.denoise.load_params"):
+        if not os.path.exists(WEIGHTS_PATH):
+            return None
+        with np.load(WEIGHTS_PATH) as data:
+            return {k: torch.as_tensor(data[k], device=device) for k in data.files}
 
 
 def denoise(color, albedo, normal, params: dict | None = None, device="cuda"):

@@ -150,11 +150,14 @@ def _sample_frame(scene: PreparedScene, evaluator: str, resolution, seed, sample
     dev = scene.device
     n = resolution[0] * resolution[1]
     # tile-major lane order: each kernel block covers a compact pixel tile
-    perm, inv = lane_order(resolution)
-    pixel_id = torch.as_tensor(perm.astype(np.int64), device=dev)
+    with diagnostics.span("echo.lane_order"):
+        perm, inv = lane_order(resolution)
+        pixel_id = torch.as_tensor(perm.astype(np.int64), device=dev)
     out = _sample_active(scene, pixel_id, int(sample_start) & MASK32, resolution, seed, count,
                          bounce_limit, survivability, return_stats=return_stats,
                          chains=_chains(scene, count, n, return_stats))
+    # no span here: a pageable upload waits for the queued launch, so a span
+    # would time the device's work
     inv_d = torch.as_tensor(inv.astype(np.int64), device=dev)
     if return_stats:
         return out[0][inv_d], out[1][inv_d], out[2]
@@ -216,10 +219,12 @@ def _sample_frame_aov(scene: PreparedScene, evaluator: str, resolution, seed, sa
     s_sq = torch.zeros_like(s_sum)
     start_i = 0
     if evaluator == "path_lockstep" and count >= 1:
-        s_sum, s_sq = one_sample(0, s_sum, s_sq, first=True)
+        with diagnostics.span("echo.aov.sample"):
+            s_sum, s_sq = one_sample(0, s_sum, s_sq, first=True)
         start_i = 1
     for i in range(start_i, count):
-        s_sum, s_sq = one_sample(i, s_sum, s_sq)
+        with diagnostics.span("echo.aov.sample"):
+            s_sum, s_sq = one_sample(i, s_sum, s_sq)
     return s_sum, s_sq
 
 
@@ -268,70 +273,62 @@ def _active_stats(acc: acc_mod.Accumulator, threshold: torch.Tensor) -> torch.Te
 
 
 def _adaptive_step(scene: PreparedScene, acc: acc_mod.Accumulator, drawn, perm, threshold,
-                   resolution, count: int, bounce_limit, survivability, seed, m: int,
-                   return_stats: bool = False):
+                   resolution, count: int, bounce_limit, survivability, seed, m: int):
     """One adaptive epoch: the `m` pixels whose noise is above `threshold`,
     taken in lane (tile) order (`perm`), sample `count` more samples each
     from `drawn[pixel]` on, and their sums are scattered into zeros and
     merged. `m` is `_active_stats`' count on the same accumulator; the
     compaction is a stable sort of the inactive flags, so it reads nothing
     back. `drawn` is an (n,) int64 tensor of 32-bit words, the samples
-    each pixel has drawn. Returns (acc, drawn), plus the wavefront's stats
-    when `return_stats`."""
+    each pixel has drawn. Returns (acc, drawn)."""
     n = perm.shape[0]
     dev = acc.mean.device
     active = acc_mod.max_noise(acc)[perm] > threshold  # lane (tile) order
     lanes = torch.argsort((~active).to(torch.uint8), stable=True)[:m]
     ids = perm[lanes]
     out = _sample_active(scene, ids, drawn[ids], resolution, seed, count, bounce_limit,
-                         survivability, return_stats=return_stats)
+                         survivability)
     zeros = lambda c: torch.zeros((n, c), dtype=torch.float32, device=dev)
     full_sum = zeros(3).index_add_(0, ids, out[0])
     full_sq = zeros(3).index_add_(0, ids, out[1])
     k = zeros(1).index_fill_(0, ids, float(count))
     new_acc = acc_mod.add_many(acc, full_sum, full_sq, k)
     new_drawn = drawn.index_add(0, ids, torch.full_like(ids, count)) & MASK32
-    if return_stats:
-        return new_acc, new_drawn, out[2]
     return new_acc, new_drawn
 
 
 def _adaptive_epochs(scene: PreparedScene, profile, resolution, seed, acc, drawn,
-                     first_epoch: int, progress, total_samples: int, stats_on: bool,
-                     log: list):
+                     first_epoch: int, progress, total_samples: int, log: list):
     """The per-pixel adaptive phase: epochs `first_epoch` .. max_epoch - 1,
     each one `_active_stats` read and one `_adaptive_step`, until no pixel
     is above the threshold; `progress` is the layer's `_Progress`. The
     schedule is a pure function of the accumulated state, and each pixel
     draws its own sample ids [drawn, drawn + count), so a (scene, seed,
     profile) always gives the same image. Appends one entry an epoch to `log` (epoch, active pixels,
-    the time of its host read). Returns (acc, epochs_run, total_samples,
-    wavefront iterations or None)."""
+    the time of its host read). Returns (acc, epochs_run, total_samples)."""
     from .tiles import lane_order
 
     dev = acc.mean.device
-    perm, _ = lane_order(resolution)
-    perm_d = torch.as_tensor(perm.astype(np.int64), device=dev)
+    with diagnostics.span("echo.lane_order"):
+        perm, _ = lane_order(resolution)
+        perm_d = torch.as_tensor(perm.astype(np.int64), device=dev)
     thr = torch.tensor(profile.noise_threshold, dtype=torch.float32, device=dev)
     spe = profile.samples_per_epoch
     epochs_run = first_epoch
-    iterations = 0 if stats_on else None
     for epoch in range(first_epoch, profile.max_epoch):
-        m_f, noise_max = _active_stats(acc, thr).tolist()
+        with diagnostics.host_read("adaptive_stats"):
+            m_f, noise_max = _active_stats(acc, thr).tolist()
         m = int(m_f)
         if m == 0:
             break
         log.append(dict(epoch=epoch + 1, active=m, read_at=time.perf_counter()))
-        out = _adaptive_step(scene, acc, drawn, perm_d, thr, tuple(resolution), spe,
-                             profile.bounce_limit, profile.survivability, seed, m,
-                             return_stats=stats_on)
-        acc, drawn = out[0], out[1]
-        if stats_on:
-            iterations += out[2]["Loop/Iterations"]
+        with diagnostics.span("echo.adaptive.step"):
+            acc, drawn = _adaptive_step(scene, acc, drawn, perm_d, thr, tuple(resolution), spe,
+                                        profile.bounce_limit, profile.survivability, seed, m)
         total_samples += spe * m
         epochs_run = epoch + 1
         progress(epoch + 1, profile.max_epoch, float(noise_max), total_samples, acc)
-    return acc, epochs_run, total_samples, iterations
+    return acc, epochs_run, total_samples
 
 
 _PUBLISH_INTERVAL = float(os.environ.get("ECHO_PUBLISH_INTERVAL", "2.0"))
@@ -395,21 +392,23 @@ class _Progress:
         if "samples" in self.keys:
             kw["samples"] = samples
         if "image" in self.keys:
-            ready = self.throttle.ready() or last
-            kw["image"] = acc.mean.reshape(self.shape).cpu().numpy() if ready else None
+            kw["image"] = None
+            if self.throttle.ready() or last:
+                with diagnostics.host_read("progress_image"):
+                    kw["image"] = acc.mean.reshape(self.shape).cpu().numpy()
         if tile_batch is not None:
             kw["tile_batch"] = tile_batch
         self.fn(epoch, max_epoch, noise, **kw)
 
 
 def _tiled_first_epoch(scene: PreparedScene, profile, resolution, seed, acc, progress,
-                       n_batches: int, chains: int, stats_on: bool, tile_size: int = 32):
+                       n_batches: int, chains: int, tile_size: int = 32):
     """Epoch 0 of a path layer rendered as spiral-ordered tile batches, a
     partial image published after each (the reference ViewerUI's live tile
     fill-in, Areas/ViewerUI.EvaluationOperationMode.cs:19-50). Each pixel
     draws sample ids [0, spe) of its own stream in the untiled epoch's
     `chains`, so its sums are bitwise the untiled epoch's; only the
-    schedule differs. Returns (acc, wavefront iterations or None)."""
+    schedule differs. Returns acc."""
     from .tiles import lane_order, spiral, tile_grid
 
     width, height = resolution
@@ -417,19 +416,20 @@ def _tiled_first_epoch(scene: PreparedScene, profile, resolution, seed, acc, pro
     dev = acc.mean.device
     ntx, nty = tile_grid(resolution, tile_size)
     order = np.asarray(spiral(ntx, nty))  # (T, 2) tile xy in schedule order
-    rank = np.empty(ntx * nty, np.int64)
-    rank[order[:, 1] * ntx + order[:, 0]] = np.arange(len(order))
-    ids_all = np.arange(n, dtype=np.int64)
-    tile_of = (ids_all // width // tile_size) * ntx + (ids_all % width) // tile_size
-    # lanes scheduled by spiral tile rank; tile-major within each tile
-    perm, _ = lane_order(resolution, tile_size)
-    perm = perm.astype(np.int64)
-    sched = torch.as_tensor(perm[np.argsort(rank[tile_of[perm]], kind="stable")], device=dev)
+    with diagnostics.span("echo.lane_order"):
+        rank = np.empty(ntx * nty, np.int64)
+        rank[order[:, 1] * ntx + order[:, 0]] = np.arange(len(order))
+        ids_all = np.arange(n, dtype=np.int64)
+        tile_of = (ids_all // width // tile_size) * ntx + (ids_all % width) // tile_size
+        # lanes scheduled by spiral tile rank; tile-major within each tile
+        perm, _ = lane_order(resolution, tile_size)
+        perm = perm.astype(np.int64)
+        sched = torch.as_tensor(perm[np.argsort(rank[tile_of[perm]], kind="stable")],
+                                device=dev)
 
     spe = profile.samples_per_epoch
     n_batches = max(1, min(n_batches, len(order)))
     bucket = -(-n // n_batches)
-    iterations = 0 if stats_on else None
     zeros = lambda c: torch.zeros((n, c), dtype=torch.float32, device=dev)
     for b in range(n_batches):
         ids = sched[b * bucket:(b + 1) * bucket]
@@ -438,18 +438,15 @@ def _tiled_first_epoch(scene: PreparedScene, profile, resolution, seed, acc, pro
         sample_args = (scene, ids, 0, tuple(resolution), seed, spe, profile.bounce_limit,
                        profile.survivability)
         if b == 0 and diagnostics.device_checks_enabled():
-            out = diagnostics.run_checked(_sample_active, *sample_args,
-                                          return_stats=stats_on, chains=chains)
+            out = diagnostics.run_checked(_sample_active, *sample_args, chains=chains)
         else:
-            out = _sample_active(*sample_args, return_stats=stats_on, chains=chains)
-        if stats_on:
-            iterations += out[2]["Loop/Iterations"]
+            out = _sample_active(*sample_args, chains=chains)
         k = zeros(1).index_fill_(0, ids, float(spe))
         acc = acc_mod.add_many(acc, zeros(3).index_add_(0, ids, out[0]),
                                zeros(3).index_add_(0, ids, out[1]), k)
         progress(1, profile.max_epoch, float("inf"), spe * min((b + 1) * bucket, n), acc,
                  tile_batch=(b + 1, n_batches), last=b == n_batches - 1)
-    return acc, iterations
+    return acc
 
 
 def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
@@ -457,10 +454,24 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
     """Run the epoch loop for one layer: full-frame epochs, then, for an
     adaptive "path" layer, the adaptive phase. Returns (image (H, W, C)
     numpy, info dict with sample statistics; info["epoch_log"] lists each
-    epoch's pixels sampled and seconds, host read to host read).
+    epoch's pixels sampled and seconds, host read to host read;
+    info["counters"] the host counters that moved over the layer,
+    `diagnostics.counts_since`). The layer is one `echo.render_layer` span.
     `tile_progress=K` renders a path layer's first epoch as K spiral tile
     batches, reported to `progress` (`_Progress`); the image is bitwise
     the same."""
+    before = diagnostics.counts()
+    with diagnostics.span("echo.render_layer", f"layer={profile.layer_name} seed={seed}"):
+        image, info = _render_layer(scene, profile, resolution, seed, progress, tile_progress)
+    info["counters"] = counters = diagnostics.counts_since(before)
+    wavefront = profile.evaluator == "path" and info["dispatch"]["integrator"] == "wavefront"
+    info["wavefront_iterations"] = counters.get("wavefront.iterations", 0) if wavefront else None
+    return image, info
+
+
+def _render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution, seed,
+                  progress, tile_progress: int):
+    """`render_layer`'s epoch loop."""
     from ..evaluation.scene_ops import dispatch_summary
 
     width, height = resolution
@@ -473,10 +484,6 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
     # one log line per layer naming the integrator/accelerator path and why
     diagnostics.log_event(diagnostics.get_logger("render"), "dispatch",
                           layer=profile.layer_name, **dispatch)
-    # the wavefront's counters cost nothing extra; asking for them on a
-    # megakernel frame would bypass the kernel
-    stats_on = profile.evaluator == "path" and dispatch["integrator"] == "wavefront"
-    iterations = 0 if stats_on else None
     # per-pixel adaptive: min_epoch full-frame epochs (every pixel needs 2
     # samples for a noise estimate), then only still-noisy pixels continue
     adaptive = (
@@ -492,11 +499,9 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
     for epoch in range(full_epochs):
         log.append(dict(epoch=epoch + 1, active=n, read_at=time.perf_counter()))
         if epoch == 0 and tiled:
-            chains = _chains(scene, profile.samples_per_epoch, n, stats_on)
-            acc, more = _tiled_first_epoch(scene, profile, tuple(resolution), seed, acc, report,
-                                           tile_progress, chains, stats_on)
-            if stats_on:
-                iterations += more
+            chains = _chains(scene, profile.samples_per_epoch, n)
+            acc = _tiled_first_epoch(scene, profile, tuple(resolution), seed, acc, report,
+                                     tile_progress, chains)
         else:
             sample_args = (
                 scene, profile.evaluator, tuple(resolution), seed,
@@ -506,18 +511,16 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
             if epoch == 0 and diagnostics.device_checks_enabled():
                 # debug runs (ECHO_DEBUG_DEVICE=1): the first epoch under
                 # run_checked, so path_step's dchecks raise with their messages
-                out = diagnostics.run_checked(_sample_frame, *sample_args,
-                                              return_stats=stats_on)
+                out = diagnostics.run_checked(_sample_frame, *sample_args)
             else:
-                out = _sample_frame(*sample_args, return_stats=stats_on)
-            if stats_on:
-                iterations += out[2]["Loop/Iterations"]
+                out = _sample_frame(*sample_args)
             acc = acc_mod.add_many(acc, out[0], out[1], float(profile.samples_per_epoch))
         total_samples += profile.samples_per_epoch * n
         if profile.evaluator in ONE_EPOCH:
             break  # deterministic AOVs need one epoch
 
-        noise = float(torch.max(acc_mod.max_noise(acc)))
+        with diagnostics.host_read("epoch_noise"):
+            noise = float(torch.max(acc_mod.max_noise(acc)))
         report(epoch + 1, profile.max_epoch, noise, total_samples, acc)
         if epoch + 1 >= profile.min_epoch and noise < profile.noise_threshold:
             break
@@ -526,14 +529,13 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
     if adaptive:
         drawn = torch.full((n,), epochs_done * profile.samples_per_epoch, dtype=torch.int64,
                            device=scene.device) & MASK32
-        acc, epochs_done, total_samples, more = _adaptive_epochs(
+        acc, epochs_done, total_samples = _adaptive_epochs(
             scene, profile, tuple(resolution), seed, acc, drawn, epochs_done, report,
-            total_samples, stats_on, log,
+            total_samples, log,
         )
-        if stats_on:
-            iterations += more
 
-    image = acc.mean.reshape(height, width, channels).cpu().numpy()
+    with diagnostics.host_read("layer_image"):
+        image = acc.mean.reshape(height, width, channels).cpu().numpy()
     end = time.perf_counter()
     elapsed = end - start
     marks = [e.pop("read_at") for e in log] + [end]
@@ -544,7 +546,6 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
         epochs=epochs_done,
         seconds=elapsed,
         samples_per_second=total_samples / max(elapsed, 1e-9),
-        wavefront_iterations=iterations,
         dispatch=dispatch,
         epoch_log=log,
     )
@@ -553,11 +554,17 @@ def render_layer(scene: PreparedScene, profile: EvaluationProfile, resolution,
 
 def compose_on(device, layers: dict, operators) -> tuple[dict, dict]:
     """Run a composition stack on `device`: the (numpy) layers are uploaded
-    once, composed there and downloaded. Returns (numpy layers, errors)."""
+    once, composed there and downloaded, all inside one `echo.compose`
+    span. Returns (numpy layers, errors)."""
     from .composition import compose
 
-    composed, errors = compose(layers, operators, device=device)
-    return {k: v.cpu().numpy() for k, v in composed.items()}, errors
+    with diagnostics.span("echo.compose"):
+        composed, errors = compose(layers, operators, device=device)
+        out = {}
+        for k, v in composed.items():
+            with diagnostics.host_read("compose_download"):
+                out[k] = v.cpu().numpy()
+    return out, errors
 
 
 def render(scene: PreparedScene, profile: RenderProfile, progress=None,
@@ -566,8 +573,9 @@ def render(scene: PreparedScene, profile: RenderProfile, progress=None,
     the scene's device. Returns dict layer_name -> image, plus an info
     dict under '__info__' (reference ScheduledRender: evaluations then
     CompositionOperation); an operator that failed is skipped and named in
-    info["composition_errors"]. `progress` and `tile_progress` go to each
-    layer's `render_layer`."""
+    info["composition_errors"], and the stack's host seconds and counters,
+    downloads included, are info["composition"]. `progress` and
+    `tile_progress` go to each layer's `render_layer`."""
     layers, infos = {}, {}
     for ep in profile.evaluations:
         img, info = render_layer(scene, ep, profile.resolution, profile.seed, progress,
@@ -575,7 +583,10 @@ def render(scene: PreparedScene, profile: RenderProfile, progress=None,
         layers[ep.layer_name] = img
         infos[ep.layer_name] = info
     if profile.composition:
+        before, t0 = diagnostics.counts(), time.perf_counter()
         layers, errors = compose_on(scene.device, layers, profile.composition)
+        infos["composition"] = dict(seconds=time.perf_counter() - t0,
+                                    counters=diagnostics.counts_since(before))
         if errors:
             infos["composition_errors"] = errors
     layers["__info__"] = infos

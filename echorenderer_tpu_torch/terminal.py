@@ -206,11 +206,16 @@ def _render_once(args, prof, state, monitor):
     for layer, info in infos.items():
         if isinstance(info, dict) and "samples" in info:
             disp = info.get("dispatch") or {}
+            counters = info.get("counters") or {}
+            reads = sum(v for k, v in counters.items() if k.startswith("reads."))
+            launches = sum(v for k, v in counters.items() if k.startswith("launches."))
             print(
                 f"[{layer}] {info['samples']:,} samples in {info['seconds']:.2f}s "
                 f"({info['samples_per_second'] / 1e6:.2f} Mspps); dispatch: "
                 f"{disp.get('integrator')} ({disp.get('integrator_reason')}), rays: "
-                f"{disp.get('accelerator')}",
+                f"{disp.get('accelerator')}; {reads} host reads, {launches} kernel launches, "
+                f"{counters.get('rays.trace', 0):,} rays traced, "
+                f"{counters.get('rays.occlude', 0):,} shadow rays",
                 file=sys.stderr,
             )
             if state is not None:

@@ -13,10 +13,18 @@ in one transfer afterwards.
 Host-side, `ensure` mirrors Ensure.cs (active under `ECHO_DEBUG=1`), and
 `get_logger` gives the structured console logger the reference's Loggers
 provide.
+
+Tracing: `span` names a range of host work (`echo.*`) for a torch
+profiler, and costs one flag read while none records; `count` adds to the
+process's one registry of host counters (`counts`, `reset_counts`), which
+is always on and never reads the device; `host_read` does both for a
+device-to-host read.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import logging
 import os
 import sys
@@ -66,7 +74,10 @@ def set_log_level(level: str):
 
 def log_event(logger: logging.Logger, event: str, **fields):
     """Structured one-line event: `event key=value ...` (the reference's
-    EventRow-style reporting, kept grep-able)."""
+    EventRow-style reporting, kept grep-able). Formats nothing unless the
+    logger takes INFO."""
+    if not logger.isEnabledFor(logging.INFO):
+        return
     if fields:
         kv = " ".join(f"{k}={_fmt(v)}" for k, v in fields.items())
         logger.info("%s %s", event, kv)
@@ -78,6 +89,73 @@ def _fmt(v):
     if isinstance(v, float):
         return f"{v:.6g}"
     return v
+
+
+# ---------------------------------------------------------------------------
+# Tracing: spans on the profiler's clock, host counters
+# ---------------------------------------------------------------------------
+
+
+NO_SPAN = contextlib.nullcontext()  # what `span` returns while no profiler records
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str, args: str | None = None):
+    """A named range of host work. While a torch profiler records it is a
+    profiler range of that name, which kineto stamps on the clock of the
+    card's kernels and copies, so a trace reader can name the card's idle
+    gaps by the innermost span open in them; otherwise the shared no-op
+    `NO_SPAN`. `name` is a constant `echo.*` string that readers match on;
+    variable detail (a layer, a read site) goes in `args`, kept as the
+    range's "args" where the profiler records inputs. Spans nest on the
+    calling thread.
+
+    The range is an op's (`_RecordFunctionFast`), not a user annotation's
+    (`torch.profiler.record_function`): kineto mirrors each annotation as a
+    range on the device's timeline, which a reader that sorts device
+    events by type can take for a kernel (the card's torch reports no
+    activity type), and which drops `args` besides."""
+    if _profiler_enabled():
+        return _RecordFunctionFast(name, (), {"args": args}) if args else _RecordFunctionFast(name)
+    return NO_SPAN
+
+
+_counts: collections.Counter = collections.Counter()
+_counts_lock = threading.Lock()
+
+
+def count(name: str, k: int = 1):
+    """Add `k` to the host counter `name` (`reads.<site>`, `launches.<kernel
+    form>`, `rays.trace`, ...). Always on, with or without a profiler."""
+    with _counts_lock:
+        _counts[name] += k
+
+
+def counts() -> collections.Counter:
+    """A snapshot of every counter of the process, {name: count}; a name
+    that never moved reads 0."""
+    with _counts_lock:
+        return collections.Counter(_counts)
+
+
+def counts_since(before: dict) -> dict:
+    """The counters that moved since the snapshot `before`, by how much."""
+    now = counts()
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+def reset_counts():
+    """Zero every counter."""
+    with _counts_lock:
+        _counts.clear()
+
+
+def host_read(site: str):
+    """A device-to-host read at `site`: counts `reads.<site>` and returns
+    the `echo.read` span, with the site as its args, to hold the read."""
+    count("reads." + site)
+    return span("echo.read", site)
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from echorenderer_tpu_torch.processes.render import (
 from echorenderer_tpu_torch.processes.tiles import lane_order
 from echorenderer_tpu_torch.scene.prepare import prepare_scene
 from echorenderer_tpu_torch.utils import accumulator as acc_mod
+from echorenderer_tpu_torch.utils import diagnostics
 
 torch.set_num_threads(1)
 
@@ -238,9 +239,9 @@ def test_cuda_adaptive_megakernel_equals_wavefront(cuda, monkeypatch, name):
     assert tmk.supported(scene)
     prof = EvaluationProfile(samples_per_epoch=8, max_epoch=6, noise_threshold=0.1,
                              bounce_limit=8)
-    tmk.sample_frame_mega.launches = 0
+    diagnostics.reset_counts()
     img, info = render_layer(scene, prof, (160, 90), seed=4)
-    assert tmk.sample_frame_mega.launches == info["epochs"] > 1
+    assert diagnostics.counts()["launches.mega"] == info["epochs"] > 1
     monkeypatch.setattr(trender, "MAX_LANES", 0)  # one chain: the kernel's sample order
     monkeypatch.setattr(tmk, "supported", lambda s: False)
     assert tso.dispatch_summary(scene)["integrator"] == "wavefront"

@@ -41,6 +41,7 @@ from echorenderer_tpu_torch.ops import pallas_hier as ph
 from echorenderer_tpu_torch.ops.pallas_hier import HCHUNK
 from echorenderer_tpu_torch.ops import pallas_intersect as tpi
 from echorenderer_tpu_torch.scene.prepare import prepare_scene as tprepare
+from echorenderer_tpu_torch.utils import diagnostics
 
 from test_torch_intersect import _geometry_np, _rays
 
@@ -249,9 +250,10 @@ def test_cascade_and_capped_order_match_jax(grid, cascade, monkeypatch):
     g, _, _, tgeom, tsoa = grid
     _patch_cascade(monkeypatch, tsoa)
     targs, ref = cascade["trace"], cascade["ref"]
-    bt.reset_stats()
+    diagnostics.reset_counts()
+    bt.STATS["misses"] = 0
     got = bt.trace_binned(tgeom, tsoa, *targs)
-    assert bt.STATS["rounds"] > 3 and int(bt.STATS["misses"]) == 0
+    assert diagnostics.counts()["binned.rounds"] > 3 and int(bt.STATS["misses"]) == 0
     num_tris = g["tri_v0"].shape[0]
     _assert_hits_equal(got, np.asarray(ref.prim), np.asarray(ref.t), np.asarray(ref.uv), num_tris)
     assert (got.prim.numpy() >= 0).sum() > CASCADE_N // 4
@@ -264,9 +266,9 @@ def test_cascade_occlude_matches_jax(grid, cascade, monkeypatch):
     _, _, _, tgeom, tsoa = grid
     _patch_cascade(monkeypatch, tsoa)
     targs = cascade["occlude"]
-    bt.reset_stats()
+    diagnostics.reset_counts()
     blocked = bt.occlude_binned(tgeom, tsoa, *targs)
-    assert bt.STATS["rounds"] > 3
+    assert diagnostics.counts()["binned.rounds"] > 3
     np.testing.assert_array_equal(blocked.numpy(), cascade["blocked"])
     assert torch.equal(blocked, ph.occlude_hier(tgeom, tsoa, *targs))
     assert 0 < int(blocked.sum()) < CASCADE_N
@@ -497,14 +499,15 @@ def test_wavefront_first_wave_is_coherent(large, monkeypatch):
 
     monkeypatch.setattr(ph, "_walk", counted)
     calls = _spy(monkeypatch)
-    bt.reset_stats()
+    diagnostics.reset_counts()
     s, q, stats = _frame(large)
     iters = stats["Loop/Iterations"]
     assert iters >= 3 and calls[:2] == [("trace", True), ("occlude", True)]
     assert calls[2:] == [("trace", False), ("occlude", False)] * (iters - 1)
-    assert len(walks) == 2 and bt.STATS["calls"] == 2 * (iters - 1)
+    assert len(walks) == 2 and diagnostics.counts()["binned.calls"] == 2 * (iters - 1)
     assert bool(torch.isfinite(s).all()) and float(s.sum()) > 0
-    assert bt.LAUNCHES == dict(setup=0, select=0, seg=0, seg_exact=0)  # CPU: no kernel
+    assert [diagnostics.counts()[f"launches.binned_{k}"]  # CPU: no kernel
+            for k in ("setup", "select", "seg", "seg_exact")] == [0, 0, 0, 0]
 
 
 def test_peel_is_bitwise_invisible_below_threshold(large, monkeypatch):

@@ -40,6 +40,7 @@ from echorenderer_tpu_torch.ops import binned_trace as bt
 from echorenderer_tpu_torch.ops import pallas_hier as ph
 from echorenderer_tpu_torch.ops import pallas_intersect as tpi
 from echorenderer_tpu_torch.ops.pallas_hier import HCHUNK
+from echorenderer_tpu_torch.utils import diagnostics
 
 from test_torch_binned import SPHERE_RTOL, _both_grid, _grid_soup, _jax
 from test_torch_intersect import _rays
@@ -247,9 +248,9 @@ def test_cuda_exact_matches_plain(cuda):
     rec = torch.stack([rays[0], rays[1], rays[2], rays[3], rays[4], rays[5], rays[6],
                        ph._sorted_ignore(soa, torch.as_tensor(ignore, device=cuda)).float()],
                       1).contiguous()
-    bt.reset_stats()
+    diagnostics.reset_counts()
     _held_to_plain_and_keyed(rec, chunk, soa.prim_chunks, (True, True))
-    assert bt.LAUNCHES["seg_exact"] == 1
+    assert diagnostics.counts()["launches.binned_seg_exact"] == 1
 
 
 @pytest.mark.cuda
@@ -271,7 +272,7 @@ def test_cuda_exact_instanced_matches_plain(cuda):
     rec = torch.as_tensor(np.concatenate([o, d, np.minimum(t_max, bt._INF)[:, None],
                                           ign[:, None], ign_inst[:, None]], 1),
                           device=cuda).contiguous()
-    bt.reset_stats()
+    diagnostics.reset_counts()
     _held_to_plain_and_keyed(rec, g, soa.prim_chunks, (True, True),
                              (soa.binned_g2c, soa.binned_g2i, soa.inst_f32))
-    assert bt.LAUNCHES_INSTANCED["seg_exact"] == 1
+    assert diagnostics.counts()["launches.binned_seg_exact_instanced"] == 1

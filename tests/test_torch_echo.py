@@ -12,6 +12,7 @@ and the CLI (terminal.py) against the JAX package's, in one process.
   it writes read back bitwise equal to an in-process render.
 """
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -339,6 +340,11 @@ def test_cli_renders_echo_on_cpu(tmp_path, capsys):
     err = capsys.readouterr().err
     assert "dispatch: wavefront (not on CUDA)" in err and "no layer 'nope'" in err
     assert "SAH builds:" in err and "saved main" in err
+    # the layer line's counters: host reads, launches and the rays handed to the traversal
+    line = next(ln for ln in err.splitlines() if ln.startswith("[main] "))
+    traced, shadow = (int(m.replace(",", "")) for m in
+                      re.search(r"([\d,]+) rays traced, ([\d,]+) shadow rays", line).groups())
+    assert "host reads" in line and traced >= 12 * 8 and shadow > 0
     prof = load_profile(build_argparser().parse_args(["-p", str(p), "-r", "12x8"]))
     out = render(tprepare(prof.scene, prof.camera_name, device="cpu"), prof)
     assert images.load(exr).tobytes() == out["main"].tobytes()

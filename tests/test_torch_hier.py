@@ -37,6 +37,7 @@ from echorenderer_tpu_torch.ops import pallas_hier as ph
 from echorenderer_tpu_torch.ops import pallas_intersect as tpi
 from echorenderer_tpu_torch.scene.convert import from_jax_arrays, to_arrays
 from echorenderer_tpu_torch.scene.prepare import prepare_scene as tprepare
+from echorenderer_tpu_torch.utils import diagnostics
 
 from test_torch_intersect import _geometry_np, _rays
 
@@ -343,7 +344,6 @@ def test_slice_matches_jax(grid_pair, monkeypatch):
 
     from echorenderer_tpu.evaluation import scene_ops as jscene_ops
     from echorenderer_tpu.evaluation.wavefront import sample_frame_wavefront as jwavefront
-    from echorenderer_tpu_torch.ops import binned_trace as bt
     from test_torch_prepare import flatten_jax
 
     jscene, _ = grid_pair
@@ -359,7 +359,6 @@ def test_slice_matches_jax(grid_pair, monkeypatch):
     a, a2 = np.asarray(a), np.asarray(a2)
     assert a.sum() > 0
     args = (torch.as_tensor(pid.astype(np.int64)), torch.as_tensor(pxy), res, 11, 0, 2)
-    launches = ph.hier_trace.launches, ph.hier_occlude.launches
     calls = {"hier": 0}
     walk = ph._walk
 
@@ -375,16 +374,19 @@ def test_slice_matches_jax(grid_pair, monkeypatch):
     monkeypatch.setattr(ph, "_walk", counted)
     monkeypatch.setattr(tscene_ops, "HIER_TRACE_MIN", 0)
     assert tscene_ops.dispatch_summary(tscene)["accelerator"] == "binned"
-    bt.reset_stats()
+    diagnostics.reset_counts()
+    launches = 0, 0
     s, s2 = twave.sample_frame_wavefront(tscene, *args, **kw)
-    assert calls["hier"] == 2 and bt.STATS["calls"] > 0  # the first wave, then binned
+    # the first wave, then binned
+    assert calls["hier"] == 2 and diagnostics.counts()["binned.calls"] > 0
     close_to_jax(s.numpy(), s2.numpy())
 
     with tscene_ops.walk_only():
         assert tscene_ops.dispatch_summary(tscene)["accelerator"] == "hier-packet"
         b, b2 = twave.sample_frame_wavefront(tscene, *args, **kw)
     assert calls["hier"] > 2
-    assert (ph.hier_trace.launches, ph.hier_occlude.launches) == launches  # CPU: no kernel
+    assert (diagnostics.counts()["launches.walk_trace"],  # CPU: no kernel
+            diagnostics.counts()["launches.walk_occlude"]) == launches
     b, b2 = b.numpy(), b2.numpy()
     close_to_jax(b, b2)
 

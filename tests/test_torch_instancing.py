@@ -46,6 +46,7 @@ from echorenderer_tpu_torch.ops import pallas_intersect as tpi
 from echorenderer_tpu_torch.ops.intersect import Hit
 from echorenderer_tpu_torch.scene.convert import from_jax_arrays, to_arrays
 from echorenderer_tpu_torch.scene.prepare import prepare_scene as tprepare
+from echorenderer_tpu_torch.utils import diagnostics
 
 
 torch.set_num_threads(1)
@@ -582,7 +583,7 @@ def test_cuda_walk_matches_plain(cuda, count):
         assert torch.equal(k, p), name
     assert torch.equal(ph.hier_occlude(rays, sig, soa, sii),
                        ph.hier_occlude_plain(rays, sig, soa, sii))
-    assert ph.hier_trace.launches_instanced > 0
+    assert diagnostics.counts()["launches.walk_trace_instanced"] > 0
 
 
 def _placed_twice(m):

@@ -29,6 +29,7 @@ from echorenderer_tpu_torch.ops import pallas_intersect as tpi
 from echorenderer_tpu_torch.ops.intersect import Hit
 from echorenderer_tpu_torch.scene.convert import from_jax_arrays
 from echorenderer_tpu_torch.scene.prepare import prepare_scene as tprepare
+from echorenderer_tpu_torch.utils import diagnostics
 
 from test_torch_instancing import (_assert_hits_close, _jax, _jsc, _mixed, _prep, _scene_rays,
                                    _targs, cuda, mixed)
@@ -160,14 +161,14 @@ def test_binned_dispatch_renders(binned_case, monkeypatch):
 
     tscene = binned_case["tscene"]
     assert tscene_ops.dispatch_summary(tscene)["accelerator"] == "binned"
-    bt.reset_stats()
+    diagnostics.reset_counts()
     s, q = _sample_frame(tscene, "path", (8, 8), 0, 0, 2, 3, 2.5)
-    assert bt.STATS["calls"] > 0
+    assert diagnostics.counts()["binned.calls"] > 0
     monkeypatch.setattr(tscene_ops, "_use_binned_instanced", lambda scene: False)
     assert tscene_ops.dispatch_summary(tscene)["accelerator"] == "hier-packet"
-    bt.reset_stats()
+    diagnostics.reset_counts()
     s2, q2 = _sample_frame(tscene, "path", (8, 8), 0, 0, 2, 3, 2.5)
-    assert bt.STATS["calls"] == 0
+    assert diagnostics.counts()["binned.calls"] == 0
     assert bool(torch.isfinite(s).all()) and float(s.sum()) > 0
     # the recovery re-tests the winner as the walk does: the sums differ
     # only on the pixels of band-tie rays
@@ -191,4 +192,4 @@ def test_cuda_seg_matches_plain(cuda):
     got = bt.seg_keys(rec, g, soa.prim_chunks, True, True, inst=inst)
     want = bt.seg_keys_plain(rec, g, soa.prim_chunks, True, True, inst)
     assert torch.equal(got, want) and int((want != bt._INT_INF).sum()) > 1000
-    assert bt.LAUNCHES_INSTANCED["seg"] > 0
+    assert diagnostics.counts()["launches.binned_seg_instanced"] > 0

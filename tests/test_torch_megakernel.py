@@ -27,6 +27,7 @@ from echorenderer_tpu_torch.ops import megakernel as tmk
 from echorenderer_tpu_torch.processes.render import _sample_frame
 from echorenderer_tpu_torch.scene import OrthographicCamera
 from echorenderer_tpu_torch.scene.prepare import prepare_scene as tprepare
+from echorenderer_tpu_torch.utils import diagnostics
 
 torch.set_num_threads(1)
 
@@ -164,10 +165,10 @@ def test_mega_matches_jax_mega(same_intersector, name, seed):
     kw = dict(bounce_limit=3, survivability=2.5)
     a, a2 = jmk.sample_frame_mega(jscene, jnp.asarray(pid), jnp.asarray(pxy), res, seed,
                                   jnp.uint32(0), 2, **kw)
-    before = tmk.sample_frame_mega.launches
+    before = diagnostics.counts()["launches.mega"]
     b, b2 = tmk.sample_frame_mega(tscene, torch.as_tensor(pid.astype(np.int64)),
                                   torch.as_tensor(pxy), res, seed, 0, 2, **kw)
-    assert tmk.sample_frame_mega.launches == before  # CPU: the plain version
+    assert diagnostics.counts()["launches.mega"] == before  # CPU: the plain version
     a, a2, b, b2 = np.asarray(a), np.asarray(a2), b.numpy(), b2.numpy()
     assert a.sum() > 0
     np.testing.assert_allclose(b, a, atol=2e-3, rtol=2e-3)
@@ -181,13 +182,13 @@ def test_cpu_dispatch_takes_the_wavefront():
     summary = dispatch_summary(scene)
     assert (summary["integrator"], summary["integrator_reason"]) == ("wavefront", "not on CUDA")
     pid, pxy, res = _lanes(256, (16, 16))
-    before = tmk.sample_frame_mega.launches
+    before = diagnostics.counts()["launches.mega"]
     a, _ = sample_frame_wavefront(scene, torch.as_tensor(pid.astype(np.int64)),
                                   torch.as_tensor(pxy), res, 3, 0, 2, bounce_limit=3)
     b, _ = tmk.sample_frame_mega_plain(scene, torch.as_tensor(pid.astype(np.int64)),
                                        torch.as_tensor(pxy), res, 3, 0, 2, bounce_limit=3)
     s, _ = _sample_frame(scene, "path", res, 3, 0, 2, 3, 2.5)
-    assert tmk.sample_frame_mega.launches == before
+    assert diagnostics.counts()["launches.mega"] == before
     assert torch.equal(a, b) and a.sum() > 0 and s.shape == (256, 3)
 
 
@@ -247,7 +248,8 @@ def test_cuda_kernel_matches_plain(cuda, name):
     scene = tprepare(ENVELOPE[name](tscenes), device=cuda)
     pid, pxy, res = _card_lanes(cuda)
     kw = dict(bounce_limit=3, survivability=2.5)
-    counts = lambda: (tmk.sample_frame_mega.launches, tmk.sample_frame_mega.launches_textured)
+    counts = lambda: (diagnostics.counts()["launches.mega"],
+                      diagnostics.counts()["launches.mega_textured"])
     before = counts()
     a, a2 = tmk.sample_frame_mega(scene, pid, pxy, res, 11, 0, 2, **kw)
     b, b2 = tmk.sample_frame_mega_plain(scene, pid, pxy, res, 11, 0, 2, **kw)

@@ -33,6 +33,7 @@ from echorenderer_tpu_torch.ops import megakernel as tmk
 from echorenderer_tpu_torch.ops import pallas_hier as ph
 from echorenderer_tpu_torch.scene.prepare import PreparedScene
 from echorenderer_tpu_torch.scene.prepare import prepare_scene as tprepare
+from echorenderer_tpu_torch.utils import diagnostics
 
 torch.set_num_threads(1)
 
@@ -205,9 +206,9 @@ def test_sums_match_jax(field_pair, jax_sums, monkeypatch):
         return walk(*a, **k)
 
     monkeypatch.setattr(ph, "_walk", counted)
-    before = tmk.sample_frame_mega.launches_hier
+    before = diagnostics.counts()["launches.mega_hier"]
     b, b2 = tmk.sample_frame_mega(tscene, *args, hier=True, **kw)
-    assert tmk.sample_frame_mega.launches_hier == before  # CPU: the plain version
+    assert diagnostics.counts()["launches.mega_hier"] == before  # CPU: the plain version
     assert walks["n"] > 0
     calls = walks["n"]
     c, c2 = tmk.sample_frame_mega(tscene, *args, **kw)  # the dense plain version
@@ -356,11 +357,11 @@ def test_cuda_hier_matches_plain(cuda):
     pid = torch.as_tensor(pid.astype(np.int64), device=cuda)
     pxy = torch.as_tensor(pxy, device=cuda)
     kw = dict(bounce_limit=4, survivability=2.5)
-    before = tmk.sample_frame_mega.launches_hier
+    before = diagnostics.counts()["launches.mega_hier"]
     a, a2 = tmk.sample_frame_mega(scene, pid, pxy, res, 11, 0, 2, hier=True, **kw)
     b, b2 = tmk.sample_frame_mega_plain(scene, pid, pxy, res, 11, 0, 2, hier=True, **kw)
     torch.cuda.synchronize()
-    assert tmk.sample_frame_mega.launches_hier == before + 1
+    assert diagnostics.counts()["launches.mega_hier"] == before + 1
     assert bool(torch.isfinite(a).all()) and float(a.sum()) > 0
     assert torch.equal(a, b) and torch.equal(a2, b2)
 

@@ -19,7 +19,7 @@ from echorenderer_tpu_torch.evaluation.wavefront import run_wavefront
 from echorenderer_tpu_torch.models import scenes
 from echorenderer_tpu_torch.processes import render
 from echorenderer_tpu_torch.scene.prepare import prepare_scene
-from echorenderer_tpu_torch.utils import vec
+from echorenderer_tpu_torch.utils import diagnostics, vec
 
 torch.set_num_threads(1)
 
@@ -141,7 +141,6 @@ def test_binned_wavefront_keeps_fixed_op_order(monkeypatch):
     the rest through the binned traversal (the threshold lowered so a
     17,000-triangle scene takes it)."""
     from echorenderer_tpu_torch.evaluation import scene_ops
-    from echorenderer_tpu_torch.ops import binned_trace
 
     scene = prepare_scene(scenes.sphere_grid(17_000), device="cpu")
     monkeypatch.setattr(scene_ops, "HIER_TRACE_MIN", 0)
@@ -149,11 +148,11 @@ def test_binned_wavefront_keeps_fixed_op_order(monkeypatch):
     res = (8, 8)
     pid = torch.arange(res[0] * res[1])
     pxy = torch.stack([pid % res[0], pid // res[0]], dim=-1).to(torch.int32)
-    binned_trace.reset_stats()
+    diagnostics.reset_counts()
     watch = OrderWatch()
     with watch:
         s_sum, _ = run_wavefront(scene, pid, pxy, res, 5, 0, 2, bounce_limit=4)
-    assert float(s_sum.sum()) > 0.0 and binned_trace.STATS["calls"] > 0
+    assert float(s_sum.sum()) > 0.0 and diagnostics.counts()["binned.calls"] > 0
     assert watch.calls == [], f"order-dependent float ops on the path: {sorted(set(watch.calls))}"
 
 

@@ -152,8 +152,10 @@ def test_port_runs_without_jax():
         "assert g.hier_soa is not None\n"
         "scene_ops.HIER_TRACE_MIN = 0\n"
         "s, _ = _sample_frame(g, 'path', (4, 4), 0, 0, 1, 2, 2.5)\n"
-        "assert bool(torch.isfinite(s).all()) and pallas_hier.hier_trace.launches == 0\n"
-        "assert binned_trace.STATS['calls'] > 0 and binned_trace.LAUNCHES['seg'] == 0\n"
+        "from echorenderer_tpu_torch.utils import diagnostics\n"
+        "n = diagnostics.counts()\n"
+        "assert bool(torch.isfinite(s).all()) and n.get('launches.walk_trace', 0) == 0\n"
+        "assert n.get('binned.calls', 0) > 0 and n.get('launches.binned_seg', 0) == 0\n"
         "s, _ = _sample_frame(prepare_scene(scenes.cornell_box(), device='cpu'), 'path', (8, 6),\n"
         "                     0, 0, 2, 3, 2.5)\n"
         "assert bool(torch.isfinite(s).all())\n"

@@ -50,6 +50,7 @@ import pytest
 import torch
 
 from echorenderer_tpu_torch.benchmarks import plucker_micro as pm
+from echorenderer_tpu_torch.utils import diagnostics
 
 torch.set_num_threads(1)
 
@@ -255,10 +256,10 @@ def test_run_keys_and_agreement():
     """run_keys launches nothing on the CPU and gives each frame's keys;
     agreement counts like the JAX script."""
     prims, cols = pm.micro_scene(2048)
-    pm.reset_launches()
+    diagnostics.reset_counts()
     keys, inputs = pm.run_keys(prims, cols)
     assert set(keys) == {"mt"} | {f"{f} {p}" for f in pm.FRAMES for p in pm.PRECISIONS}
-    assert not any(pm.LAUNCHES.values())
+    assert not any(k.startswith("launches.plucker_") for k in diagnostics.counts())
     local, center = pm.local_frame(prims, cols)
     assert torch.equal(inputs["chunk-local"][1], local)
     assert torch.equal(keys["chunk-local highest"],
@@ -320,9 +321,11 @@ def test_cuda_kernels_match_plain(cuda):
     contract, over 100,000 rays (not a multiple of any tile) in both
     frames."""
     prims, cols = pm.micro_scene(100_000, device=cuda)
-    pm.reset_launches()
+    diagnostics.reset_counts()
     keys, inputs = pm.run_keys(prims, cols)
-    assert pm.LAUNCHES == dict(mt=1, plk_highest=2, plk_default=2)
+    assert {k: v for k, v in diagnostics.counts().items() if k.startswith("launches.plucker_")} \
+        == {"launches.plucker_mt": 1, "launches.plucker_plk_highest": 2,
+            "launches.plucker_plk_default": 2}
     assert torch.equal(keys["mt"], pm.keys_mt_plain(prims, cols))
     assert int((keys["mt"] != pm._INT_INF).sum()) > 10_000
     for frame, (plk, cc) in inputs.items():

@@ -39,6 +39,7 @@ from echorenderer_tpu_torch.ops import binned_trace as bt
 from echorenderer_tpu_torch.ops import pallas_hier as ph
 from echorenderer_tpu_torch.ops import pallas_intersect as tpi
 from echorenderer_tpu_torch.ops.pallas_hier import HCHUNK
+from echorenderer_tpu_torch.utils import diagnostics
 
 import test_torch_binned as tb
 import test_torch_binned_exact as tbe
@@ -514,17 +515,19 @@ def _held_to_plain(rec, chunk, rows, kinds, inst):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_cuda_runs_match_plain_flat(cuda, kind):
-    bt.reset_stats()
+    diagnostics.reset_counts()
     keys = _held_to_plain(*_on(cuda, _flat_case())[:3], KINDS[kind], None)
-    assert _hits_of(keys) > 400 and bt.LAUNCHES["seg"] == bt.LAUNCHES["seg_exact"] == 1
+    assert _hits_of(keys) > 400
+    n = diagnostics.counts()
+    assert n["launches.binned_seg"] == n["launches.binned_seg_exact"] == 1
 
 
 @pytest.mark.cuda
 def test_cuda_runs_match_plain_instanced(cuda):
     rec, chunk, rows, inst = _on(cuda, _instanced_case())
-    bt.reset_stats()
+    diagnostics.reset_counts()
     keys = _held_to_plain(rec, chunk, rows, (True, True), inst)
-    assert _hits_of(keys) > 400 and bt.LAUNCHES_INSTANCED["seg"] == 1
+    assert _hits_of(keys) > 400 and diagnostics.counts()["launches.binned_seg_instanced"] == 1
 
 
 @pytest.mark.cuda
@@ -539,7 +542,7 @@ def test_cuda_runs_shifted_and_dead(cuda):
     dead[:, 6] = torch.linspace(-1.0, 0.0, 77, device=cuda)
     _held_to_plain(dead, torch.full((77,), N_FLAT, dtype=torch.int32, device=cuda), rows,
                    (True, True), None)
-    bt.reset_stats()
+    diagnostics.reset_counts()
     empty = bt.seg_keys(torch.zeros((0, 8), device=cuda),
                         torch.zeros(0, dtype=torch.int32, device=cuda), rows, True, True)
-    assert empty.shape == (0,) and bt.LAUNCHES["seg"] == 0
+    assert empty.shape == (0,) and diagnostics.counts()["launches.binned_seg"] == 0

@@ -76,7 +76,7 @@ def main() -> int:
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
     from echorenderer_tpu_torch.models import scenes
-    from echorenderer_tpu_torch.ops import binned_trace
+    from echorenderer_tpu_torch.utils import diagnostics
     from echorenderer_tpu_torch.processes.render import (EvaluationProfile, _sample_frame,
                                                          render_layer)
     from echorenderer_tpu_torch.scene.prepare import prepare_scene
@@ -126,16 +126,16 @@ def main() -> int:
         f"{w:.4f} s = {samples / w / 1e6:.3f} Mspps" for w in walls))
 
     torch.cuda.synchronize()
-    binned_trace.reset_stats()
+    diagnostics.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
         epoch()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report(p, wall, a.top, "epoch")
-    st = binned_trace.STATS
-    print(f"[profile] binned traversal in the profiled epoch: {st['calls']} calls, "
-          f"{st['rounds']} rounds, {st['syncs']} host reads")
+    n = diagnostics.counts()
+    print(f"[profile] binned traversal in the profiled epoch: {n.get('binned.calls', 0)} calls, "
+          f"{n.get('binned.rounds', 0)} rounds, {binned_reads(n)} host reads")
 
     # host pieces of every epoch, timed alone (median of 5)
     from echorenderer_tpu_torch.ops import megakernel
@@ -158,6 +158,11 @@ def main() -> int:
           f"{host_ms(lambda: lane_order(res)):.3f}{tables}"
           f", image download {host_ms(lambda: image.cpu().numpy()):.3f}")
     return 0
+
+
+def binned_reads(counts: dict) -> int:
+    """The binned traversal's host reads among `diagnostics` counters."""
+    return sum(v for k, v in counts.items() if k.startswith("reads.binned_"))
 
 
 def report(p, wall: float, top: int, what: str) -> None:
@@ -203,7 +208,7 @@ def profile_adaptive(a, res, smi) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from echorenderer_tpu_torch.models import scenes
-    from echorenderer_tpu_torch.ops import binned_trace
+    from echorenderer_tpu_torch.utils import diagnostics
     from echorenderer_tpu_torch.processes.render import (EvaluationProfile, _sample_frame,
                                                          render_layer)
     from echorenderer_tpu_torch.scene.prepare import prepare_scene
@@ -222,7 +227,7 @@ def profile_adaptive(a, res, smi) -> int:
     def run(label):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        binned_trace.reset_stats()
+        diagnostics.reset_counts()
         _, info = render_layer(scene, prof, res)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         d = info["dispatch"]
@@ -233,8 +238,9 @@ def profile_adaptive(a, res, smi) -> int:
               f"samples, {info['samples'] / n:.3f} spp mean, "
               f"{info['samples_per_second'] / 1e6:.4f} Mspps effective, peak {peak:.2f} GiB; "
               f"{info['wavefront_iterations']} wavefront iterations, binned "
-              f"{binned_trace.STATS['calls']} calls, {binned_trace.STATS['rounds']} rounds, "
-              f"{binned_trace.STATS['syncs']} host reads")
+              f"{info['counters'].get('binned.calls', 0)} calls, "
+              f"{info['counters'].get('binned.rounds', 0)} rounds, "
+              f"{binned_reads(info['counters'])} host reads")
         for e in info["epoch_log"]:
             print(f"[profile]   epoch {e['epoch']}: {e['active']} pixels, {e['seconds']:.4f} s = "
                   f"{e['active'] * 8 / e['seconds'] / 1e6:.4f} Mspps")
