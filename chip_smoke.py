@@ -73,7 +73,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        coherent call (the first wave) of the slice's first timed program
        below, recorded; the plain versions on a strided subset of 65,536
        rays of each call: ids, flags and t/u/v bitwise equal;
-     - the binned traversal's kernels setup_rank / select / seg_keys on one
+     - the binned traversal's kernels setup_rank / refill / select / seg_keys on one
        trace_binned and one occlude_binned call of the same 2^20 random
        rays and on every binned call of that program: every launch against
        its plain version on the same inputs, bitwise; then each call against
@@ -82,12 +82,14 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        occlude flags identical; per kernel the mean ms per launch (the sum
        over the launches over their count, as the bound, which counts only
        the bytes each launch needs: the records of live pairs, the new keys
-       of refilling rays) and the median per call, the plain version's,
+       of refilling rays, the order keys and super boxes a refill reads) and
+       the median per call, the plain version's,
        launches, rounds and host reads per call, and torch.sort of setup's
        key matrix as its yardstick (the ranking step only) and torch.topk of
        select's purged and merged buffer as select's (the pop step alone,
-       without the distinct rule); setup's and select's launches also by
-       shape (launches, rays, mean ms and bound, launches x (ms - bound));
+       without the distinct rule); setup's, refill's (ksup, capped or not)
+       and select's launches also by shape (launches, rays, mean ms and
+       bound, launches x (ms - bound));
        the seg
        launches bucketed by live pairs (< 2^14, < 2^18, the rest), each
        bucket's launches, share of the seg time, mean ms and share of its
@@ -203,7 +205,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
      ~2,000 global chunks, a ground plane, an ambient light) prepared with
      instancing="tlas"; the instanced walk (hier_trace / hier_occlude on
      instanced tables) against its plain version and the instanced binned
-     traversal (every setup / select / seg launch against its plain
+     traversal (every setup / refill / select / seg launch against its plain
      version, bitwise) on 2^20 random rays with per-instance ignores, then
      binned against the walk (same hits, instances and flags, band ties
      counted, 0 recovery misses); bench.py's large-scene traffic
@@ -384,10 +386,12 @@ HIER_SITE = "echorenderer_tpu/ops/pallas_hier.py:498"
 BINNED_SOURCE = "echorenderer_tpu_torch/csrc/binned.cu"
 BINNED_SITES = dict(setup="echorenderer_tpu/ops/binned_trace.py:552",
                     select="echorenderer_tpu/ops/binned_trace.py:402",
-                    seg="echorenderer_tpu/ops/binned_trace.py:117")
-# what BinnedCheck records: the three kernels, the seg kernel's instanced
+                    seg="echorenderer_tpu/ops/binned_trace.py:117",
+                    refill="echorenderer_tpu/ops/binned_trace.py:1143")
+# what BinnedCheck records: the four kernels, the seg kernel's instanced
 # form, and its exact form (seg_hits) flat and instanced
-BINNED_KINDS = ("setup", "select", "seg", "seg_instanced", "seg_exact", "seg_exact_instanced")
+BINNED_KINDS = ("setup", "refill", "select", "seg", "seg_instanced", "seg_exact",
+                "seg_exact_instanced")
 # float ops of one ray-box slab test (6 subtractions, 6 products, 10 mins
 # and maxes; compares not counted), counted from csrc/intersect.cuh
 FLOPS_SLAB = 22
@@ -681,6 +685,39 @@ def setup_work(n: int, s_count: int, s_out: int) -> tuple[float, int]:
     return float(n) * s_count * FLOPS_SLAB, n * 28 + s_out * n * 4 + s_count * 24
 
 
+def refill_work(sup_ord, cursor, best_t, do_refill, base, ksup: int,
+                sbits: int) -> tuple[float, int]:
+    """(least float ops, bytes) of a refill launch: the slab test of each
+    chunk of every super a refilling ray examines; per ray the flag and the
+    cursor read, its ksup * SUP keys, cursor and next super written; per
+    refilling ray its 6 ray columns and best_t, per other ray its next super
+    read; the order keys the refilling rays read; each examined super's
+    boxes once."""
+    import torch
+
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+
+    w_ord, n = sup_ord.shape
+    capped = w_ord < base.shape[0]
+    reads, examined, supers = 0, 0, []
+    for j in range(ksup + 1):
+        p = cursor + j
+        inside = do_refill & (p < w_ord)
+        reads += int(inside.sum()) + (int((do_refill & ~inside).sum()) if capped and j == ksup
+                                      else 0)
+        if j == ksup:
+            break
+        key = sup_ord.gather(0, torch.clamp(p, max=w_ord - 1).long()[None])[0]
+        ok = inside & (key != bt._INT_INF) & (bt._dec_t(key, sbits) < best_t)
+        examined += int(ok.sum())
+        supers.append((key & ((1 << sbits) - 1))[ok])
+    distinct = int(torch.unique(torch.cat(supers)).numel()) if supers else 0
+    refills = int(do_refill.sum())
+    return (float(examined) * bt.SUP * FLOPS_SLAB,
+            n * (1 + 8 + 4 + ksup * bt.SUP * 4) + refills * 28 + (n - refills) * 4 + reads * 4
+            + distinct * 6 * bt.SUP * 4)
+
+
 def select_work(w: int, n: int, k: int, refills: int) -> tuple[float, int]:
     """(least float ops, bytes) of a select launch: no float work; the buffer
     read and written, the new keys of refilling rays only, the pops, and per
@@ -927,21 +964,22 @@ LIBRARY_CALLS = dict(setup="torch.sort of the same key matrix (the ranking step 
 
 
 def shape_groups(kind, rows) -> list:
-    """[(name, rows, summed ms, summed bound)] of setup or select rows by
-    their shape; [] for another kind."""
+    """[(name, rows, summed ms, summed bound)] of setup, refill or select
+    rows by their shape; [] for another kind."""
     groups = {}
     for r in rows:
-        if kind in ("setup", "select"):
+        if kind in ("setup", "refill", "select"):
             groups.setdefault(r["shape"], []).append(r)
-    return [((f"{a} supers s_out {b}" if kind == "setup" else f"w {a} k {b}"), rs,
-             sum(r["ms"] for r in rs), sum(r["bound"][0] for r in rs))
+    names = dict(setup="{} supers s_out {}", refill="ksup {} order {}", select="w {} k {}")
+    return [(names[kind].format(a, b), rs, sum(r["ms"] for r in rs),
+             sum(r["bound"][0] for r in rs))
             for (a, b), rs in sorted(groups.items())]
 
 
 class BinnedCheck:
-    """While open, every launch of the binned traversal's three kernels
-    (ops/binned_trace.setup_rank / select / seg_keys) first runs the plain
-    version on the same inputs (on a copy of select's in-place buffer), then
+    """While open, every launch of the binned traversal's four kernels
+    (ops/binned_trace.setup_rank / refill / select / seg_keys) first runs the
+    plain version on the same inputs (on a copy of select's in-place buffer), then
     the kernel, and the integer outputs must be identical; `max_err` keeps
     the largest |kernel - plain| seen per kernel. Every seg_keys launch also
     runs the seg kernel's exact form (`seg_hits`, kind "seg_exact") on the
@@ -967,7 +1005,8 @@ class BinnedCheck:
         from echorenderer_tpu_torch.ops import binned_trace as bt
         from echorenderer_tpu_torch.ops import pallas_hier as ph
 
-        self._saved = setup_k, select_k, seg_k = bt.setup_rank, bt.select, bt.seg_keys
+        self._saved = setup_k, refill_k, select_k, seg_k = (bt.setup_rank, bt.refill, bt.select,
+                                                            bt.seg_keys)
 
         def record(kind, k_ms, p_ms, flops, nbytes, **extra):
             self.rows[kind].append(dict(call=count_of("binned.calls"), ms=k_ms, plain_ms=p_ms,
@@ -997,6 +1036,19 @@ class BinnedCheck:
             record("setup", k_ms, p_ms, *setup_work(n, s, got.shape[0]), library_ms=lib,
                    shape=(s, got.shape[0]), n=n)
             SHAPE_LAUNCHES.append(("setup", (s, got.shape[0]), self.rows["setup"][-1]))
+            return got
+
+        def refill(rays, sup_ord, cursor, best_t, do_refill, next_sup, base, ksup, sbits, cbits):
+            args = (rays, sup_ord, cursor, best_t, do_refill, next_sup, base, ksup, sbits, cbits)
+            want, p_ms = timed(lambda: bt.refill_plain(*args))
+            got, k_ms = timed(lambda: refill_k(*args))
+            differ("refill", got, want)
+            n = rays.shape[1]
+            capped = sup_ord.shape[0] < base.shape[0]
+            record("refill", k_ms, p_ms,
+                   *refill_work(sup_ord, cursor, best_t, do_refill, base, ksup, sbits), rays=n,
+                   refills=int(do_refill.sum()), shape=(ksup, "capped" if capped else "uncapped"),
+                   n=n)
             return got
 
         def select(cand, new_keys, best_t, do_refill, k, cbits):
@@ -1070,15 +1122,15 @@ class BinnedCheck:
             SEG_LAUNCHES.append((ekind, (bool(has_tri), bool(has_sph)), self.rows[ekind][-1]))
             return got
 
-        bt.setup_rank, bt.select, bt.seg_keys = setup, select, seg
+        bt.setup_rank, bt.refill, bt.select, bt.seg_keys = setup, refill, select, seg
         return self
 
     def __exit__(self, *exc):
         from echorenderer_tpu_torch.ops import binned_trace as bt
 
-        bt.setup_rank, bt.select, bt.seg_keys = self._saved
+        bt.setup_rank, bt.refill, bt.select, bt.seg_keys = self._saved
 
-    def summary(self, label, kinds=("setup", "select", "seg", "seg_exact")):
+    def summary(self, label, kinds=("setup", "refill", "select", "seg", "seg_exact")):
         """Log per kernel of `kinds`: launches checked, the mean kernel,
         plain and bound ms per launch (each a sum over the launches over
         their count, so the bound share is sum(bound) / sum(ms)), the median
@@ -2123,7 +2175,8 @@ def instanced_phase(dev, rs, smi):
     log(f"[instanced] random rays, binned: {count_of('binned.rounds')} rounds, {binned_reads()} "
         f"host reads over 2 calls")
     b_rnd = check_rnd.summary("instanced random rays",
-                              kinds=("setup", "select", "seg_instanced", "seg_exact_instanced"))
+                              kinds=("setup", "refill", "select", "seg_instanced",
+                                     "seg_exact_instanced"))
     compare_binned("instanced random rays", soa, calls)
     misses = int(bt.STATS["misses"])
     del call, calls, o, d, t_max, ignore, inst, check_rnd
@@ -2196,7 +2249,7 @@ def instanced_phase(dev, rs, smi):
     del again, first
     label = "instanced slice 1920x1080 1 spp, the first timed program's calls"
     err_p, ms_h, bound_h = compare_hier(label, soa, rec.calls)
-    b_out = check.summary(label, kinds=("setup", "select", "seg_instanced",
+    b_out = check.summary(label, kinds=("setup", "refill", "select", "seg_instanced",
                                         "seg_exact_instanced"))
     compare_binned(label, soa, rec.binned)
     misses += int(bt.STATS["misses"])
@@ -2696,7 +2749,7 @@ def aov_checks(label, scene, res, binned: bool, smi):
         if binned:
             with BinnedCheck(scene.hier_soa) as check, RayWork(cull=True, record=True) as rec:
                 again, _ = render_layer(scene, prof, res)
-            check.summary(f"{label} {evaluator}", kinds=("setup", "select", "seg"))
+            check.summary(f"{label} {evaluator}", kinds=("setup", "refill", "select", "seg"))
             ties = compare_binned(f"{label} {evaluator}", scene.hier_soa, rec.binned)
             tie_px = np.zeros(res[0] * res[1], bool)
             for rays, ig in rec.binned["trace"]:
@@ -2802,7 +2855,7 @@ def adaptive_large(grid, smi):
         rd._adaptive_step(grid, acc, drawn, perm, thr, res, spe, prof.bounce_limit, 2.5, 0, m)
     log(f"[adaptive] {label}: launches {launch_counts()}")
     err, ms, bound = compare_hier(label, grid.hier_soa, rec.calls)
-    out = check.summary(label, kinds=("setup", "select", "seg"))
+    out = check.summary(label, kinds=("setup", "refill", "select", "seg"))
     compare_binned(label, grid.hier_soa, rec.binned)
     return launches, dict(err=err, binned=out)
 
@@ -4222,7 +4275,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     seconds, warm_s, first, s_sum = timed_programs(program)
     hier = dict(trace=count_of("launches.walk_trace"), occlude=count_of("launches.walk_occlude"))
-    binned = {k: count_of(f"launches.binned_{k}") for k in ("setup", "select", "seg")}
+    binned = {k: count_of(f"launches.binned_{k}") for k in ("setup", "refill", "select", "seg")}
     # the exact form: no render path launches it
     exact_on_path = count_of("launches.binned_seg_exact")
     others = (count_of("launches.dense_trace"), count_of("launches.dense_occlude"),
@@ -4357,7 +4410,7 @@ def main() -> int:
              ms=b_out[k]["ms"],
              plain_ms=b_out[k]["plain_ms"], bound_ms=b_out[k]["bound_ms"],
              bound_by=b_out[k]["bound_by"], library_ms=b_out[k]["library_ms"])
-        for k in ("setup", "select", "seg")
+        for k in ("setup", "refill", "select", "seg")
     ] + [
         dict(name="binned_seg_exact", route="cuda", source=BINNED_SOURCE,
              replaces=BINNED_SITES["seg"], launches=exact_launches,

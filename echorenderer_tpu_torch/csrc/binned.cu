@@ -1,4 +1,4 @@
-// Binned traversal for large scenes: the three kernels of its rounds, for Hopper.
+// Binned traversal for large scenes: the four kernels of its setup and rounds, for Hopper.
 //
 // Replace the Pallas TPU kernels of echorenderer_tpu/ops/binned_trace.py,
 // which the JAX package's `trace_binned` / `occlude_binned` reach through
@@ -6,9 +6,11 @@
 //   setup_kernel, setup_group   <- `_setup_kernel`  (line 552, via `_setup_rank`)
 //   select_group, select_kernel <- `_select_kernel` (line 402, via `_run_select`)
 //   seg_kernel <- `_seg_kernel` (line 117, via `_run_rows`; keyed and exact, both forms)
+// and, written by hand here where the JAX package leaves it to XLA ops:
+//   refill_kernel <- `_trace_binned_impl`'s `refill` (line 1143)
 // Each computes what its plain PyTorch version in ops/binned_trace.py computes
-// (`setup_rank_plain`, `select_plain`, `seg_keys_plain`, `seg_hits_plain`), bit
-// for bit.
+// (`setup_rank_plain`, `refill_plain`, `select_plain`, `seg_keys_plain`,
+// `seg_hits_plain`), bit for bit.
 //
 // setup: per ray, the slab test of every super box (`echo::slab`'s op
 // order, the JAX kernel's, NaN-propagating min/max, here one PTX min.NaN /
@@ -63,6 +65,26 @@
 //    that does not refill skips the extract passes.
 // Dead rays (past n) run their group's reductions on empty keys: every lane
 // of a group mask takes part.
+//
+// refill: per refilling ray, the keys at cursor .. cursor + ksup - 1 of its
+// super order, each gated as the plain version gates it (inside the order,
+// not _INT_INF, entry t below best_t); each passing super's 16 chunk boxes
+// (the conservative bf16-rounded table `_Tables.base`) slab-tested as setup
+// tests supers (`super_hit`, best_t the limit), each eligible chunk packed
+// as (bits(tn > 0 ? tn : 0) with the low cbits cleared) | chunk id, the rest
+// _INT_INF; then the cursor moved by ksup (parked at w_ord when the order is
+// capped) and the key at cursor + ksup (past a capped order its last stored
+// key, past an uncapped one _INT_INF) as the next unexamined super. A ray
+// that does not refill writes _INT_INF keys and keeps its cursor and next
+// super. One form at every shape (ksup 4, 8 or 16, 2M rays at full width
+// down to ~16k in the final stage, capped or not): a thread a ray, 128 a
+// block. The 16 ksup key writes of a ray are one row each, rays consecutive,
+// so a warp writes 128 contiguous bytes a slot; the super table (~94 KB on
+// the 1M scene, up to 65k supers on an instanced pack: not staged in
+// shared memory) comes through the read-only cache, a float4 a component
+// and 4 chunks. Bound by its bytes: ~0.3 KB a ray at ksup 4, mostly the key
+// writes. It replaces ~70 PyTorch ops a super (a gather of the super's rows,
+// the slab test on (16, N) tensors, the packing).
 //
 // seg_kernel: per (ray, chunk) pair of the chunk-sorted pair list, the least
 // packed key (bits(t) & ~0xFF) | prim-in-chunk over the chunk's prims hit
@@ -464,6 +486,96 @@ __global__ void __launch_bounds__(THREADS) setup_group(SetupArgs a) {
     }
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------------
+// refill_kernel: a thread a ray
+// ---------------------------------------------------------------------------
+
+constexpr int kSup = 16;           // chunks a superchunk (SUP)
+constexpr int kRefillBlock = 128;  // rays a block
+
+struct RefillArgs {
+  const float* rays;
+  int n;
+  const int* sup_ord;  // (w_ord, n): each ray's super keys, ascending
+  int w_ord;
+  const int* cursor;
+  const float* best_t;
+  const uint8_t* refill;
+  const int* next_sup;
+  const float4* base;  // (s_count, 6 kSup) floats: lo_x[16] lo_y lo_z hi_x hi_y hi_z
+  int s_count, ksup, sbits, cbits;
+  int* keys;  // (ksup kSup, n), slot-major
+  int* cursor_out;
+  int* next_out;
+};
+
+// The key at position p of ray i's order: past a capped order its last
+// stored key (a lower bound of every unexamined super), past an uncapped
+// one kIntInf.
+__device__ __forceinline__ int order_key(const RefillArgs& a, size_t sn, int i, int p,
+                                         bool capped) {
+  if (p < a.w_ord) return __ldg(a.sup_ord + p * sn + i);
+  return capped ? __ldg(a.sup_ord + (a.w_ord - 1) * sn + i) : kIntInf;
+}
+
+// A chunk's candidate key: (bits(tn > 0 ? tn : 0) with the low cbits
+// cleared) | chunk id where the ray enters its box before best; else kIntInf.
+__device__ __forceinline__ int chunk_key(float lox, float loy, float loz, float hix, float hiy,
+                                         float hiz, float ox, float oy, float oz, float ix,
+                                         float iy, float iz, float best, int cmask, int id) {
+  float tn;
+  if (!super_hit(lox, loy, loz, hix, hiy, hiz, ox, oy, oz, ix, iy, iz, best, tn) ||
+      !(tn < kFarT))
+    return kIntInf;
+  return (__float_as_int(tn > 0.0f ? tn : 0.0f) & cmask) | id;
+}
+
+__global__ void __launch_bounds__(kRefillBlock) refill_kernel(RefillArgs a) {
+  const int i = blockIdx.x * kRefillBlock + threadIdx.x;
+  if (i >= a.n) return;
+  const size_t sn = a.n;
+  const bool capped = a.w_ord < a.s_count;
+  const bool refill = a.refill[i] != 0;
+  const int cur = a.cursor[i];
+  int* out = a.keys + i;  // slot j kSup + c at out[(j kSup + c) sn]
+  if (refill) {
+    const float best = a.best_t[i];
+    const float ox = a.rays[i], oy = a.rays[sn + i], oz = a.rays[2 * sn + i];
+    const float ix = echo::safe_inv(a.rays[3 * sn + i]);
+    const float iy = echo::safe_inv(a.rays[4 * sn + i]);
+    const float iz = echo::safe_inv(a.rays[5 * sn + i]);
+    const int smask = (1 << a.sbits) - 1, tmask = -(1 << a.sbits), cmask = -(1 << a.cbits);
+    for (int j = 0; j < a.ksup; ++j, out += kSup * sn) {
+      const int key = order_key(a, sn, i, cur + j, false);  // none past the order
+      if (key == kIntInf || !(__int_as_float(key & tmask) < best)) {
+        for (int c = 0; c < kSup; ++c) out[c * sn] = kIntInf;
+        continue;
+      }
+      const int s = key & smask;
+      const float4* row = a.base + (size_t)s * (6 * kSup / 4);
+#pragma unroll
+      for (int q = 0; q < kSup / 4; ++q) {  // chunks 4q .. 4q + 3: a float4 a component
+        const float4 lx = __ldg(row + q), ly = __ldg(row + 4 + q), lz = __ldg(row + 8 + q);
+        const float4 hx = __ldg(row + 12 + q), hy = __ldg(row + 16 + q), hz = __ldg(row + 20 + q);
+        const int id = s * kSup + 4 * q;
+        out[(4 * q) * sn] = chunk_key(lx.x, ly.x, lz.x, hx.x, hy.x, hz.x, ox, oy, oz, ix, iy, iz,
+                                      best, cmask, id);
+        out[(4 * q + 1) * sn] = chunk_key(lx.y, ly.y, lz.y, hx.y, hy.y, hz.y, ox, oy, oz, ix, iy,
+                                          iz, best, cmask, id + 1);
+        out[(4 * q + 2) * sn] = chunk_key(lx.z, ly.z, lz.z, hx.z, hy.z, hz.z, ox, oy, oz, ix, iy,
+                                          iz, best, cmask, id + 2);
+        out[(4 * q + 3) * sn] = chunk_key(lx.w, ly.w, lz.w, hx.w, hy.w, hz.w, ox, oy, oz, ix, iy,
+                                          iz, best, cmask, id + 3);
+      }
+    }
+  } else {
+    for (int s = 0; s < a.ksup * kSup; ++s) out[s * sn] = kIntInf;
+  }
+  const int moved = cur + (refill ? a.ksup : 0);
+  a.cursor_out[i] = capped ? min(moved, a.w_ord) : moved;  // the cursor parks at the cap
+  a.next_out[i] = refill ? order_key(a, sn, i, cur + a.ksup, capped) : a.next_sup[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -924,6 +1036,21 @@ extern "C" int binned_select(int* cand, int w, int n, const int* nk, const float
   const cudaError_t err =
       cudaLaunchKernel(l.fn, dim3((n + l.rays - 1) / l.rays), dim3(l.threads), args, l.smem, st);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// base is the (s_count, 6 kSup) super-box table, 16-byte aligned (read as
+// float4); keys is (ksup kSup, n) int32, slot-major
+extern "C" int binned_refill(const float* rays, int n, const int* sup_ord, int w_ord,
+                             const int* cursor, const float* best_t, const uint8_t* refill,
+                             const int* next_sup, const float* base, int s_count, int ksup,
+                             int sbits, int cbits, int* keys, int* cursor_out, int* next_out,
+                             void* stream) {
+  const RefillArgs a{rays, n, sup_ord, w_ord, cursor, best_t, refill, next_sup,
+                     reinterpret_cast<const float4*>(base), s_count, ksup, sbits, cbits,
+                     keys, cursor_out, next_out};
+  refill_kernel<<<(n + kRefillBlock - 1) / kRefillBlock, kRefillBlock, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // g2c, g2i and inst_f32 are null for a non-instanced scene; n_chunks is the

@@ -40,22 +40,27 @@ the lower prim-in-chunk index, the lowest chunk within a round, and the
 earlier round across rounds. That may pick another prim than the hier
 walk's least (t, sorted slot); the t of both lie in one band.
 
-On a CUDA tensor each of the three kernel wrappers launches its
+On a CUDA tensor each of the four kernel wrappers launches its
 hand-written kernel in csrc/binned.cu (built with nvcc on first use,
 ops/cuda_build.py); on a CPU tensor it runs the plain PyTorch version
-beside it. They replace the TPU's `_setup_kernel`, `_select_kernel` and
-`_seg_kernel` (keyed and exact, both forms) of
-echorenderer_tpu/ops/binned_trace.py (:552, :402, :117). The exact form,
-`seg_hits` (one (t, prim, u, v) per pair, as `_pack_and_intersect(...,
-keyed=False)`), is reached through `_Walk.pairs(..., keyed=False)`; as in
-the JAX package, the traversal itself never calls it. The refill, the pair
-sort and the record gather stay PyTorch ops, as they are XLA ops in the
-JAX package. The engine is the JAX
-package's fused one (a ray's refill decision is the previous round's) at
-any ray count. Each round reads one flag back to the host. The host
-counters are `utils.diagnostics`' registry: `binned.calls`,
-`binned.rounds`, the reads `reads.binned_any` and `reads.binned_compact`,
-and the wrappers' kernel launches, `launches.binned_setup`,
+beside it. `setup_rank`, `select` and `seg_keys` replace the TPU's
+`_setup_kernel`, `_select_kernel` and `_seg_kernel` (keyed and exact, both
+forms) of echorenderer_tpu/ops/binned_trace.py (:552, :402, :117). The
+exact form, `seg_hits` (one (t, prim, u, v) per pair, as
+`_pack_and_intersect(..., keyed=False)`), is reached through
+`_Walk.pairs(..., keyed=False)`; as in the JAX package, the traversal
+itself never calls it. `refill` is the round's refill, XLA ops in the JAX
+package (`_trace_binned_impl`'s `refill`, :1143) and one kernel launch a
+round here (`refill_kernel`, a thread a ray; one form at every ksup and
+width): its keys, cursor and next super equal `refill_plain`'s bit for bit,
+the slab test in the plain version's op order with NaN-propagating min and
+max. The pair sort and the record gather stay PyTorch ops, as they are XLA
+ops in the JAX package. The engine is the JAX package's fused one (a ray's
+refill decision is the previous round's) at any ray count. Each round reads
+one flag back to the host. The host counters are `utils.diagnostics`'
+registry: `binned.calls`, `binned.rounds`, the reads `reads.binned_any` and
+`reads.binned_compact`, and the wrappers' kernel launches,
+`launches.binned_setup`, `launches.binned_refill`,
 `launches.binned_select`, `launches.binned_seg` and
 `launches.binned_seg_exact` (`_instanced` on the pairs of an instanced
 scene). Each refill, round and compaction is an `echo.binned.*` span.
@@ -170,7 +175,7 @@ def _super_pad(s_count: int) -> int:
 
 
 # ----------------------------------------------------------------------------
-# plain PyTorch versions of the three kernels (the CPU path, and the card's
+# plain PyTorch versions of the four kernels (the CPU path, and the card's
 # reference)
 # ----------------------------------------------------------------------------
 
@@ -190,6 +195,51 @@ def setup_rank_plain(rays, sup_cb, sbits, cap=None):
         fill = srt.new_full((srt.shape[0], s_out - srt.shape[1]), _INT_INF)
         outs.append(torch.cat([srt, fill], dim=1).T)
     return torch.cat(outs, dim=1).contiguous()
+
+
+def refill_plain(rays, sup_ord, cursor, best_t, do_refill, next_sup, base, ksup, sbits, cbits):
+    """Plain PyTorch refill: (keys (ksup*SUP, N) slot-major, the advanced
+    cursor, the next unexamined super's key), int32 (`refill` says what
+    they hold)."""
+    s_count = base.shape[0]
+    in_sup = torch.arange(SUP, dtype=torch.int32, device=base.device)[:, None]
+    inv = [_safe_inv(rays[3 + a]) for a in range(3)]
+    w_ord = sup_ord.shape[0]
+    capped = w_ord < s_count
+    last = sup_ord[w_ord - 1]
+
+    def extract(j):
+        """Key at position cursor + j of each ray's order, and whether it
+        lies past a capped order (then the last stored key, a lower bound
+        for every unexamined super)."""
+        pj = cursor + j
+        kj = sup_ord.gather(0, torch.clamp(pj, max=w_ord - 1).long()[None])[0]
+        ovf = pj >= w_ord
+        if capped:
+            return torch.where(ovf, last, kj), ovf
+        return torch.where(ovf, _INT_INF, kj), torch.zeros_like(ovf)
+
+    keys = []
+    for j in range(ksup):
+        sup_key, ovf = extract(j)
+        sup_ok = (do_refill & ~ovf & (sup_key != _INT_INF)
+                  & (_dec_t(sup_key, sbits) < best_t))
+        sup_sel = torch.where(sup_ok, sup_key & ((1 << sbits) - 1), 0)
+        g = base[sup_sel.long()].T  # (6*SUP, N): [lo_x | lo_y | lo_z | hi_x | hi_y | hi_z]
+        tn = tf = None
+        for a in range(3):
+            t0 = (g[a * SUP:(a + 1) * SUP] - rays[a][None]) * inv[a][None]
+            t1 = (g[(3 + a) * SUP:(4 + a) * SUP] - rays[a][None]) * inv[a][None]
+            tn_a, tf_a = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            tn = tn_a if tn is None else torch.maximum(tn, tn_a)
+            tf = tf_a if tf is None else torch.minimum(tf, tf_a)
+        ok = (tn <= tf) & (tf > 0.0) & (tn < best_t[None]) & sup_ok[None]
+        keys.append(_enc(torch.where(ok, tn, _INF), sup_sel[None] * SUP + in_sup, cbits))
+    new_cursor = cursor + torch.where(do_refill, ksup, 0).to(torch.int32)
+    if capped:  # the cursor parks at the cap
+        new_cursor = torch.clamp(new_cursor, max=w_ord)
+    next_sup = torch.where(do_refill, extract(ksup)[0], next_sup)
+    return torch.cat(keys).contiguous(), new_cursor, next_sup
 
 
 def _select_merge(cand, new_keys, best_t, do_refill, k, cbits):
@@ -297,6 +347,10 @@ def _load():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.binned_setup.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr, ptr]
         lib.binned_select.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr]
+        # rays, n, sup_ord, w_ord, cursor, best_t, do_refill, next_sup, base,
+        # s_count, ksup, sbits, cbits, keys, cursor out, next_sup out, stream
+        lib.binned_refill.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                      i32, ptr, ptr, ptr, ptr]
         # rec, chunk, m, prim_chunks, valid chunk ids, has_tri, has_sph,
         # pairs a block (ROW), g2c, g2i, inst_f32 (null for a flat scene),
         # out, stream
@@ -305,8 +359,8 @@ def _load():
         lib.binned_seg_occupancy.argtypes = [i32, i32, i32, i32, ptr]
         # (s_count, s_out) and (w, k), out[6]
         lib.binned_setup_occupancy.argtypes = lib.binned_select_occupancy.argtypes = [i32, i32, ptr]
-        for fn in (lib.binned_setup, lib.binned_select, lib.binned_seg, lib.binned_seg_exact,
-                   lib.binned_seg_occupancy, lib.binned_setup_occupancy,
+        for fn in (lib.binned_setup, lib.binned_select, lib.binned_refill, lib.binned_seg,
+                   lib.binned_seg_exact, lib.binned_seg_occupancy, lib.binned_setup_occupancy,
                    lib.binned_select_occupancy):
             fn.restype = i32
         _lib = lib
@@ -365,6 +419,61 @@ def setup_rank(rays, sup_cb, sbits, cap=None):
         _raise_on("setup_rank", err)
         diagnostics.count("launches.binned_setup")
     return out
+
+
+def refill(rays, sup_ord, cursor, best_t, do_refill, next_sup, base, ksup, sbits, cbits):
+    """One round's refill, per ray of rays (7, N) float32 [o xyz, d xyz,
+    limit]: for a ray with do_refill (N,) bool, its next `ksup` supers of
+    its order sup_ord (w_ord, N) int32 (`setup_rank`'s), from position
+    cursor (N,) int32 (>= 0) on, each examined while it lies inside the
+    order, is a key and enters before best_t (N,) float32: its SUP chunk
+    boxes of base (S, 6*SUP) float32 (`_Tables.base`) slab-tested under
+    best_t. Returns, int32: the chunks' keys (ksup*SUP, N), slot-major, the
+    (entry t, chunk id) key of each chunk entered before best_t and
+    _INT_INF for the rest (every slot of a ray that does not refill); the
+    cursor moved by ksup for a refilling ray (at most w_ord where the order
+    is capped, w_ord < S); the key at cursor + ksup for a refilling ray
+    (past a capped order its last stored key, past an uncapped one
+    _INT_INF), next_sup (N,) int32 for the others. CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7:
+        raise ValueError(f"rays must be (7, N) float32, got {tuple(rays.shape)} {rays.dtype}")
+    n = rays.shape[1]
+    if sup_ord.dtype != torch.int32 or sup_ord.dim() != 2 or sup_ord.shape[1] != n \
+            or sup_ord.shape[0] < 1:
+        raise ValueError(f"sup_ord must be (w_ord, {n}) int32 with w_ord >= 1")
+    for name, x, dtype in (("cursor", cursor, torch.int32), ("best_t", best_t, torch.float32),
+                           ("do_refill", do_refill, torch.bool),
+                           ("next_sup", next_sup, torch.int32)):
+        if x.dtype != dtype or x.shape != (n,):
+            raise ValueError(f"{name} must be ({n},) {dtype}")
+    if base.dtype != torch.float32 or base.dim() != 2 or base.shape[1] != 6 * SUP \
+            or base.shape[0] < 1:
+        raise ValueError(f"base must be (S, {6 * SUP}) float32 with S >= 1")
+    s_count = base.shape[0]
+    if ksup < 1:
+        raise ValueError("ksup must be at least 1")
+    if not 1 <= sbits <= 20 or s_count > 1 << sbits:
+        raise ValueError(f"sbits {sbits} cannot hold {s_count} super ids")
+    if not 1 <= cbits <= 20 or s_count * SUP > 1 << cbits:
+        raise ValueError(f"cbits {cbits} cannot hold {s_count * SUP} chunk ids")
+    tensors = (rays, sup_ord, cursor, best_t, do_refill, next_sup, base)
+    if _route("refill", rays, tensors) == "plain":
+        return refill_plain(rays, sup_ord, cursor, best_t, do_refill, next_sup, base, ksup,
+                            sbits, cbits)
+    if base.data_ptr() % 16:
+        raise ValueError("refill reads the super boxes as float4: base must be 16-byte aligned")
+    keys = torch.empty((ksup * SUP, n), dtype=torch.int32, device=rays.device)
+    cursor_out, next_out = torch.empty_like(cursor), torch.empty_like(next_sup)
+    if n:
+        err = _load().binned_refill(rays.data_ptr(), n, sup_ord.data_ptr(), sup_ord.shape[0],
+                                    cursor.data_ptr(), best_t.data_ptr(), do_refill.data_ptr(),
+                                    next_sup.data_ptr(), base.data_ptr(), s_count, ksup, sbits,
+                                    cbits, keys.data_ptr(), cursor_out.data_ptr(),
+                                    next_out.data_ptr(), _stream(rays))
+        _raise_on("refill", err)
+        diagnostics.count("launches.binned_refill")
+    return keys, cursor_out, next_out
 
 
 def select(cand, new_keys, best_t, do_refill, k, cbits):
@@ -533,7 +642,6 @@ class _Tables:
         self.base = torch.cat([_bf16_round(base[:, :3 * SUP], up=False),
                                _bf16_round(base[:, 3 * SUP:], up=True)], 1).contiguous()
         self.ids = torch.arange(s_count, dtype=torch.int32, device=dev)
-        self.in_sup = torch.arange(SUP, dtype=torch.int32, device=dev)[:, None]
 
 
 def _any(x) -> bool:
@@ -578,50 +686,6 @@ class _Walk:
                     cand=torch.full((ksup * SUP + k - 1, n), _INT_INF, dtype=torch.int32,
                                     device=best_t.device))
 
-    def refill(self, st, ksup):
-        """Each refilling ray's next `ksup` supers: candidate keys of their
-        eligible chunks (ksup*SUP, N), slot-major; the advanced cursor; the
-        next unexamined super's key."""
-        tb, rays, sup_ord = self.tb, st["rays"], st["sup_ord"]
-        cursor, best_t, do_refill = st["cursor"], st["best_t"], st["do_refill"]
-        inv = [_safe_inv(rays[3 + a]) for a in range(3)]
-        w_ord = sup_ord.shape[0]
-        capped = w_ord < tb.s_count
-        last = sup_ord[w_ord - 1]
-
-        def extract(j):
-            """Key at position cursor + j of each ray's order, and whether it
-            lies past a capped order (then the last stored key, a lower
-            bound for every unexamined super)."""
-            pj = cursor + j
-            kj = sup_ord.gather(0, torch.clamp(pj, max=w_ord - 1).long()[None])[0]
-            ovf = pj >= w_ord
-            if capped:
-                return torch.where(ovf, last, kj), ovf
-            return torch.where(ovf, _INT_INF, kj), torch.zeros_like(ovf)
-
-        keys = []
-        for j in range(ksup):
-            sup_key, ovf = extract(j)
-            sup_ok = (do_refill & ~ovf & (sup_key != _INT_INF)
-                      & (_dec_t(sup_key, tb.sbits) < best_t))
-            sup_sel = torch.where(sup_ok, sup_key & ((1 << tb.sbits) - 1), 0)
-            g = tb.base[sup_sel.long()].T  # (6*SUP, N): [lo_x | lo_y | lo_z | hi_x | hi_y | hi_z]
-            tn = tf = None
-            for a in range(3):
-                t0 = (g[a * SUP:(a + 1) * SUP] - rays[a][None]) * inv[a][None]
-                t1 = (g[(3 + a) * SUP:(4 + a) * SUP] - rays[a][None]) * inv[a][None]
-                tn_a, tf_a = torch.minimum(t0, t1), torch.maximum(t0, t1)
-                tn = tn_a if tn is None else torch.maximum(tn, tn_a)
-                tf = tf_a if tf is None else torch.minimum(tf, tf_a)
-            ok = (tn <= tf) & (tf > 0.0) & (tn < best_t[None]) & sup_ok[None]
-            keys.append(_enc(torch.where(ok, tn, _INF), sup_sel[None] * SUP + tb.in_sup, tb.cbits))
-        new_cursor = cursor + torch.where(do_refill, ksup, 0).to(torch.int32)
-        if capped:  # the cursor parks at the cap
-            new_cursor = torch.clamp(new_cursor, max=w_ord)
-        next_sup = torch.where(do_refill, extract(ksup)[0], st["next_sup"])
-        return torch.cat(keys).contiguous(), new_cursor, next_sup
-
     def pairs(self, sel_c, rays, best_t, ign_f, ii_f=None, keyed=True):
         """Keys (k, N) of this round's (ray, chunk) pairs (chunk -1: none):
         the pairs sorted chunk-major, their ray records gathered (with the
@@ -656,7 +720,9 @@ class _Walk:
         tb = self.tb
         best_t = st["best_t"]
         with diagnostics.span("echo.binned.refill"):
-            new_keys, cursor, next_sup = self.refill(st, ksup)
+            new_keys, cursor, next_sup = refill(st["rays"], st["sup_ord"], st["cursor"], best_t,
+                                                st["do_refill"], st["next_sup"], tb.base, ksup,
+                                                tb.sbits, tb.cbits)
         pop, live, mink = select(st["cand"], new_keys, best_t, st["do_refill"], k, tb.cbits)
         sel_c = torch.where(pop != _INT_INF, pop & ((1 << tb.cbits) - 1), -1)
         pk = self.pairs(sel_c, st["rays"], best_t, st["ign_f"], st["ii_f"])

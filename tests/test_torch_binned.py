@@ -21,9 +21,15 @@
 - Binned against the port's chunk-tree walk: the same hits, but where two
   prims' t fall in one band (2^-15 relative), where binned may keep the
   other one.
+- The refill: `refill` on CPU tensors takes `refill_plain`, and both equal
+  a numpy version of its contract bit for bit (ksup 4, 8 and 16, capped and
+  uncapped orders, rays that overflow their order or leave a box at t 0,
+  best_t 0, finite or infinite); `_Walk.round` hands its keys to select;
+  bad inputs raise.
 - The wavefront: on a large scene the first iteration is coherent (the
   walk), the rest binned; below the threshold the flag changes no bit.
-- The CUDA kernels are held to their plain versions on the card:
+- The CUDA kernels, the refill kernel among them (and one refill launch a
+  round), are held to their plain versions on the card:
 
     python -m pytest --noconftest tests/test_torch_binned.py -k cuda
 """
@@ -409,6 +415,191 @@ def test_seg_keys_plain_matches_jax(grid):
 
 
 # ---------------------------------------------------------------------------
+# the refill
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def refill_soup():
+    """A grid soup of 172 chunks: 11 supers, so an order capped at 3 overflows."""
+    g, order = _grid_soup(40000, 4000, seed=5)
+    return ph.build_hier_soa(g, order)
+
+
+def _refill_inputs(cb, n, ksup, cap, mode, seed):
+    """The arguments of one refill over the chunk boxes cb (C, 6), on the
+    CPU: n random rays (zero, denormal, negative-zero and sub-clamp
+    direction components among them), their super order from
+    `setup_rank_plain` (capped at `cap`), cursors from 0 to past the order,
+    best_t 0, finite, _INF or inf, do_refill on every ray ("all"), on none
+    or on about half ("mixed"), random next_sup. Every 13th ray starts on
+    the far corner of a chunk's box and leaves it (its exit t exactly 0),
+    that chunk's super put at its cursor."""
+    tb = bt._Tables(cb)
+    o, d, t_max, _ = _rays(n, 1, seed=seed)
+    rs = np.random.RandomState(seed + 1)
+    edge = np.arange(4, n, 13)
+    chunk = rs.randint(0, cb.shape[0], edge.size)
+    o[edge] = tb.base.numpy().reshape(-1, 6, bt.SUP)[chunk // bt.SUP, 3:, chunk % bt.SUP]
+    d[edge] = np.abs(d[edge])
+    d[::5, 0] = 0.0
+    d[1::7, 1] = 1e-40
+    d[2::9, 2] = -0.0
+    d[3::11, 0] = -3e-13
+    rays = tpi.ray_columns(*(torch.as_tensor(x) for x in (o, d, t_max)))
+    sup_ord = bt.setup_rank_plain(rays, tb.sup_cb, tb.sbits, cap).numpy().copy()
+    best = np.where(rs.uniform(size=n) < 0.7, rs.uniform(0.0, 40.0, n),
+                    rs.choice([0.0, bt._INF, np.inf], n)).astype(np.float32)
+    refill = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+              "mixed": rs.uniform(size=n) < 0.5}[mode]
+    cursor = rs.randint(0, sup_ord.shape[0] + ksup + 2, n).astype(np.int32)
+    inside = cursor[edge] < sup_ord.shape[0]
+    sup_ord[cursor[edge][inside], edge[inside]] = chunk[inside] // bt.SUP  # entry t 0
+    best[edge] = 10.0
+    next_sup = rs.randint(0, 2**31 - 1, n).astype(np.int32)
+    return (rays, torch.as_tensor(sup_ord), torch.as_tensor(cursor), torch.as_tensor(best),
+            torch.as_tensor(refill), torch.as_tensor(next_sup), tb.base, ksup, tb.sbits, tb.cbits)
+
+
+def _on(device, args):
+    return tuple(x.to(device) if isinstance(x, torch.Tensor) else x for x in args)
+
+
+def _refill_ref(rays, sup_ord, cursor, best_t, do_refill, next_sup, base, ksup, sbits, cbits):
+    """The refill's contract ray by ray in numpy float32 (one op a
+    rounding, NaN-propagating min and max), independent of the port."""
+    f32 = np.float32
+    r, so, cur, bt_, dr, nx, b = (x.numpy() for x in (rays, sup_ord, cursor, best_t, do_refill,
+                                                       next_sup, base))
+    w_ord, n = so.shape
+    capped = w_ord < b.shape[0]
+    keys = np.full((ksup * bt.SUP, n), bt._INT_INF, np.int32)
+    cur_out, next_out = cur.copy(), nx.copy()
+    for i in range(n):
+        if dr[i]:
+            o, d = r[0:3, i], r[3:6, i]
+            with np.errstate(all="ignore"):
+                inv = np.where(np.abs(d) < f32(1e-12), np.where(d < 0, f32(-1e12), f32(1e12)),
+                               f32(1.0) / d).astype(f32)
+            for j in range(ksup):
+                p = cur[i] + j
+                key = so[p, i] if p < w_ord else bt._INT_INF
+                if key == bt._INT_INF or not np.int32(key & -(1 << sbits)).view(f32) < bt_[i]:
+                    continue
+                s = key & ((1 << sbits) - 1)
+                box = b[s].reshape(6, bt.SUP)
+                with np.errstate(all="ignore"):
+                    t0 = (box[:3] - o[:, None]) * inv[:, None]
+                    t1 = (box[3:] - o[:, None]) * inv[:, None]
+                    tn = np.max(np.minimum(t0, t1), axis=0)
+                    tf = np.min(np.maximum(t0, t1), axis=0)
+                ok = (tn <= tf) & (tf > 0) & (tn < bt_[i]) & (tn < f32(bt._INF))
+                tb = np.where(tn > 0, tn, f32(0.0)).astype(f32).view(np.int32)
+                keys[j * bt.SUP:(j + 1) * bt.SUP, i] = np.where(
+                    ok, (tb & -(1 << cbits)) | (s * bt.SUP + np.arange(bt.SUP)), bt._INT_INF)
+            p = cur[i] + ksup
+            next_out[i] = so[p, i] if p < w_ord else so[w_ord - 1, i] if capped else bt._INT_INF
+            cur_out[i] = cur[i] + ksup
+        if capped:
+            cur_out[i] = min(cur_out[i], w_ord)
+    return keys, cur_out, next_out
+
+
+def _assert_refill_equal(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy() if isinstance(g, torch.Tensor) else g,
+                                      w.cpu().numpy() if isinstance(w, torch.Tensor) else w)
+
+
+@pytest.mark.parametrize("cap", (None, 3), ids=("uncapped", "capped"))
+@pytest.mark.parametrize("ksup", (4, 8, 16))
+def test_refill_matches_its_contract(refill_soup, ksup, cap):
+    """`refill` on CPU tensors takes `refill_plain`; both equal the
+    contract's numpy version bit for bit on rays that overflow their
+    order, miss every box or meet best_t 0, finite or infinite."""
+    args = _refill_inputs(refill_soup.chunk_bounds, 300, ksup, cap, "mixed", seed=ksup)
+    got = bt.refill(*args)
+    want = bt.refill_plain(*args)
+    _assert_refill_equal(got, want)
+    _assert_refill_equal(got, _refill_ref(*args))
+    assert got[0].shape == (ksup * bt.SUP, 300)
+    assert int((got[0] != bt._INT_INF).sum()) > 50
+    if cap:  # some refilling rays overflow the capped order and park
+        over = args[4] & (args[2] + ksup >= args[1].shape[0])
+        assert int(over.sum()) > 10 and int(got[1].max()) == args[1].shape[0]
+
+
+@pytest.mark.parametrize("mode", ("all", "none"))
+def test_refill_all_or_no_rays(refill_soup, mode):
+    args = _refill_inputs(refill_soup.chunk_bounds, 200, 8, 3, mode, seed=41)
+    got = bt.refill(*args)
+    _assert_refill_equal(got, _refill_ref(*args))
+    if mode == "none":
+        assert bool((got[0] == bt._INT_INF).all()) and torch.equal(got[2], args[5])
+
+
+@pytest.mark.parametrize("n", (0, 1))
+def test_refill_edge_widths(refill_soup, n):
+    args = _refill_inputs(refill_soup.chunk_bounds, n, 8, 3, "all", seed=43)
+    got = bt.refill(*args)
+    assert got[0].shape == (8 * bt.SUP, n) and got[1].shape == got[2].shape == (n,)
+    _assert_refill_equal(got, bt.refill_plain(*args))
+    _assert_refill_equal(got, _refill_ref(*args))
+
+
+@pytest.mark.parametrize("ksup", (4, 16))
+def test_round_takes_the_refill(refill_soup, monkeypatch, ksup):
+    """`_Walk.round` hands select the refill's keys and keeps its cursor
+    and next super, round after round."""
+    soa = refill_soup
+    o, d, t_max, ignore = _rays(512, soa.num_prims, seed=ksup)
+    rays = tpi.ray_columns(*(torch.as_tensor(x) for x in (o * 0.8, d, t_max)))
+    w = bt._Walk(rays, ph._sorted_ignore(soa, torch.as_tensor(ignore)), soa, False)
+    n = rays.shape[1]
+    st = w.start(rays, rays[6], torch.full((n,), bt._INT_INF, dtype=torch.int32),
+                 torch.full((n,), -1, dtype=torch.int32), w.order(rays, 3), ksup, bt.K)
+    st["ign_f"], st["ii_f"] = w.ign_f, None
+    handed, real = [], bt.select
+
+    def select(cand, new_keys, *a):
+        handed.append(new_keys.clone())
+        return real(cand, new_keys, *a)
+
+    monkeypatch.setattr(bt, "select", select)
+    for _ in range(3):
+        want = bt.refill_plain(st["rays"], st["sup_ord"], st["cursor"], st["best_t"],
+                               st["do_refill"], st["next_sup"], w.tb.base, ksup, w.tb.sbits,
+                               w.tb.cbits)
+        st = w.round(st, bt.K, ksup)
+        _assert_refill_equal((handed[-1], st["cursor"], st["next_sup"]), want)
+    assert int((handed[0] != bt._INT_INF).sum()) > 100
+
+
+REFILL_BAD = {
+    "rays dtype": (dict(rays=lambda a: a.double()), "float32"),
+    "order width": (dict(sup_ord=lambda a: a[:, :-1].contiguous()), "sup_ord"),
+    "cursor dtype": (dict(cursor=lambda a: a.long()), "cursor"),
+    "flag dtype": (dict(do_refill=lambda a: a.to(torch.uint8)), "do_refill"),
+    "base width": (dict(base=lambda a: a[:, :95].contiguous()), "base"),
+    "ksup": (dict(ksup=lambda a: 0), "ksup"),
+    "sbits": (dict(sbits=lambda a: 2), "sbits"),
+    "mixed devices": (dict(next_sup=lambda a: a.to("meta")), "one device"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFILL_BAD))
+def test_refill_rejects_bad_inputs(refill_soup, case):
+    names = ("rays", "sup_ord", "cursor", "best_t", "do_refill", "next_sup", "base", "ksup",
+             "sbits", "cbits")
+    args = dict(zip(names, _refill_inputs(refill_soup.chunk_bounds, 16, 4, None, "mixed", 47)))
+    change, match = REFILL_BAD[case]
+    for name, fn in change.items():
+        args[name] = fn(args[name])
+    with pytest.raises(ValueError, match=match):
+        bt.refill(**args)
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -564,3 +755,48 @@ def test_cuda_kernels_match_plain(cuda):
     got = bt.seg_keys(rec, chunk, soa.prim_chunks, True, True)
     assert torch.equal(got, bt.seg_keys_plain(rec, chunk, soa.prim_chunks, True, True))
     assert int((got != bt._INT_INF).sum()) > 100
+
+
+@pytest.mark.cuda
+def test_cuda_refill_matches_plain(cuda):
+    """The refill kernel against `refill_plain` on the card, bit for bit on
+    keys, cursor and next super: ksup 4, 8 and 16, capped and uncapped
+    orders, every ray, none or half refilling, widths 0, 1, off the block
+    and large, and an instanced pack's tables (world boxes, global chunks)."""
+    g, order = _grid_soup(40000, 4000, seed=5)
+    inst = tprepare(tscenes.instanced_grid(side=3), instancing="tlas", device="cpu")
+    found = {}
+    for label, cb in (("flat", ph.build_hier_soa(g, order).chunk_bounds),
+                      ("instanced", inst.hier_soa.binned_wcb)):
+        for ksup in (4, 8, 16):
+            for cap in (None, 3):
+                for mode, n in (("mixed", 0), ("mixed", 1), ("all", 1000), ("none", 1000),
+                                ("mixed", 4099), ("mixed", 200_000)):
+                    args = _on(cuda, _refill_inputs(cb, n, ksup, cap, mode, seed=ksup + n))
+                    got = bt.refill(*args)
+                    want = bt.refill_plain(*args)
+                    _assert_refill_equal(got, want)
+                    found[label] = found.get(label, 0) + int((got[0] != bt._INT_INF).sum())
+    assert found["flat"] > 100_000 and found["instanced"] > 10_000
+
+
+@pytest.mark.cuda
+def test_cuda_refill_one_launch_a_round(cuda, monkeypatch):
+    """One refill launch a round over a card traversal whose cascade runs
+    all three stages (ksup 4, 8 and 16), and its hits bit for bit those of
+    the same traversal on the plain refill."""
+    g, order = _grid_soup(40000, 4000, seed=5)
+    soa = ph.build_hier_soa(g, order, device=cuda)
+    n = bt.CASCADE_MIN + 4096
+    o, d, t_max, ignore = _rays(n, soa.num_prims, seed=17)
+    targs = [torch.as_tensor(x, device=cuda) for x in (o * 0.8, d, t_max, ignore)]
+    diagnostics.reset_counts()
+    got = bt.trace_binned(None, soa, *targs)
+    blocked = bt.occlude_binned(None, soa, *targs)
+    counts = diagnostics.counts()
+    assert counts["launches.binned_refill"] == counts["binned.rounds"] > 2 * bt.FULL_ROUNDS
+    monkeypatch.setattr(bt, "refill", bt.refill_plain)
+    want = bt.trace_binned(None, soa, *targs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(blocked, bt.occlude_binned(None, soa, *targs))
+    assert int((got.prim >= 0).sum()) > n // 4

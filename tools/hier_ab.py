@@ -13,6 +13,7 @@ same inputs in one process, in turns (other, this, this, other).
     python3 tools/hier_ab.py --sweep dense   # the dense kernels' crossover and block size
     python3 tools/hier_ab.py --plucker [--other DIR]  # the Plücker micro-benchmark's kernels
     python3 tools/hier_ab.py --sweep plucker   # their forms (prims a wgmma product, rays a thread)
+    python3 tools/hier_ab.py --refill   # the refill kernel against the plain refill
 
 Inputs, made on the card from fixed seeds:
   - sphere_grid(1_000_000) (bench.py's large scene) at 1920x1080, 1 spp,
@@ -62,6 +63,14 @@ and shape (select: w and k; setup: supers and s_out) and prints rays,
 refilling rays or eligible supers a ray, ms a launch, bound, % of bound and
 launches x (ms - bound). --shapes prints only that table (this tree's C
 entries, or with --other both checkouts').
+
+--refill times every refill of the same four binned runs: the plain
+refill (the PyTorch ops a round issued before the refill kernel) and the
+kernel on the same inputs in turns (plain, kernel, kernel, plain), every
+output held bitwise; by run, ksup and capped or uncapped order: launches,
+rays, refilling rays, ms a launch, bound and % of bound (refill_turns).
+A checkout bound by `use` whose binned library has no refill kernel
+refills by `refill_plain`, as that checkout did.
 
 --sweep select-setup builds this tree's binned.cu once for each form of
 SHAPE_SWEEP (its kSelectForms and kSetupForms replaced by one form at every
@@ -173,6 +182,11 @@ PLUCKER_SWEEP = [dict(kPlkN=n, kDefWarpgroups=w, kDefMinBlocks=b, kHighRays=r, k
 # cycles the card spins (torch.cuda._sleep) before each timed C entry, so
 # that the host's ctypes call ends before the launch's start event: ~60 us
 SLEEP_CYCLES = 100_000
+# --refill's: ~0.6 ms, past the host's ctypes call of 17 arguments after the
+# plain refill's hundreds of ops
+REFILL_SLEEP_CYCLES = 1_000_000
+# --refill's rows by rays a launch: (least rays, name)
+REFILL_WIDTHS = ((2 ** 20, "n >= 2^20"), (2 ** 16, "2^16 <= n < 2^20"), (0, "n < 2^16"))
 
 # the megakernel's stages, in csrc/mega_stages.cuh's order
 STAGES = ("trace", "shadow trace", "interaction", "texture stage", "RNG + BSDF sample",
@@ -217,6 +231,10 @@ def bind_binned(lib) -> None:
     for name in ("binned_setup_occupancy", "binned_select_occupancy"):  # absent from older checkouts
         if hasattr(lib, name):
             getattr(lib, name).argtypes, getattr(lib, name).restype = [i32, i32, ptr], i32
+    if hasattr(lib, "binned_refill"):  # absent from older checkouts
+        lib.binned_refill.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                      i32, ptr, ptr, ptr, ptr]
+        lib.binned_refill.restype = i32
 
 
 def bind_dense(lib) -> None:
@@ -657,6 +675,11 @@ def compare_sass(other: dict, smi: str) -> None:
             print(f"[sass] {smi} | {stem} {name}: {verdict}")
 
 
+# this tree's binned_trace.refill, kept while `use` binds a binned library
+# without the refill kernel
+_KERNEL_REFILL: list = []
+
+
 def use(libs: dict):
     from echorenderer_tpu_torch.ops import binned_trace as bt
     from echorenderer_tpu_torch.ops import megakernel as mk
@@ -667,6 +690,11 @@ def use(libs: dict):
     mk._lib = libs.get("megakernel", mk._lib)
     pi._lib = libs.get("dense_intersect", pi._lib)
     bt._lib, bt.ROW = libs["binned"], libs["row"]
+    if not _KERNEL_REFILL:
+        _KERNEL_REFILL.append(bt.refill)
+    # a checkout from before the refill kernel refills by PyTorch ops
+    bt.refill = (_KERNEL_REFILL[0] if hasattr(libs["binned"], "binned_refill")
+                 else bt.refill_plain)
 
 
 def median_ms(fn, runs: int = 10, warm: bool = True) -> float:
@@ -851,6 +879,106 @@ def binned_runs(dev, grid, tlas, rnd, rs) -> dict:
         "random rays": both(soa, rnd),
         "instanced random rays": both(isoa, irnd),
     }
+
+
+def refill_turns(runs: dict, smi: str) -> None:
+    """--refill: every refill of `runs` ({label: run}), on the same inputs
+    in turns (plain, kernel, kernel, plain): the plain refill (`refill_plain`,
+    the PyTorch ops the parent's rounds issue) timed by CUDA events around
+    the call on an idle card (host issue and card); the kernel's C entry
+    (binned_refill) with the card kept busy for REFILL_SLEEP_CYCLES while
+    the host makes the call (the card's time alone), then the wrapper on an
+    idle card (as a round pays it); every output held bitwise to the plain
+    version's. One line a (run, ksup, order, width): launches, rays,
+    refilling rays, the three ms a launch, the bound (chip_smoke.refill_work)
+    and % of bound, launches x (plain - wrapper); then one line a run."""
+    import statistics as st
+
+    import torch
+
+    from chip_smoke import bound_ms, refill_work
+    from echorenderer_tpu_torch.ops import binned_trace as bt
+
+    kernel, rows, source = bt.refill, [], [""]
+    lib = bt._load()
+
+    def ms_of(fn, busy):
+        if busy:
+            torch.cuda._sleep(REFILL_SLEEP_CYCLES)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def timed(*args):
+        rays, sup_ord, cursor, best_t, do_refill, next_sup, base, ksup, sbits, cbits = args
+        want = bt.refill_plain(*args)
+        kernel(*args)  # the module loads at the first launch
+        outs = [torch.empty_like(x) for x in want]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def entry():
+            err = lib.binned_refill(rays.data_ptr(), rays.shape[1], sup_ord.data_ptr(),
+                                    sup_ord.shape[0], cursor.data_ptr(), best_t.data_ptr(),
+                                    do_refill.data_ptr(), next_sup.data_ptr(), base.data_ptr(),
+                                    base.shape[0], ksup, sbits, cbits,
+                                    *(x.data_ptr() for x in outs), stream)
+            if err:
+                raise RuntimeError(f"binned_refill failed: cudaError {err}")
+            return outs
+
+        ms = dict(plain=[], kernel=[], wrapper=[])
+        for who in ("plain", "kernel", "kernel", "plain"):
+            if who == "plain":
+                got = [ms_of(lambda: bt.refill_plain(*args), False)]
+                ms["plain"].append(got[0][1])
+            else:
+                for x in outs:
+                    x.fill_(0)
+                got = [ms_of(entry, True), ms_of(lambda: kernel(*args), False)]
+                ms["kernel"].append(got[0][1])
+                ms["wrapper"].append(got[1][1])
+            if not all(torch.equal(a, b) for out, _ in got for a, b in zip(out, want)):
+                raise AssertionError(f"the refill kernel differs from refill_plain ({source[0]})")
+        rows.append(dict(source=source[0], ksup=ksup, capped=sup_ord.shape[0] < base.shape[0],
+                         n=rays.shape[1], refills=int(do_refill.sum()),
+                         ms={k: st.fmean(v) for k, v in ms.items()},
+                         bound=bound_ms(*refill_work(sup_ord, cursor, best_t, do_refill, base,
+                                                     ksup, sbits))))
+        return want
+
+    bt.refill = timed
+    try:
+        for label, run in runs.items():
+            source[0] = label
+            run()
+    finally:
+        bt.refill = kernel
+    groups = {}
+    for r in rows:
+        width = next(w for w in REFILL_WIDTHS if r["n"] >= w[0])[1]
+        groups.setdefault((r["source"], r["ksup"], r["capped"], width), []).append(r)
+    for (label, ksup, capped, width), rs_ in groups.items():
+        n = [r["n"] for r in rs_]
+        mean = {k: st.fmean(r["ms"][k] for r in rs_) for k in ("plain", "kernel", "wrapper")}
+        bound = st.fmean(r["bound"][0] for r in rs_)
+        by = rs_[0]["bound"][1]
+        print(f"[refill] {smi} | {label}, ksup {ksup}, {'capped' if capped else 'uncapped'} "
+              f"order, {width}: {len(rs_)} launches on {min(n)}-{max(n)} rays (mean "
+              f"{st.fmean(n):.0f}), "
+              f"refilling rays {100.0 * sum(r['refills'] for r in rs_) / max(sum(n), 1):.1f}%; "
+              f"ms a launch: plain {mean['plain']:.4f}, C entry {mean['kernel']:.4f} (the card), "
+              f"wrapper {mean['wrapper']:.4f} (an idle card); bound {bound:.6f} ms ({by}) = "
+              f"{100.0 * bound / mean['kernel']:.2f}% of bound; launches x (plain - wrapper) "
+              f"{len(rs_) * (mean['plain'] - mean['wrapper']):.4f} ms")
+    for label in runs:
+        rs_ = [r for r in rows if r["source"] == label]
+        sums = {k: sum(r["ms"][k] for r in rs_) for k in ("plain", "kernel", "wrapper")}
+        print(f"[refill] {smi} | {label}: {len(rs_)} refills, summed ms: plain "
+              f"{sums['plain']:.4f}, kernel {sums['kernel']:.4f}, wrapper {sums['wrapper']:.4f}, "
+              f"bound {sum(r['bound'][0] for r in rs_):.4f}")
 
 
 def seg_items(runs) -> tuple:
@@ -1608,10 +1736,12 @@ def main() -> int:
     ap.add_argument("--mega-stages", action="store_true",
                     help="the megakernel's stage breakdown, of this tree or of --other DIR")
     ap.add_argument("--dump", type=Path, help="with --mega-stages: keep the disassembly here")
+    ap.add_argument("--refill", action="store_true",
+                    help="only the refill kernel against the plain refill, in turns")
     a = ap.parse_args()
-    if (not a.mega_stages and not a.shapes and not a.plucker
+    if (not a.mega_stages and not a.shapes and not a.plucker and not a.refill
             and (a.other is not None) == bool(a.sweep)):
-        ap.error("give --other DIR, --sweep, --shapes, --plucker or --mega-stages")
+        ap.error("give --other DIR, --sweep, --shapes, --plucker, --refill or --mega-stages")
     import torch
 
     if not torch.cuda.is_available():
@@ -1646,6 +1776,11 @@ def main() -> int:
         other = build_other(a.other.resolve())
         compare_sass(other, smi)
         dense_ab(other, this, sets, smi)
+        return 0
+    if a.refill:
+        runs = binned_runs(dev, *large_scenes(dev))
+        print(f"[ab] {smi} | inputs in {time.perf_counter() - t0:.1f} s")
+        refill_turns(runs, smi)
         return 0
     if a.shapes or a.sweep == "select-setup":
         runs = binned_runs(dev, *large_scenes(dev))
