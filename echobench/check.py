@@ -5,7 +5,9 @@ image it completes, drawn from the run's seed and the image's place in the
 window, and drops the rest. Once the window has closed, the plain reference
 (reference/) works those pixels out again from the benchmark's own scene
 arrays, with each image's seed and the traffic's samples and bounce limit.
-A `render_layer` mix compares its one layer. A `render` mix (the README's
+A `render_layer` mix compares its one layer: an adaptive path layer's
+epochs replayed pixel by pixel (`Reference.adaptive`), any other layer's
+samples as one mean (`Reference.pixels`). A `render` mix (the README's
 standard profile) compares the path layer that went into the composition
 stack (its adaptive epochs replayed pixel by pixel) and the albedo and
 normal-and-depth layers at the pixels. `Sample` also keeps
@@ -36,6 +38,12 @@ Channels equal on both sides (an infinite depth on a miss) differ by 0; a
 channel that is not finite on one side only differs by BIG.
 The reference sets its own float flags (TF32 off) and puts them back, so
 the timed path runs with the flags users get.
+
+The reference of a configuration is reference/flat.py's `flatten` and
+reference/tracer.py's `Reference`, unless its file names a module of its
+own (`"reference": "<module>"`, manifest.Cell.reference): then that
+module's `flatten(spec)` and `Reference(flat, device, dtype)`, with the
+methods called here (`pixels`, `adaptive`, `first_hits`).
 """
 
 from __future__ import annotations
@@ -45,9 +53,8 @@ import contextlib
 import numpy as np
 import torch
 
+from .reference import flat, tracer
 from .reference.compose import standard_stack
-from .reference.flat import flatten
-from .reference.tracer import Reference
 
 
 def _rng(seed: int, *key: int):
@@ -90,21 +97,45 @@ def numbers(port: np.ndarray, ref: np.ndarray, off_tol: float) -> dict:
             "off_share": float(np.mean(diff.max(axis=1) > off_tol * scale))}
 
 
-def reference_pixels(spec, traffic: dict, seeds, pixels, device, dtype=torch.float32) -> dict:
+def adaptive(profile: dict) -> bool:
+    """Whether a mix's layer runs adaptive epochs, as the port's
+    `EvaluationProfile` reads the profile: the path evaluator with
+    "adaptive" true (both the defaults)."""
+    return profile.get("evaluator", "path") == "path" and profile.get("adaptive", True)
+
+
+def build_reference(spec, device, dtype=torch.float32, module=None):
+    """The plain reference of a scene spec: `module`'s (a configuration's
+    own reference module) `Reference(flatten(spec), device, dtype)`, or,
+    with none, reference/flat.py's and reference/tracer.py's."""
+    flatten, reference = ((module.flatten, module.Reference) if module is not None
+                          else (flat.flatten, tracer.Reference))
+    return reference(flatten(spec), device, dtype)
+
+
+def _adaptive_pixels(ref, prof: dict, seeds, pixels, res):
+    return ref.adaptive(seeds, pixels, res, prof["samples_per_epoch"], prof["min_epoch"],
+                        prof["max_epoch"], prof["noise_threshold"], prof["bounce_limit"],
+                        prof["survivability"])
+
+
+def reference_pixels(spec, traffic: dict, seeds, pixels, device, dtype=torch.float32,
+                     module=None) -> dict:
     """The reference's layers at the (image seed, pixel id) pairs: "main"
     (P, 3) of a render_layer mix; "path" (P, 3) and "aov" (P, 7: albedo,
-    normal, depth) of a render mix."""
+    normal, depth) of a render mix. `module`: as `build_reference`."""
     prof = traffic["profile"]
     res = tuple(traffic["resolution"])
     with plain_float():
-        ref = Reference(flatten(spec), device, dtype)
+        ref = build_reference(spec, device, dtype, module)
         if traffic["entry"] == "render_layer":
-            px = ref.pixels(seeds, pixels, res, prof["samples_per_epoch"] * prof["max_epoch"],
-                            prof["bounce_limit"], prof["survivability"])
+            if adaptive(prof):
+                px = _adaptive_pixels(ref, prof, seeds, pixels, res)
+            else:
+                px = ref.pixels(seeds, pixels, res, prof["samples_per_epoch"] * prof["max_epoch"],
+                                prof["bounce_limit"], prof["survivability"])
             return {"main": px.cpu().numpy()}
-        path = ref.adaptive(seeds, pixels, res, prof["samples_per_epoch"], prof["min_epoch"],
-                            prof["max_epoch"], prof["noise_threshold"], prof["bounce_limit"],
-                            prof["survivability"])
+        path = _adaptive_pixels(ref, prof, seeds, pixels, res)
         alb, nd = ref.first_hits(seeds, pixels, res, traffic["aov_samples"])
         return {"path": path.cpu().numpy(), "aov": torch.cat([alb, nd], -1).cpu().numpy()}
 
@@ -128,16 +159,17 @@ def compare(port: dict, ref: dict, off_tol: float) -> dict:
 
 
 def whole_reference(images: list, spec, traffic: dict, device, dtype=torch.float32,
-                    block: int = 1 << 18) -> list:
+                    block: int = 1 << 18, module=None) -> list:
     """The reference's layers of whole images, each (image seed, the
     port's layers): "albedo" and "normal_depth" at every pixel (in blocks
     of `block` pixels), and "main", its stack over the port's path layer
-    and those two layers. Host arrays, float32."""
+    and those two layers. Host arrays, float32. `module`: as
+    `build_reference`."""
     width, height = traffic["resolution"]
     ids = np.arange(width * height)
     out = []
     with plain_float():
-        ref = Reference(flatten(spec), device, dtype)
+        ref = build_reference(spec, device, dtype, module)
         for seed, layers in images:
             alb, nd = [], []
             for a in range(0, ids.shape[0], block):
@@ -168,10 +200,13 @@ class Sample:
     `image_pixels` draws of each, and `compose_images` whole images (their
     place in the window, image seed and layers), a uniform reservoir over
     the window drawn from the seed, with `whole_pixels` more pixels of each
-    compared. A window so holds a few images in memory, not all of them."""
+    compared. A window so holds a few images in memory, not all of them.
+    `module` is the configuration's own reference module, None for the
+    default (`build_reference`)."""
 
-    def __init__(self, check: dict, traffic: dict, seed: int, pixels_per_image=None):
-        self.check, self.traffic, self.seed = check, traffic, seed
+    def __init__(self, check: dict, traffic: dict, seed: int, pixels_per_image=None,
+                 module=None):
+        self.check, self.traffic, self.seed, self.module = check, traffic, seed, module
         self.per_image = pixels_per_image or check["pixels_per_image"]
         self.res = tuple(traffic["resolution"])
         self.seeds, self.pixels, self.port, self.whole = [], [], [], []
@@ -210,11 +245,11 @@ class Sample:
 
     def reference(self, spec, device, dtype=torch.float32) -> dict:
         seeds, pixels, _ = self._pairs()
-        return reference_pixels(spec, self.traffic, seeds, pixels, device, dtype)
+        return reference_pixels(spec, self.traffic, seeds, pixels, device, dtype, self.module)
 
     def whole_reference(self, spec, device, dtype=torch.float32) -> list:
         return whole_reference([(s, layers) for _, s, layers in self.whole], spec,
-                               self.traffic, device, dtype)
+                               self.traffic, device, dtype, module=self.module)
 
     def whole_numbers(self, spec, device) -> dict:
         """The port's whole images against the reference's."""

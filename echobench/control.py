@@ -10,8 +10,10 @@ does and compares the port with the reference: the lower readings. For each of
 place: the control, whose readings are the upper ones. Beside them it reads
 two faults from the same images: each image compared as the one before it
 (a state returned unchanged), and, for a render_layer mix, the port at half
-the samples an epoch. Prints one JSON object of every reading; runs only
-on a CUDA device.
+the samples an epoch ("half_samples"), or, where the mix's layer is
+adaptive, the port with every pixel stopped after `min_epoch` epochs
+("min_epoch_only"). Prints one JSON object of every reading; runs only on
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,14 +48,19 @@ def main(argv=None) -> int:
     scene = port.prepare(spec, "cuda")
     tr = cell.traffic
     entry = port.Entry(tr)
-    half = None
+    fault, faulty = "half_samples", None
     if tr["entry"] == "render_layer":
-        prof = dict(tr["profile"], samples_per_epoch=max(1, tr["profile"]["samples_per_epoch"] // 2))
-        half = port.Entry(dict(tr, profile=prof))
+        prof = tr["profile"]
+        if check.adaptive(prof):
+            fault, prof = "min_epoch_only", dict(prof, max_epoch=prof["min_epoch"])
+        else:
+            prof = dict(prof, samples_per_epoch=max(1, prof["samples_per_epoch"] // 2))
+        faulty = port.Entry(dict(tr, profile=prof))
     tol = cell.check["off_tol"]
     per_image = a.pixels_per_image or cell.check["pixels_per_image"]
     out = {"workload": a.workload, "card": run.host_info()["card"], "pixels": per_image * a.images,
-           "sound": [], "control": [], "stale": [], "half_samples": []}
+           "sound": [], "control": [], "stale": [], fault: []}
+    sample_of = lambda seed: check.Sample(cell.check, tr, seed, per_image, module=cell.reference)
     g = np.random.Generator(np.random.PCG64(a.base_seed))
     for k in range(max(a.seeds, a.controls)):
         seed = int(g.integers(2**31, 2**33))
@@ -63,8 +70,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         images = [entry(scene, s)[0] for s in im_seeds]
         t1 = time.perf_counter()
-        sample = check.Sample(cell.check, tr, seed, per_image)
-        stale = check.Sample(cell.check, tr, seed, per_image)
+        sample, stale = sample_of(seed), sample_of(seed)
         for i, (s, im) in enumerate(zip(im_seeds, images)):
             sample.take(s, im)
             stale.take(s, images[i - 1])  # each image as the one before it
@@ -77,12 +83,11 @@ def main(argv=None) -> int:
                 sound.update(check.whole_numbers([w[2] for w in sample.whole], whole))
             out["sound"].append(dict(seed=seed, **sound))
             out["stale"].append(dict(seed=seed, **check.compare(stale.port_pixels(), ref, tol)))
-            if half is not None and k < 3:
-                h = check.Sample(cell.check, tr, seed, per_image)
+            if faulty is not None and k < 3:
+                h = sample_of(seed)
                 for s in im_seeds:
-                    h.take(s, half(scene, s)[0])
-                out["half_samples"].append(dict(seed=seed, **check.compare(h.port_pixels(), ref,
-                                                                           tol)))
+                    h.take(s, faulty(scene, s)[0])
+                out[fault].append(dict(seed=seed, **check.compare(h.port_pixels(), ref, tol)))
         if k < a.controls:
             ctl = check.compare(sample.reference(spec, "cuda", torch.bfloat16), ref, tol)
             if whole:  # the bfloat16 reference's whole images in the port's place

@@ -1,8 +1,10 @@
 """BENCHMARK.json and the files it names, found by name.
 
 A cell (an entry of "workloads") joins a configuration file (the "file" of
-its "configs" entry), whose scene generator is generators/<generator>.py,
-a traffic mix (traffic/<traffic>.json) and its check (checks/<cell>.json);
+its "configs" entry), whose scene generator is generators/<generator>.py
+and whose plain reference is reference/<reference>.py where the file names
+one ("reference"; check.py's default where it does not), a traffic mix
+(traffic/<traffic>.json) and its check (checks/<cell>.json);
 a metric's reader is metrics/<metric>.py, or, where there is none, the
 reader of the name's part before its first dot (metrics/<base>.py), so
 that `device_idle_pct.frames` and `device_idle_pct.standard` share one.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -29,6 +32,7 @@ class Cell:
     end_to_end: list  # BENCHMARK.json metric entries this cell reports
     per_layer: list
     generator: object  # the configuration's generators/<generator>.py `make`
+    reference: object = None  # its reference/<reference>.py module; None: check.py's default
 
     def scene(self):
         """The scene spec of the cell's configuration, from its generator."""
@@ -36,8 +40,11 @@ class Cell:
 
 
 def _load(path: Path, name: str):
+    """The file at `path` as the module `name`, registered in sys.modules
+    as an import would be (a dataclass needs it)."""
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
     spec.loader.exec_module(module)
     return module
 
@@ -77,6 +84,10 @@ def cell(root: Path, name: str, bench: dict | None = None) -> Cell:
         per_layer=[m for m in bench["per_layer"] if _applies(m, name, names)],
         generator=_load(bench_dir / "generators" / f"{generator}.py",
                         f"echobench_generator_{generator}").make,
+        # a module of the echobench.reference package: it may import flat and tracer
+        reference=(_load(bench_dir / "reference" / f"{config['reference']}.py",
+                         f"echobench.reference.{config['reference']}")
+                   if "reference" in config else None),
     )
 
 

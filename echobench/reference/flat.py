@@ -11,7 +11,8 @@ keyword arguments of the port's scene API that the reference covers):
 planes, spheres and meshes under a translation, diffuse, conductor,
 dielectric and emissive materials, one constant ambient light, a pinhole
 perspective camera; anything else is refused. A scene that needs more
-grows the reference here and in the tracer.
+brings a reference module of its own, which its configuration names
+(check.py, manifest.Cell.reference).
 """
 
 from __future__ import annotations

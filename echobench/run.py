@@ -160,7 +160,7 @@ def measure(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device,
         if cuda:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=acts)
-    sample = check.Sample(cell.check, cell.traffic, seed)
+    sample = check.Sample(cell.check, cell.traffic, seed, module=cell.reference)
     images, failed, events = window(entry, scene, seeds, seconds, sample,
                                     int(cell.traffic.get("trace_images", 10**9)), profiler)
     run = Run(cell.traffic, setup, images,

@@ -18,7 +18,7 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 def small(name, res=(24, 12), spp=8, per_image=80, stamp=False):
     """The cell at a size the CPU runs in seconds: a render mix at quality
     0.1 (8 samples an epoch, 2 epochs), wide enough for the watermark with
-    `stamp`."""
+    `stamp`; an adaptive render_layer mix at `spp` an epoch, 1..3 epochs."""
     c = manifest.cell(run.ROOT, name, BENCH)
     if c.config["generator"] == "sphere_grid":
         c.config = dict(c.config, args={"n_tris": 4000})
@@ -28,10 +28,15 @@ def small(name, res=(24, 12), spp=8, per_image=80, stamp=False):
             c.traffic["profile"], samples_per_epoch=8, max_epoch=2, noise_threshold=0.18))
         c.check = dict(c.check, pixels_per_image=per_image, compose_images=1, whole_pixels=16)
         return c
-    c.traffic = dict(c.traffic, resolution=list(res),
-                     profile=dict(c.traffic["profile"], samples_per_epoch=spp))
+    prof = dict(c.traffic["profile"], samples_per_epoch=spp)
+    if check.adaptive(prof):
+        prof.update(max_epoch=3, noise_threshold=0.18)
+    c.traffic = dict(c.traffic, resolution=list(res), profile=prof)
     c.check = dict(c.check, pixels_per_image=per_image)
     return c
+
+
+ADAPTIVE = [n for n in CELLS if check.adaptive(small(n).traffic["profile"])]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -107,6 +112,21 @@ def _half(monkeypatch):
     monkeypatch.setattr(render_mod, "render_layer", render_layer)
 
 
+def _min_epoch(monkeypatch):
+    """Every pixel stopped after `min_epoch` epochs: each adaptive path
+    layer renders its full-frame epochs alone."""
+    from echorenderer_tpu_torch.processes import render as render_mod
+
+    full = render_mod.render_layer
+
+    def render_layer(scene, profile, *args, **kw):
+        if profile.evaluator == "path" and profile.adaptive:
+            profile = dataclasses.replace(profile, max_epoch=profile.min_epoch)
+        return full(scene, profile, *args, **kw)
+
+    monkeypatch.setattr(render_mod, "render_layer", render_layer)
+
+
 class _Altered(port.Entry):
     """An answer altered where it is produced: a quarter of the image."""
 
@@ -117,16 +137,41 @@ class _Altered(port.Entry):
         return layers, infos
 
 
-@pytest.mark.parametrize("name", CELLS)
-@pytest.mark.parametrize("fault", ["stale", "half", "altered"])
+FAULTS = [(f, n) for f in ("stale", "half", "altered") for n in CELLS] + [
+    ("min_epoch", n) for n in ADAPTIVE]
+
+
+@pytest.mark.parametrize("fault,name", FAULTS, ids=[f"{f}-{n}" for f, n in FAULTS])
 def test_a_broken_timed_path_is_not_correct(monkeypatch, name, fault):
     if fault == "half":
         _half(monkeypatch)
+    elif fault == "min_epoch":
+        _min_epoch(monkeypatch)
     else:
         monkeypatch.setattr(port, "Entry", {"stale": _Stale, "altered": _Altered}[fault])
     r = run.measure(small(name), 2**32 + 78, 0.3, False, "cpu")
     assert r["attempted"] >= 1
     assert not r["correct"], r["check"]
+
+
+@pytest.mark.parametrize("name", [n for n in CELLS if small(n).traffic["entry"] == "render_layer"])
+def test_an_adaptive_layer_is_replayed_epoch_by_epoch(monkeypatch, name):
+    """A render_layer mix whose layer is adaptive goes through
+    `Reference.adaptive` and agrees with the port; any other goes through
+    `Reference.pixels`, as before."""
+    from echobench.reference import tracer
+
+    called = []
+    for method in ("pixels", "adaptive"):
+        def spy(self, *args, _method=method, _full=getattr(tracer.Reference, method)):
+            called.append(_method)
+            return _full(self, *args)
+
+        monkeypatch.setattr(tracer.Reference, method, spy)
+    c = small(name, res=(16, 10), per_image=60)
+    r = run.measure(c, 2**32 + 79, 0.2, False, "cpu")
+    assert called == ["adaptive" if name in ADAPTIVE else "pixels"]
+    assert r["correct"] and r["check"]["rel_err"]["value"] < 1e-5, r["check"]
 
 
 def test_pixels_and_whole_images_are_drawn_from_the_seed():

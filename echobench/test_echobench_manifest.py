@@ -55,6 +55,9 @@ def test_files_alone_add_a_cell_a_mix_and_a_metric(tmp_path):
     bench["per_layer"].append({"name": "images_done", "unit": "images", "better": "higher",
                                "source": "program_counter", "layer": "device",
                                "moves": "setup_s", "workloads": ["field80.tiny"]})
+    for m in bench["per_layer"]:
+        if m["name"] == "prepare_s":
+            m["workloads"].append("field80.tiny")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
 
     cell = manifest.cell(tmp_path, "field80.tiny")
@@ -139,3 +142,72 @@ def test_the_standard_mix_states_the_ports_profile(name):
     assert traffic["profile"] == want and path.adaptive
     assert albedo.evaluator == "albedo" and normal_depth.evaluator == "normal_depth"
     assert traffic["aov_samples"] == albedo.samples_per_epoch == normal_depth.samples_per_epoch
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
+def test_every_per_layer_metric_lists_its_cells(metric):
+    """Each per-layer metric names the cells it is read in, and each of them
+    reports the end-to-end metric it moves, so a cell added later never
+    owes it a reading."""
+    m = {m["name"]: m for m in BENCH["per_layer"]}[metric]
+    cells = {w["name"] for w in BENCH["workloads"]}
+    assert m["workloads"] and set(m["workloads"]) <= cells
+    for name in m["workloads"]:
+        assert m["moves"] in {e["name"] for e in manifest.cell(run.ROOT, name, BENCH).end_to_end}
+
+
+REFERENCE = '''
+from . import flat, tracer
+
+CALLS = []
+
+
+def flatten(spec):
+    CALLS.append("flatten")
+    return flat.flatten(spec)
+
+
+class Reference(tracer.Reference):
+    def __init__(self, scene, device, dtype):
+        CALLS.append("Reference")
+        super().__init__(scene, device, dtype)
+'''
+
+
+def test_a_configuration_brings_its_own_reference(tmp_path):
+    """A configuration file that names "reference" is checked by that module
+    of reference/, added as a file; one that names none by reference/flat.py
+    and reference/tracer.py, as before."""
+    from echobench import check
+    from echobench.reference import tracer
+
+    shutil.copytree(run.ROOT / "echobench", tmp_path / "echobench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((run.ROOT / "BENCHMARK.json").read_text())
+    d = tmp_path / "echobench"
+    (d / "reference" / "counted.py").write_text(REFERENCE)
+    config = json.loads((run.ROOT / "echobench" / "configs" / "sphere_field_80.json").read_text())
+    (d / "configs" / "field_counted.json").write_text(json.dumps(
+        dict(config, name="field_counted", reference="counted")))
+    (d / "checks" / "counted.image256.json").write_text(
+        (d / "checks" / "field80.image256.json").read_text())
+    bench["configs"].append({"name": "field_counted", "source": "a test",
+                             "file": "echobench/configs/field_counted.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": "counted.image256", "config": "field_counted",
+                               "traffic": "image256", "chips": 1, "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    plain = manifest.cell(tmp_path, "field80.image256", bench)
+    assert plain.reference is None
+    cell = manifest.cell(tmp_path, "counted.image256", bench)
+    assert cell.reference.__name__ == "echobench.reference.counted"
+    assert type(check.build_reference(plain.scene(), "cpu")) is tracer.Reference
+    assert isinstance(check.build_reference(cell.scene(), "cpu", module=cell.reference),
+                      cell.reference.Reference)
+    cell.reference.CALLS.clear()
+    cell.traffic = dict(cell.traffic, resolution=[16, 8],
+                        profile=dict(cell.traffic["profile"], samples_per_epoch=4))
+    result = run.measure(cell, 2**33 + 17, 0.2, False, "cpu", tmp_path, bench)
+    assert result["correct"], result["check"]
+    assert cell.reference.CALLS == ["flatten", "Reference"]
